@@ -1,8 +1,10 @@
 """Multi-boundary consistency solver math and the inference timestep grids.
 
 PyTorch counterpart of `invertible_cd_tpu/diffusion/solver.py`
-(`predicted_origin`, `SolverGrid`, `make_solver_grid`). The grids are host
-numpy ints; the hop math is elementwise tensor code.
+(`predicted_origin`, `SolverGrid`, `make_solver_grid`, and for training
+`TrainSolver`, `make_train_solver`, `parse_endpoints`). The inference grids
+are host numpy ints; the training solver's tables are tensors on one
+device; the hop math is elementwise tensor code.
 """
 from __future__ import annotations
 
@@ -132,4 +134,108 @@ def make_solver_grid(
         ddim_timesteps=ddim_ts,
         n_steps=n_steps,
         start_timestep=start_timestep,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Training-side solver
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TrainSolver:
+    """DDIM solver tables + CD endpoints for the four training losses, as
+    tensors on one device: `ddim_timesteps` with prev/next alpha-cumprod
+    tables, and the reverse / forward endpoint lists that define the
+    multi-boundary targets.
+    """
+
+    ddim_timesteps: torch.Tensor  # (N,) int64
+    ddim_alpha_cumprods: torch.Tensor  # (N,) float32
+    ddim_alpha_cumprods_prev: torch.Tensor  # (N,)
+    ddim_alpha_cumprods_next: torch.Tensor  # (N,)  (last entry 0.0)
+    endpoints: torch.Tensor  # (E,) int64, ascending, endpoints[0] == 0
+    forward_endpoints: torch.Tensor  # (F,) int64, ascending, last == T-1
+
+    def ddim_step(self, pred_x0, pred_noise, timestep_index):
+        """x_{t-1} from (x0, eps) at ddim index."""
+        acp_prev = extract(self.ddim_alpha_cumprods_prev, timestep_index, pred_x0.ndim)
+        return torch.sqrt(acp_prev) * pred_x0 + torch.sqrt(1.0 - acp_prev) * pred_noise
+
+    def forward_ddim_step(self, pred_x0, pred_noise, timestep_index):
+        """x_{t+1} from (x0, eps) at ddim index."""
+        acp_next = extract(self.ddim_alpha_cumprods_next, timestep_index, pred_x0.ndim)
+        return torch.sqrt(acp_next) * pred_x0 + torch.sqrt(1.0 - acp_next) * pred_noise
+
+    def reverse_boundaries_for(self, timesteps: torch.Tensor) -> torch.Tensor:
+        """Boundary s for each t: the largest endpoint <= t."""
+        le = timesteps[None, :] >= self.endpoints[:, None]  # (E, B)
+        idx = le.sum(dim=0) - 1
+        return self.endpoints[idx.clamp_min(0)]
+
+    def forward_boundaries_for(self, timesteps: torch.Tensor) -> torch.Tensor:
+        """Boundary s for each t: the smallest forward endpoint >= t."""
+        ge = timesteps[None, :] <= self.forward_endpoints[:, None]  # (F, B)
+        n = self.forward_endpoints.shape[0]
+        idx = n - ge.sum(dim=0)
+        return self.forward_endpoints[idx.clamp(0, n - 1)]
+
+
+def parse_endpoints(spec: str | Sequence[int]) -> np.ndarray:
+    """Parse "0,259,519,779"-style endpoint strings."""
+    if isinstance(spec, str):
+        return np.asarray([int(e) for e in spec.split(",")], dtype=np.int64)
+    return np.asarray(list(spec), dtype=np.int64)
+
+
+def make_train_solver(
+    alphas_cumprod,
+    num_train_timesteps: int = 1000,
+    num_ddim_timesteps: int = 50,
+    num_endpoints: int = 1,
+    num_forward_endpoints: int = 1,
+    endpoints: str | Sequence[int] | None = None,
+    forward_endpoints: str | Sequence[int] | None = None,
+    device="cpu",
+) -> TrainSolver:
+    """Build a TrainSolver on `device` from the schedule's alphas_cumprod
+    (tensor or array); the tables are computed on the host in float64."""
+    if isinstance(alphas_cumprod, torch.Tensor):
+        alphas_cumprod = alphas_cumprod.detach().cpu().numpy()
+    acp = np.asarray(alphas_cumprod, dtype=np.float64)
+    ddim_ts = ddim_timestep_grid(num_ddim_timesteps, num_train_timesteps)
+    acp_at = acp[ddim_ts]
+    acp_prev = np.concatenate([[acp[0]], acp_at[:-1]])
+    acp_next = np.concatenate([acp_at[1:], [0.0]])
+
+    def spread(n: int) -> np.ndarray:
+        interval = num_ddim_timesteps // n + int(num_ddim_timesteps % n > 0)
+        return np.arange(interval, num_ddim_timesteps, interval) - 1
+
+    if endpoints is None:
+        ep = np.concatenate([[0], ddim_ts[spread(num_endpoints)]]).astype(np.int64)
+    else:
+        ep = parse_endpoints(endpoints)
+        if len(ep) != num_endpoints:
+            raise ValueError(f"{len(ep)} endpoints given, num_endpoints={num_endpoints}")
+    if forward_endpoints is None:
+        idxs = np.concatenate([spread(num_forward_endpoints), [num_ddim_timesteps - 1]])
+        fep = ddim_ts[idxs].astype(np.int64)
+    else:
+        fep = parse_endpoints(forward_endpoints)
+        if len(fep) != num_forward_endpoints:
+            raise ValueError(
+                f"{len(fep)} forward endpoints given, num_forward_endpoints={num_forward_endpoints}")
+
+    def ints(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)
+
+    def floats(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32, device=device)
+
+    return TrainSolver(
+        ddim_timesteps=ints(ddim_ts),
+        ddim_alpha_cumprods=floats(acp_at),
+        ddim_alpha_cumprods_prev=floats(acp_prev),
+        ddim_alpha_cumprods_next=floats(acp_next),
+        endpoints=ints(ep),
+        forward_endpoints=ints(fep),
     )

@@ -1,6 +1,12 @@
 from .attention import AttnMeta
 from .clip import CLIPTextConfig, CLIPTextModel
-from .lora import DEFAULT_TARGET_PATTERNS, find_lora_targets, lora_delta, merge_lora
+from .lora import (
+    DEFAULT_TARGET_PATTERNS,
+    find_lora_targets,
+    init_lora,
+    lora_delta,
+    merge_lora,
+)
 from .unet2d import UNet2DCondition, UNetConfig, count_attention_layers
 from .vae import AutoencoderKL, VAEConfig
 
@@ -15,6 +21,7 @@ __all__ = [
     "VAEConfig",
     "count_attention_layers",
     "find_lora_targets",
+    "init_lora",
     "lora_delta",
     "merge_lora",
 ]

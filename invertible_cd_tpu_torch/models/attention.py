@@ -6,10 +6,12 @@ attention layer; a layer the hook applies to materialises its probabilities
 (`explicit_attention`), every other layer takes `fused_attention`, which on
 the card is always a hand-written kernel:
 
-  * head dim <= 256 (every UNet self- and cross-attention): kernel B1;
-  * head dim > 256 (the VAE's single d=512 head): kernel B2.
+  * head dim <= 256 (every UNet self- and cross-attention): kernel B1, and
+    under a gradient its backward kernels B3 (dQ) and B4 (dK, dV);
+  * head dim > 256 (the VAE's single d=512 head): kernel B2, whose backward
+    is plain PyTorch chunked over key tiles.
 
-On the CPU both wrappers compute the plain version.
+On the CPU both wrappers compute the plain versions, forward and backward.
 """
 from __future__ import annotations
 
@@ -52,7 +54,8 @@ AttnHook = Callable[[torch.Tensor, AttnMeta], torch.Tensor]
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Softmax attention on (B, S, H, D) tensors without materialised
-    probabilities: kernel B1 for head dims <= 256, B2 above."""
+    probabilities, differentiable: kernel B1 for head dims <= 256, B2
+    above."""
     if q.shape[-1] <= 256:
         return flash_attention(q, k, v)
     return flash_attention_streamed(q, k, v)

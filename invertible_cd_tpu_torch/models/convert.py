@@ -13,6 +13,8 @@ diffusers / transformers naming:
   * indexed module names `name_N` -> `name.N` (`to_out_0` -> `to_out.0`);
   * the VAE's `downsamplers_0` conv -> `downsamplers.0.conv`;
   * CLIP's `token_embedding/embedding` -> `text_model.embeddings.token_embedding.weight`.
+
+`lora_from_flax` carries a JAX adapter tree across with the same key renames.
 """
 from __future__ import annotations
 
@@ -102,4 +104,23 @@ def clip_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
             else:  # layer_norm1 / layer_norm2
                 key = f"{layer}.{sub[0]}"
         out[f"{key}.{leaf}"] = tensor
+    return out
+
+
+def lora_from_flax(tree) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's UNet adapter tree -> this package's adapter dict.
+
+    In: {"a/b/c/kernel": {"down": (in, r) | (kh, kw, in, r), "up": (r, out)}}
+    with numpy leaves. Out: {state-dict key of the adapted weight: {"down":
+    (r, in) | (r, in, kh, kw), "up": (out, r)}} (`models.lora` layout), keys
+    renamed as `unet_state_dict_from_flax` renames them."""
+    out = {}
+    for name, ab in tree.items():
+        path = [p for p in name.split("/") if p != "params"]
+        if path[-1] != "kernel":
+            raise ValueError(f"adapter path {name!r} does not end in 'kernel'")
+        key = ".".join([_module_name(p) for p in path[:-1] if p != "GroupNorm_0"] + ["weight"])
+        down, up = np.asarray(ab["down"]), np.asarray(ab["up"])
+        down = np.transpose(down, (3, 2, 0, 1)) if down.ndim == 4 else down.T
+        out[key] = {"down": torch.tensor(down), "up": torch.tensor(up.T)}
     return out

@@ -1,6 +1,6 @@
 """LoRA adapters on PyTorch state dicts.
 
-PyTorch counterpart of `lora_delta` / `merge_lora` in
+PyTorch counterpart of `init_lora` / `lora_delta` / `merge_lora` in
 `invertible_cd_tpu/models/lora.py`. An adapter set is a dict keyed by the
 state-dict key of the adapted weight, e.g.
 `"down_blocks.0.resnets.0.conv1.weight"`, each entry {"down": A, "up": B}
@@ -9,14 +9,17 @@ in torch (kohya) layout:
   * linear weight (out, in):        down (r, in),        up (out, r);
   * conv weight (out, in, kh, kw):  down (r, in, kh, kw), up (out, r).
 
-Merging gives W' = W + (alpha / r) * up∘down.
+Merging gives W' = W + (alpha / r) * up∘down; it is differentiable in
+`down` and `up`, which is how training reaches the adapters
+(`merged_state_dict` + `call_with_state`).
 """
 from __future__ import annotations
 
 import re
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+from torch.func import functional_call
 
 # Modules that receive adapters, in state-dict naming: attention q/k/v/out,
 # transformer proj_in/out, GEGLU + FF output, resnet convs + shortcut,
@@ -61,6 +64,28 @@ def seeded_lora(
     return lora
 
 
+def init_lora(
+    state_dict: Dict[str, torch.Tensor], generator: torch.Generator, rank: int = 64,
+    targets: Optional[Sequence[str]] = None, dtype=torch.float32,
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Training init for every target weight: down ~ N(0, 1/(in*kh*kw)) drawn
+    from `generator` on the weights' device, up = 0, so the adapter starts as
+    the identity."""
+    if targets is None:
+        targets = find_lora_targets(state_dict)
+    lora = {}
+    for key in targets:
+        w = state_dict[key]
+        if w.dim() not in (2, 4):
+            raise ValueError(f"Unsupported weight shape for LoRA: {tuple(w.shape)}")
+        fan_in = w[0].numel()
+        down = torch.randn((rank,) + tuple(w.shape[1:]), generator=generator,
+                           device=w.device, dtype=torch.float32) / fan_in**0.5
+        up = torch.zeros((w.shape[0], rank), device=w.device, dtype=dtype)
+        lora[key] = {"down": down.to(dtype), "up": up}
+    return lora
+
+
 def lora_delta(down: torch.Tensor, up: torch.Tensor, scale) -> torch.Tensor:
     """Densified adapter delta with the shape of the base weight."""
     if down.dim() == 2:
@@ -82,3 +107,30 @@ def merge_lora(
         delta = lora_delta(ab["down"].to(base.device), ab["up"].to(base.device), scale)
         out[key] = base + delta.to(base.dtype)
     return out
+
+
+def merged_state_dict(
+    state_dict: Dict[str, torch.Tensor], lora: Dict[str, Dict[str, torch.Tensor]],
+    alpha: float = 8.0, rank: int = 64, dtypes: Optional[Dict[str, torch.dtype]] = None,
+) -> Dict[str, torch.Tensor]:
+    """`merge_lora` in the weights' own precision (fp32 base, fp32 adapters),
+    then one cast of every tensor to `dtypes[key]` — the dtype the module
+    computes that parameter in (`compute_dtypes`). Differentiable in the
+    adapters."""
+    merged = merge_lora(state_dict, lora, alpha=alpha, rank=rank)
+    if dtypes is None:
+        return merged
+    return {key: t.to(dtypes[key]) for key, t in merged.items()}
+
+
+def compute_dtypes(module: torch.nn.Module) -> Dict[str, torch.dtype]:
+    """State-dict key -> dtype of the module's own tensor: after
+    `cast_compute_weights` the compute dtype, and fp32 for the norms."""
+    return {key: t.dtype for key, t in module.state_dict().items()}
+
+
+def call_with_state(module: torch.nn.Module, state: Dict[str, torch.Tensor], *args, **kwargs):
+    """`module(*args, **kwargs)` computed with the tensors of `state` in
+    place of the module's own parameters (no copy; gradients flow to whatever
+    `state` was computed from)."""
+    return functional_call(module, state, args, kwargs)

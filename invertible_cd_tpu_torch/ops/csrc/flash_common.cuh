@@ -1,11 +1,14 @@
-// Pieces shared by the flash-attention forward kernels B1 (flash_fwd.cu) and
-// B2 (flash_fwd_streamed.cu): bf16 tensor-core products, tile loads, and the
-// fp32 online-softmax update.
+// Pieces shared by the flash-attention kernels, forward B1 (flash_fwd.cu) and
+// B2 (flash_fwd_streamed.cu) and backward B3 (flash_bwd_dq.cu) and B4
+// (flash_bwd_dkdv.cu): bf16 tensor-core products, tile loads, the fp32
+// online-softmax update and the row stores.
 //
-// Both kernels take bf16 q (B, Sq, H, D) and k/v (B, Sk, H, D), contiguous,
-// the layout the model's projections produce (no head transpose), and write
-// o (B, Sq, H, D). Products use `mma.sync.m16n8k16` (bf16 in, fp32
-// accumulate) with the operand layouts of the PTX ISA:
+// All kernels take bf16 q (B, Sq, H, D) and k/v (B, Sk, H, D), contiguous,
+// the layout the model's projections produce (no head transpose); o, dO and
+// the gradients have the layout of the tensor they belong to, and the row
+// logsumexp is fp32 (B, H, Sq) in natural log. Products use
+// `mma.sync.m16n8k16` (bf16 in, fp32 accumulate) with the operand layouts of
+// the PTX ISA:
 //   A (16x16, row-major):  a0 = (g, 2t..2t+1)   a1 = (g+8, 2t..)
 //                          a2 = (g, 2t+8..)     a3 = (g+8, 2t+8..)
 //   B (16x8, k-major):     b0 = (k=2t.., n=g)   b1 = (k=2t+8.., n=g)
@@ -31,6 +34,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -58,6 +62,18 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int l
   a[1] = ld32(tile + (g + 8) * ld + k0 + 2 * t);
   a[2] = ld32(tile + g * ld + k0 + 8 + 2 * t);
   a[3] = ld32(tile + (g + 8) * ld + k0 + 8 + 2 * t);
+}
+
+// B operand (16 x 8, k-major) read transposed out of a row-major tile whose
+// rows are the k index: lanes 0..15 pass the address of row k0 + lane at
+// column n0 (8 bf16 = 16 bytes, 16-byte aligned); ldmatrix hands thread
+// (g, t) the pairs (k = 2t..2t+1, n = g) and (k = 2t+8.., n = g). Lanes
+// 16..31 pass any valid address.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(addr));
 }
 
 // Copies `rows` rows of d bf16 values (global row stride `gstride`) into a
@@ -154,6 +170,28 @@ __device__ __forceinline__ void probs_as_a(uint32_t (&a)[4], const float (&s)[NT
   a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 }
 
+// Multiplies rows g and g+8 of the accumulator tiles by `mul` and stores the
+// rows below `limit` and the columns below d; `col0` is the first column of
+// tile 0, `row0` the global row of g.
+template <int NT>
+__device__ __forceinline__ void store_rows_scaled(bf16* o, size_t row_stride,
+                                                  const float (&acc)[NT][4], const float (&mul)[2],
+                                                  int row0, int limit, int col0, int d, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= limit) continue;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = col0 + n * 8 + 2 * t;
+      if (col < d) {
+        *reinterpret_cast<uint32_t*>(o + (size_t)row * row_stride + col) =
+            pack_bf16(acc[n][2 * r] * mul[r], acc[n][2 * r + 1] * mul[r]);
+      }
+    }
+  }
+}
+
 // Divides rows g and g+8 of the accumulator tiles by max(l, 1e-30) and
 // stores the columns below d; `col0` is the first column of tile 0, `row0`
 // the global query row of g.
@@ -162,18 +200,20 @@ __device__ __forceinline__ void store_rows(bf16* o, size_t row_stride, const flo
                                            const float (&l)[2], int row0, int sq, int col0,
                                            int d, int t) {
   const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
+  store_rows_scaled<NT>(o, row_stride, acc, inv, row0, sq, col0, d, t);
+}
+
+// Writes the natural-log row logsumexp ln2 * (m + log2(l)) of rows g and g+8
+// (`m`/`l` in the base-2 domain of online_softmax) to `lse`, the (Sq,) fp32
+// row of this (batch, head). One thread of each quad writes; rows at or past
+// sq are not written.
+__device__ __forceinline__ void store_lse(float* lse, const float (&m)[2], const float (&l)[2],
+                                          int row0, int sq, int t) {
+  if (t != 0) return;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
-    if (row >= sq) continue;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int col = col0 + n * 8 + 2 * t;
-      if (col < d) {
-        *reinterpret_cast<uint32_t*>(o + (size_t)row * row_stride + col) =
-            pack_bf16(acc[n][2 * r] * inv[r], acc[n][2 * r + 1] * inv[r]);
-      }
-    }
+    if (row < sq) lse[row] = kLn2 * (m[r] + log2f(fmaxf(l[r], 1e-30f)));
   }
 }
 

@@ -25,7 +25,11 @@
 //     padded with zeros in shared memory while the scale stays the true
 //     1/sqrt(d).
 // Keys past Sk (the 77-key tail, or any Sk off the tile) get -1e30 logits
-// and zero V rows; l is clamped at 1e-30. Not yet done: cp.async/TMA double
+// and zero V rows; l is clamped at 1e-30. Under training the second entry
+// point also writes the fp32 row logsumexp (natural log, (B, H, Sq)) that
+// the backward kernels B3 and B4 recompute the probabilities from; the
+// inference entry point passes no pointer and writes nothing more, as the
+// reference's `_flash_op` does. Not yet done: cp.async/TMA double
 // buffering of the K/V tiles and wgmma, which the next version can add.
 #include "flash_common.cuh"
 
@@ -42,8 +46,8 @@ constexpr size_t b1_smem_bytes() {
 template <int DP>
 __global__ void __launch_bounds__(128)
 flash_fwd_b1(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o, int heads, int sq,
-             int sk, int d, float scale_log2) {
+             const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+             int heads, int sq, int sk, int d, float scale_log2) {
   constexpr int LDI = DP + 8;       // Q and K row stride (elements)
   constexpr int LDT = kB1Keys + 8;  // V^T row stride
   constexpr int NS = kB1Keys / 8;   // 8-key tiles of logits per warp
@@ -119,11 +123,12 @@ flash_fwd_b1(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   store_rows<NO>(ob, rs, acc, l, q0 + warp * 16 + g, sq, 0, d, t);
+  if (lse != nullptr) store_lse(lse + (size_t)blockIdx.y * sq, m, l, q0 + warp * 16 + g, sq, t);
 }
 
 template <int DP>
-int launch_b1(const void* q, const void* k, const void* v, void* o, int batch, int heads,
-              int sq, int sk, int d, float scale, void* stream) {
+int launch_b1(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+              int heads, int sq, int sk, int d, float scale, void* stream) {
   const size_t smem = b1_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_b1<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -131,8 +136,20 @@ int launch_b1(const void* q, const void* k, const void* v, void* o, int batch, i
   dim3 grid((sq + kB1Rows - 1) / kB1Rows, batch * heads);
   flash_fwd_b1<DP><<<grid, 128, smem, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), heads, sq, sk, d, scale * kLog2e);
+      static_cast<bf16*>(o), static_cast<float*>(lse), heads, sq, sk, d, scale * kLog2e);
   return (int)cudaGetLastError();
+}
+
+int dispatch_b1(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+                int heads, int sq, int sk, int d, float scale, void* stream) {
+#define ICD_B1_CASE(DP) \
+  if (d <= DP) return launch_b1<DP>(q, k, v, o, lse, batch, heads, sq, sk, d, scale, stream);
+  ICD_B1_CASE(48)
+  ICD_B1_CASE(80)
+  ICD_B1_CASE(160)
+  ICD_B1_CASE(256)
+#undef ICD_B1_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace icd
@@ -140,13 +157,13 @@ int launch_b1(const void* q, const void* k, const void* v, void* o, int batch, i
 extern "C" int icd_flash_fwd(const void* q, const void* k, const void* v, void* o,
                              int batch, int heads, int sq, int sk, int d,
                              float scale, void* stream) {
-  using namespace icd;
-#define ICD_B1_CASE(DP) \
-  if (d <= DP) return launch_b1<DP>(q, k, v, o, batch, heads, sq, sk, d, scale, stream);
-  ICD_B1_CASE(48)
-  ICD_B1_CASE(80)
-  ICD_B1_CASE(160)
-  ICD_B1_CASE(256)
-#undef ICD_B1_CASE
-  return (int)cudaErrorInvalidValue;
+  return icd::dispatch_b1(q, k, v, o, nullptr, batch, heads, sq, sk, d, scale, stream);
+}
+
+// The same kernel, also writing lse (B, H, Sq) fp32.
+extern "C" int icd_flash_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                                 void* lse, int batch, int heads, int sq, int sk, int d,
+                                 float scale, void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return icd::dispatch_b1(q, k, v, o, lse, batch, heads, sq, sk, d, scale, stream);
 }

@@ -26,7 +26,9 @@
 // keys; shared memory holds Q (66 KB), K (33 KB), V transposed (41 KB) and
 // the partial logits (32 KB): 170 KB, one block per SM. Products are
 // mma.sync.m16n8k16 in bf16 with fp32 accumulation; the softmax state is
-// fp32, as in B1 (flash_common.cuh).
+// fp32, as in B1 (flash_common.cuh). The second entry point also writes the
+// row logsumexp for the backward (which is plain PyTorch, as the reference's
+// `_streamed_backward_xla` is plain XLA).
 #include "flash_common.cuh"
 
 namespace icd {
@@ -46,8 +48,8 @@ constexpr size_t b2_smem_bytes() {
 
 __global__ void __launch_bounds__(kB2Warps * 32, 1)
 flash_fwd_b2(const bf16* __restrict__ q, const bf16* __restrict__ k,
-             const bf16* __restrict__ v, bf16* __restrict__ o, int heads, int sq,
-             int sk, int d, float scale_log2) {
+             const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+             int heads, int sq, int sk, int d, float scale_log2) {
   constexpr int LDI = kB2Dp + 8;
   constexpr int LDT = kB2Keys + 8;
   constexpr int NS = kB2Keys / 8;   // 8-key logit tiles
@@ -144,14 +146,13 @@ flash_fwd_b2(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   store_rows<NO>(ob, rs, acc, l, q0 + group * 16 + g, sq, c0, d, t);
+  // the 4 column warps of a row group hold identical m and l: the first writes
+  if (lse != nullptr && c0 == 0)
+    store_lse(lse + (size_t)blockIdx.y * sq, m, l, q0 + group * 16 + g, sq, t);
 }
 
-}  // namespace icd
-
-extern "C" int icd_flash_fwd_streamed(const void* q, const void* k, const void* v,
-                                      void* o, int batch, int heads, int sq, int sk,
-                                      int d, float scale, void* stream) {
-  using namespace icd;
+int launch_b2(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+              int heads, int sq, int sk, int d, float scale, void* stream) {
   if (d > kB2Dp) return (int)cudaErrorInvalidValue;
   const size_t smem = b2_smem_bytes();
   cudaError_t err = cudaFuncSetAttribute(
@@ -160,6 +161,22 @@ extern "C" int icd_flash_fwd_streamed(const void* q, const void* k, const void* 
   dim3 grid((sq + kB2Rows - 1) / kB2Rows, batch * heads);
   flash_fwd_b2<<<grid, kB2Warps * 32, smem, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), heads, sq, sk, d, scale * kLog2e);
+      static_cast<bf16*>(o), static_cast<float*>(lse), heads, sq, sk, d, scale * kLog2e);
   return (int)cudaGetLastError();
+}
+
+}  // namespace icd
+
+extern "C" int icd_flash_fwd_streamed(const void* q, const void* k, const void* v,
+                                      void* o, int batch, int heads, int sq, int sk,
+                                      int d, float scale, void* stream) {
+  return icd::launch_b2(q, k, v, o, nullptr, batch, heads, sq, sk, d, scale, stream);
+}
+
+// The same kernel, also writing lse (B, H, Sq) fp32.
+extern "C" int icd_flash_fwd_streamed_lse(const void* q, const void* k, const void* v,
+                                          void* o, void* lse, int batch, int heads, int sq,
+                                          int sk, int d, float scale, void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return icd::launch_b2(q, k, v, o, lse, batch, heads, sq, sk, d, scale, stream);
 }

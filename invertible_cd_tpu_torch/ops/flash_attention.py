@@ -1,24 +1,31 @@
-"""Flash-attention forward kernels B1 and B2 for Hopper, with their plain versions.
+"""Flash-attention kernels B1-B4 for Hopper, with their plain versions.
 
-PyTorch counterpart of `invertible_cd_tpu/ops/flash_attention.py`'s two
-forward kernels (the backward kernels come with training):
+PyTorch counterpart of `invertible_cd_tpu/ops/flash_attention.py`:
 
   * B1 `flash_attention`: head dim <= 256, every UNet self- and
     cross-attention (source `csrc/flash_fwd.cu`, replaces `_fwd_kernel`);
+    differentiable through
+  * B3 `flash_backward_dq` (`csrc/flash_bwd_dq.cu`, replaces `_dq_kernel`) and
+  * B4 `flash_backward_dkdv` (`csrc/flash_bwd_dkdv.cu`, replaces
+    `_dkdv_kernel`), tied together by `FlashAttentionFn`;
   * B2 `flash_attention_streamed`: 256 < head dim <= 512, the VAE mid-block
     head (source `csrc/flash_fwd_streamed.cu`, replaces
-    `_fwd_kernel_streamed`).
+    `_fwd_kernel_streamed`); its backward is plain PyTorch chunked over key
+    tiles (`attention_backward_chunked`), as the reference's is plain XLA.
 
-Both take q (B, Sq, H, D) and k/v (B, Sk, H, D), bf16 and contiguous — the
-layout the attention projections produce — and return (B, Sq, H, D).
+All take q (B, Sq, H, D) and k/v (B, Sk, H, D), bf16 and contiguous — the
+layout the attention projections produce — and return (B, Sq, H, D). The
+row logsumexp that the backward recomputes the probabilities from is fp32
+(B, H, Sq), natural log; a forward writes it only when a gradient is needed.
 
 Each kernel is CUDA C++ for sm_90a with a plain C interface: it is compiled
 with nvcc into `build/kernels/` at first use (seconds; the library name
 carries a hash of the sources, so an edited source rebuilds) and bound with
-ctypes. A wrapper given CPU tensors computes the plain version instead; given
-CUDA tensors it launches its kernel or raises. `LAUNCH_SHAPES` counts
-kernel launches per (kernel, Sq, Sk, D); `launches(name)` sums them per
-kernel.
+ctypes. A wrapper given CPU tensors computes the plain version instead (the
+backward wrappers the plain explicit backward, not autograd's); given CUDA
+tensors it launches its kernel or raises. `LAUNCH_SHAPES` counts kernel
+launches per (kernel, Sq, Sk, D); `launches(name)` sums them per kernel.
+The logsumexp variants of B1 and B2 count under their kernel's name.
 """
 from __future__ import annotations
 
@@ -28,7 +35,7 @@ import hashlib
 import os
 import subprocess
 import threading
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 import torch
 
@@ -40,8 +47,20 @@ BUILD_DIR = os.path.join(_REPO, "build", "kernels")
 KERNELS: Dict[str, tuple] = {
     "flash_fwd": ("flash_fwd.cu", "icd_flash_fwd"),
     "flash_fwd_streamed": ("flash_fwd_streamed.cu", "icd_flash_fwd_streamed"),
+    "flash_bwd_dq": ("flash_bwd_dq.cu", "icd_flash_bwd_dq"),
+    "flash_bwd_dkdv": ("flash_bwd_dkdv.cu", "icd_flash_bwd_dkdv"),
 }
 _HEADERS = ("flash_common.cuh",)
+#: C entry point -> number of leading pointer arguments; every entry point is
+#: (pointers..., batch, heads, sq, sk, d, scale, stream) -> CUDA error code
+_ENTRY_POINTERS: Dict[str, int] = {
+    "icd_flash_fwd": 4,                 # q k v o
+    "icd_flash_fwd_lse": 5,             # q k v o lse
+    "icd_flash_fwd_streamed": 4,
+    "icd_flash_fwd_streamed_lse": 5,
+    "icd_flash_bwd_dq": 7,              # q k v o do lse dq
+    "icd_flash_bwd_dkdv": 8,            # q k v o do lse dk dv
+}
 
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
@@ -129,17 +148,24 @@ def _lib(name: str) -> ctypes.CDLL:
     if not os.path.exists(path):
         build([name])
     lib = ctypes.CDLL(path)
-    fn = getattr(lib, KERNELS[name][1])
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_float, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
     _libs[name] = lib
     return lib
 
 
+def _entry(name: str, entry: str):
+    """The C function `entry` of kernel `name`'s library, with its argument
+    types set (a pointer passed without them would be cut to 32 bits)."""
+    fn = getattr(_lib(name), entry)
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * _ENTRY_POINTERS[entry] + [ctypes.c_int] * 5 + [
+            ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 # ---------------------------------------------------------------------------
-# plain version (the kernels' reference, and the CPU path)
+# plain versions (the kernels' references, and the CPU path)
 # ---------------------------------------------------------------------------
 def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T / sqrt(d)) v in fp32 on the (B, S, H, D) layout,
@@ -150,23 +176,85 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
 
 
+def attention_plain_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`attention_plain` and the fp32 row logsumexp of the scaled logits,
+    (B, H, Sq), natural log."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None])
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype), lse
+
+
+def attention_backward_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The explicit flash backward in fp32, as B3 and B4 compute it: P is
+    recomputed from `lse`, delta = rowsum(dO * O), dS = P * (dP - delta),
+    dQ = scale dS K, dK = scale dS^T Q, dV = P^T dO. Returns (dq, dk, dv) in
+    the dtypes of q, k, v."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    probs = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None])
+    delta = (dof * o.float()).sum(-1).permute(0, 2, 1)  # (B, H, Sq)
+    dprobs = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = probs * (dprobs - delta[..., None])
+    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    dv = torch.einsum("bhqk,bqhd->bkhd", probs, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_backward_chunked(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, block_k: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The same backward, one key tile at a time, so that only (B, H, Sq,
+    block_k) fp32 intermediates exist at once: B2's backward (counterpart of
+    `_streamed_backward_xla`; the large-head shapes are not under grad on any
+    hot path, so this favours bounded memory over speed). dS and P are
+    rounded to the input dtype before their products, as there."""
+    scale = q.shape[-1] ** -0.5
+    qf, dof = q.float(), do.float()
+    delta = (dof * o.float()).sum(-1).permute(0, 2, 1)[..., None]  # (B, H, Sq, 1)
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for start in range(0, k.shape[1], block_k):
+        k_t = k[:, start:start + block_k].float()
+        v_t = v[:, start:start + block_k].float()
+        probs = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, k_t) * scale - lse[..., None])
+        dprobs = torch.einsum("bqhd,bkhd->bhqk", dof, v_t)
+        ds = (probs * (dprobs - delta) * scale).to(q.dtype).float()
+        dq += torch.einsum("bhqk,bkhd->bqhd", ds, k_t)
+        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, qf).to(k.dtype))
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", probs.to(do.dtype).float(), dof).to(v.dtype))
+    return dq.to(q.dtype), torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+
+
 # ---------------------------------------------------------------------------
-# wrappers
+# kernel wrappers
 # ---------------------------------------------------------------------------
+def _check_tensor(name: str, t: torch.Tensor, like: torch.Tensor, dtype=torch.bfloat16):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} is on {t.device}; every tensor must be on one CUDA device")
+    if t.device != like.device:
+        raise ValueError(f"{name} lies on another device than q")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}; the kernel takes {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
 def _check(q, k, v, max_d: int, min_d: int):
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} is on {t.device}; all of q, k, v must be on one CUDA device")
-        if t.device != q.device:
-            raise ValueError("q, k, v lie on different devices")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name} is {t.dtype}; the kernel takes bfloat16")
+        _check_tensor(name, t, q)
         if t.dim() != 4:
             raise ValueError(f"{name} must be (B, S, H, D), got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
     b, sq, h, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2] != h or k.shape[3] != d:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
@@ -176,32 +264,134 @@ def _check(q, k, v, max_d: int, min_d: int):
         raise ValueError(f"unsupported shape q {tuple(q.shape)} k {tuple(k.shape)}")
 
 
-def _launch(name: str, q, k, v) -> torch.Tensor:
+def _check_backward(q, k, v, o, lse, do):
+    _check(q, k, v, max_d=256, min_d=0)
+    for name, t in (("o", o), ("do", do)):
+        _check_tensor(name, t, q)
+        if t.shape != q.shape:
+            raise ValueError(f"{name} {tuple(t.shape)} must have q's shape {tuple(q.shape)}")
+    _check_tensor("lse", lse, q, dtype=torch.float32)
+    b, sq, h, _ = q.shape
+    if tuple(lse.shape) != (b, h, sq):
+        raise ValueError(f"lse {tuple(lse.shape)} must be (B, H, Sq) = {(b, h, sq)}")
+
+
+def _launch(name: str, entry: str, q, k, pointers) -> None:
+    """Launch `entry` of kernel `name` on q's device and current stream and
+    count it; raises if the launch is refused."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    o = torch.empty_like(q)
-    fn = getattr(_lib(name), KERNELS[name][1])
+    fn = _entry(name, entry)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                b, h, sq, sk, d, float(d) ** -0.5, stream)
+        rc = fn(*(t.data_ptr() for t in pointers), b, h, sq, sk, d, float(d) ** -0.5, stream)
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
+        raise RuntimeError(f"{entry} launch failed with CUDA error {rc}")
     LAUNCH_SHAPES[(name, sq, sk, d)] += 1
-    return o
+
+
+def _forward(name: str, q, k, v, with_lse: bool):
+    """Kernel B1 or B2 on checked CUDA tensors -> (o, lse or None)."""
+    o = torch.empty_like(q)
+    entry = KERNELS[name][1]
+    if not with_lse:
+        _launch(name, entry, q, k, (q, k, v, o))
+        return o, None
+    b, sq, h, _ = q.shape
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _launch(name, entry + "_lse", q, k, (q, k, v, o, lse))
+    return o, lse
+
+
+def flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Kernel B1 writing the logsumexp as well -> (o, lse (B, H, Sq) fp32).
+    CPU tensors take `attention_plain_lse`."""
+    if q.device.type == "cpu":
+        return attention_plain_lse(q, k, v)
+    _check(q, k, v, max_d=256, min_d=0)
+    return _forward("flash_fwd", q, k, v, with_lse=True)
+
+
+def flash_backward_dq(q, k, v, o, lse, do) -> torch.Tensor:
+    """Kernel B3: dQ of softmax(q k^T / sqrt(d)) v given o, lse and dO.
+    CPU tensors take `attention_backward_plain`."""
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, o, lse, do)[0]
+    _check_backward(q, k, v, o, lse, do)
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq", KERNELS["flash_bwd_dq"][1], q, k, (q, k, v, o, do, lse, dq))
+    return dq
+
+
+def flash_backward_dkdv(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B4: (dK, dV) of the same function. CPU tensors take
+    `attention_backward_plain`."""
+    if q.device.type == "cpu":
+        return attention_backward_plain(q, k, v, o, lse, do)[1:]
+    _check_backward(q, k, v, o, lse, do)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkdv", KERNELS["flash_bwd_dkdv"][1], q, k, (q, k, v, o, do, lse, dk, dv))
+    return dk, dv
+
+
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether a backward can follow this call (inside a Function's forward
+    grad mode is always off, so this is decided before `apply`)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """B1 forward (with the logsumexp only when a gradient is needed), B3
+    and B4 backward. On CPU tensors the plain forward and the plain explicit
+    backward run through the same Function."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, need_grad: bool):
+        if q.device.type == "cpu":
+            o, lse = attention_plain_lse(q, k, v) if need_grad else (attention_plain(q, k, v), None)
+        else:
+            _check(q, k, v, max_d=256, min_d=0)
+            o, lse = _forward("flash_fwd", q, k, v, with_lse=need_grad)
+        if need_grad:
+            ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype).contiguous()
+        dq = flash_backward_dq(q, k, v, o, lse, do)
+        dk, dv = flash_backward_dkdv(q, k, v, o, lse, do)
+        return dq, dk, dv, None
+
+
+class FlashAttentionStreamedFn(torch.autograd.Function):
+    """B2 forward; the backward is `attention_backward_chunked`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, need_grad: bool):
+        if q.device.type == "cpu":
+            o, lse = attention_plain_lse(q, k, v) if need_grad else (attention_plain(q, k, v), None)
+        else:
+            _check(q, k, v, max_d=512, min_d=256)
+            o, lse = _forward("flash_fwd_streamed", q, k, v, with_lse=need_grad)
+        if need_grad:
+            ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*attention_backward_chunked(q, k, v, o, lse, do.to(q.dtype)), None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Kernel B1 (head dim <= 256). CPU tensors take the plain version."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v)
-    _check(q, k, v, max_d=256, min_d=0)
-    return _launch("flash_fwd", q, k, v)
+    """Kernel B1 (head dim <= 256), differentiable through B3 and B4. CPU
+    tensors take the plain versions."""
+    return FlashAttentionFn.apply(q, k, v, _needs_grad(q, k, v))
 
 
 def flash_attention_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Kernel B2 (256 < head dim <= 512). CPU tensors take the plain version."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v)
-    _check(q, k, v, max_d=512, min_d=256)
-    return _launch("flash_fwd_streamed", q, k, v)
+    """Kernel B2 (256 < head dim <= 512), differentiable through the chunked
+    plain backward. CPU tensors take the plain versions."""
+    return FlashAttentionStreamedFn.apply(q, k, v, _needs_grad(q, k, v))

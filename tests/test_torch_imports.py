@@ -1,6 +1,7 @@
 """The PyTorch port imports nothing of JAX: importing every module of
 `invertible_cd_tpu_torch`, and `chip_smoke.py`, in a fresh interpreter
-leaves `jax`, `flax` and `invertible_cd_tpu` out of `sys.modules`."""
+leaves `jax`, `flax`, `optax`, `orbax` and `invertible_cd_tpu` out of
+`sys.modules`."""
 import os
 import pkgutil
 import subprocess
@@ -22,7 +23,9 @@ def _port_modules():
 def test_port_modules_are_all_found():
     mods = set(_port_modules())
     for name in ("ops.flash_attention", "models.unet2d", "models.convert",
-                 "pipelines.pipeline", "testing", "utils.tokenizer"):
+                 "pipelines.pipeline", "testing", "utils.tokenizer", "utils.logging",
+                 "training.losses", "training.trainer", "training.checkpoint",
+                 "cli.train_icd"):
         assert f"invertible_cd_tpu_torch.{name}" in mods
 
 
@@ -32,7 +35,7 @@ def test_port_and_chip_smoke_import_no_jax():
         f"for m in {_port_modules()!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'invertible_cd_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'invertible_cd_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
