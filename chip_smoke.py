@@ -42,7 +42,22 @@ nothing of JAX. Phases, each of which must pass:
              ms per step, samples/s, peak memory, one traced step; and the
              adapter gradient of `reverse_cd_loss` through the kernels
              against the same gradient through materialised attention;
-  6. prints the kernels' JSON line, then the device JSON as the last line.
+  6. harness (run between phases 3 and 4): `cli.exp_softmax.main` runs
+             kernel B5's five softmax variants at the tool's headline shape
+             (G=128, S=4096, D=64) and the port's (G=32, S=4096, D=40),
+             launches counted; each variant's output from that run is held
+             against `flash_variant_plain` at the kernel's key tile on the
+             same inputs at full G (same limit as the forward kernels), the
+             plain call timed beside it, SDPA and the bound; the two bf16
+             variants also on `variant_probe` inputs, where the kernel must
+             sit within PROBE_RATIO of the variant's distance from base of
+             its own plain version; B1 at 4096/40 is set beside B5 `exp2`
+             at G=32 (B1's earlier mma.sync design doing the same work);
+  7. prints the kernels' JSON line, then the device JSON as the last line.
+
+Every bound is the largest of FLOPs / 989e12, exponentials / 3.9e12 (7.8e12
+for B5's exp2bf16, whose ex2.approx.bf16x2 does two a MUFU issue) and
+bytes / 3.35e12, in ms; "bound_limit" names which.
 
 Exits non-zero, without the last line, if any phase fails or no CUDA
 device is available.
@@ -62,6 +77,10 @@ import traceback
 # Published dense peaks of one H100 SXM (at its 700 W limit).
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# fp32 exponentials a second: the MUFU unit issues 16 a clock per SM, 132 SMs
+# at 1.83 GHz (the figure FlashAttention-3's paper quotes for the H100 SXM);
+# ex2.approx.bf16x2 does two a issue.
+PEAK_EXP_PER_S = 3.9e12
 
 BATCH = 4
 PROMPTS = [
@@ -103,6 +122,8 @@ SOURCES = {
                      "invertible_cd_tpu/ops/flash_attention.py:353"),
     "flash_bwd_dkdv": ("invertible_cd_tpu_torch/ops/csrc/flash_bwd_dkdv.cu",
                        "invertible_cd_tpu/ops/flash_attention.py:419"),
+    "flash_variant": ("invertible_cd_tpu_torch/ops/csrc/flash_variant.cu",
+                      "tools/exp_softmax.py:53"),
 }
 # (kernel, Sq, Sk, heads, head dim) at the main path's batch
 SHAPES = [
@@ -121,14 +142,25 @@ SHAPES = [
 LAYERS_PER_CALL = {4096: 5, 1024: 5, 256: 5, 64: 1}
 
 
+def bound(flops: float, exps: float, nbytes: float, exp_rate: float = PEAK_EXP_PER_S) -> dict:
+    """The least time the card could take for the work: the largest of its
+    FLOPs, exponentials and bytes over their peak rates."""
+    times = {"flops": flops / PEAK_BF16_FLOPS * 1e3, "exponentials": exps / exp_rate * 1e3,
+             "bytes": nbytes / PEAK_BYTES * 1e3}
+    limit = max(times, key=times.get)
+    return {"bound_ms": times[limit], "bound_by": "bytes" if limit == "bytes" else "operations",
+            "bound_limit": limit}
+
+
 def check(ok: bool, message: str) -> None:
     """A check that holds under `python -O` too."""
     if not ok:
         raise AssertionError(message)
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of `fn` in ms (CUDA events around each call)."""
+def cuda_timed(fn, reps: int = 10, warmup: int = 2):
+    """Median device time of `fn` in ms (CUDA events around each call), and
+    the last call's result."""
     import torch
 
     for _ in range(warmup):
@@ -138,11 +170,16 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        result = fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(times), result
+
+
+def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median device time of `fn` in ms (CUDA events around each call)."""
+    return cuda_timed(fn, reps, warmup)[0]
 
 
 def phase_card():
@@ -216,7 +253,6 @@ def phase_kernels(card: str):
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
         flops = 4.0 * BATCH * h * sq * sk * d
         nbytes = 2.0 * BATCH * h * d * (2 * sq + 2 * sk)  # q, k, v read once, o written once
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
         rows.append({
             "name": f"{name}[sq={sq},sk={sk},h={h},d={d}]",
             "kernel": name,
@@ -227,8 +263,7 @@ def phase_kernels(card: str):
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            **bound(flops, BATCH * h * sq * sk, nbytes),
             "library_ms": library_ms,
             **lse_fields,
         })
@@ -237,7 +272,7 @@ def phase_kernels(card: str):
         print(f"  {rows[-1]['name']:<44} err {err:.2e} (max|ref| {ref_max:.3f}, "
               f"err/max|ref| {err / ref_max:.2e}, limit {limit:.2e})  "
               f"kernel {ms:.3f} ms{with_lse}  plain {plain_ms:.3f} ms  sdpa {library_ms:.3f} ms  "
-              f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']})  "
+              f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_limit']})  "
               f"{flops / ms / 1e9:.1f} TFLOP/s  {'ok' if ok else 'FAIL'}")
         del q, k, v, out, ref
         torch.cuda.empty_cache()
@@ -311,7 +346,6 @@ def phase_backward_kernels(card: str):
         products = {"flash_bwd_dq": 3, "flash_bwd_dkdv": 4}
         for kernel, grads in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkdv", ("dk", "dv"))):
             flops = 2.0 * products[kernel] * g * sq * sk * d
-            t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes[kernel] / PEAK_BYTES * 1e3
             rows.append({
                 "name": f"{kernel}[sq={sq},sk={sk},h={h},d={d}]",
                 "kernel": kernel,
@@ -323,8 +357,7 @@ def phase_backward_kernels(card: str):
                 "rel_err": max(errs[n][0] / errs[n][1] for n in grads),
                 "ms": times[kernel],
                 "plain_ms": plain_ms,
-                "bound_ms": max(t_ops, t_bytes),
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                **bound(flops, g * sq * sk, nbytes[kernel]),  # each recomputes P
                 "library_ms": library_ms,
             })
             r = rows[-1]
@@ -332,12 +365,121 @@ def phase_backward_kernels(card: str):
                   + " ".join(f"{n} err {errs[n][0]:.2e} (/max|ref| {errs[n][0] / errs[n][1]:.2e})"
                              for n in grads)
                   + f"  kernel {r['ms']:.3f} ms  plain bwd {plain_ms:.3f} ms  sdpa bwd "
-                    f"{library_ms:.3f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
+                    f"{library_ms:.3f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_limit']})  "
                     f"{flops / r['ms'] / 1e9:.1f} TFLOP/s  repeat {'same bits' if same else 'DIFFERS'}")
         del q, k, v, do, o, lse, dq, dk, dv, qt, kt, vt, sdpa_out
         torch.cuda.empty_cache()
     check(not failures, "backward kernel mismatch: " + "; ".join(failures))
     return rows
+
+
+HARNESS_ITERS = 10
+# On `variant_probe` inputs a bf16 variant's kernel must sit within this
+# share of the variant's distance from base (max abs, both plain in fp32) of
+# its own plain version. The kernel and the plain version take the same bf16
+# p there, so only the output's bf16 rounding parts them (<= 2^-10 at
+# |o| < 0.5), against a distance of 7e-3 to 1.5e-2; a kernel that skipped the
+# variant's rounding would be off by the whole distance (ratio ~1).
+PROBE_RATIO = 0.25
+
+
+def phase_harness(card: str, b1_rows):
+    """The harness path: `cli.exp_softmax.main` at both of its shapes with the
+    counts reset just before and read just after; then each variant's output
+    from that run against `flash_variant_plain` at the kernel's key tile on
+    the same inputs (one timed plain call gives both `plain_ms` and the
+    reference), and the bf16 variants on `variant_probe` inputs."""
+    import torch
+
+    from invertible_cd_tpu_torch.cli import exp_softmax
+    from invertible_cd_tpu_torch.ops import flash_attention as fa
+    from invertible_cd_tpu_torch.ops import flash_variant as fv
+
+    print(f"harness: cli.exp_softmax.main ({card}):")
+    # ---- the harness path: counts reset just before, read just after ----
+    fa.reset_launch_counts()
+    results = exp_softmax.main(["--iters", str(HARNESS_ITERS)])
+    torch.cuda.synchronize()
+    shape_launches = collections.Counter(fa.LAUNCH_SHAPES)
+    # --------------------------------------------------------------------
+    rows = []
+    failures = []
+    for res in results:
+        g, s, d = res["shape"]
+        q, k, v = exp_softmax.make_inputs(res["shape"], torch.device("cuda"))
+        for r in res["variants"]:
+            variant, out = r["variant"], r.pop("out")
+            plain_ms, ref = cuda_timed(lambda: fv.flash_variant_plain(
+                q, k, v, variant, block_k=fv.KEY_TILE, scale=exp_softmax.SCALE), reps=3, warmup=1)
+            err = (out.float() - ref.float()).abs().max().item()
+            limit = KERNEL_TOL * min(1.0, ref.float().abs().max().item())
+            if not (err <= limit and bool(torch.isfinite(out).all())):
+                failures.append(f"{variant} G={g} S={s} D={d}: max abs err {err} > {limit}")
+            del out, ref
+            probe = {}
+            if variant in fv.BF16_VARIANTS:
+                probe = probe_variant(fv, variant, (g, s, d), exp_softmax.SCALE)
+                if not probe["probe_err"] <= PROBE_RATIO * probe["probe_gap"]:
+                    failures.append(f"{variant} G={g} S={s} D={d} on the probe: max abs err "
+                                    f"{probe['probe_err']} > {PROBE_RATIO} * {probe['probe_gap']}")
+            # ex2.approx.bf16x2 does two exponentials a MUFU issue; bf16exp's h2exp
+            # widens each half to fp32 and takes two fp32 ex2 (the toolkit's sequence)
+            bf16x2 = variant == "exp2bf16"
+            flops = 4.0 * g * s * s * d
+            rows.append({
+                "name": f"flash_variant[{variant},g={g},s={s},d={d}]",
+                "kernel": "flash_variant",
+                "variant": variant,
+                "shape": [s, s, d],
+                "route": "cuda",
+                "source": SOURCES["flash_variant"][0],
+                "replaces": SOURCES["flash_variant"][1],
+                "launches": shape_launches[("flash_variant", s, s, d, variant)],
+                "max_abs_err": err,
+                "max_abs_diff_vs_base": r["max_abs_diff_vs_base"],
+                **probe,
+                "ms": r["ms"],
+                "plain_ms": plain_ms,
+                **bound(flops, g * s * s, 2.0 * g * s * d * 4,
+                        exp_rate=PEAK_EXP_PER_S * (2 if bf16x2 else 1)),
+                "library_ms": res["library_ms"],
+            })
+            row = rows[-1]
+            on_probe = (f"  probe err {probe['probe_err']:.2e} vs distance from base "
+                        f"{probe['probe_gap']:.2e}" if probe else "")
+            print(f"  {row['name']:<44} err vs plain {err:.2e} (limit {limit:.2e}){on_probe}  kernel "
+                  f"{row['ms']:.3f} ms  plain {plain_ms:.3f} ms  sdpa {row['library_ms']:.3f} ms  "
+                  f"bound {row['bound_ms']:.4f} ms ({row['bound_limit']})  "
+                  f"{row['bound_ms'] / row['ms']:.2f} of bound  {flops / row['ms'] / 1e9:.1f} TFLOP/s  "
+                  f"launches {row['launches']}")
+        del q, k, v, res["variants"]
+        torch.cuda.empty_cache()
+    check(not failures, "harness kernel mismatch: " + "; ".join(failures))
+    check(all(r["launches"] > 0 for r in rows), "a variant was not launched by the harness")
+    b1 = next(r for r in b1_rows if r["kernel"] == "flash_fwd" and r["shape"] == [4096, 4096, 40])
+    b5 = next(r for r in rows if r["variant"] == "exp2" and r["shape"] == [4096, 4096, 40])
+    print(f"  B1 at 4096/4096/40, batch {BATCH} x 8 heads: {b1['ms']:.3f} ms; B5 exp2 (the mma.sync "
+          f"design) at G=32: {b5['ms']:.3f} ms; B1 {'faster' if b1['ms'] < b5['ms'] else 'NOT faster'}"
+          f" by {b5['ms'] / b1['ms']:.2f}x ({card})")
+    return rows
+
+
+def probe_variant(fv, variant: str, shape, scale: float) -> dict:
+    """B5 `variant` on `variant_probe` inputs of `shape`: its max abs error
+    against the variant's plain version, and the variant's distance from
+    base (both plain, fp32 inputs and output, at the kernel's key tile)."""
+    import torch
+
+    q, k, v = fv.variant_probe(*shape, variant, scale, device="cuda")
+    out = fv.flash_variant(q, k, v, variant, scale=scale)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = fv.flash_variant_plain(qf, kf, vf, variant, block_k=fv.KEY_TILE, scale=scale)
+    base = fv.flash_variant_plain(qf, kf, vf, "base", block_k=fv.KEY_TILE, scale=scale)
+    result = {"probe_err": (out.float() - want).abs().max().item(),
+              "probe_gap": (want - base).abs().max().item()}
+    del q, k, v, qf, kf, vf, out, want, base
+    torch.cuda.empty_cache()
+    return result
 
 
 def phase_main_path(card: str):
@@ -372,7 +514,8 @@ def phase_main_path(card: str):
     images4, lat4 = pipe.generate(PROMPTS, latent=latent4)
     torch.cuda.synchronize()
     gen4_s = time.perf_counter() - t0
-    want = {"flash_fwd": 128, "flash_fwd_streamed": 1, "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
+    want = {"flash_fwd": 128, "flash_fwd_streamed": 1, "flash_bwd_dq": 0, "flash_bwd_dkdv": 0,
+            "flash_variant": 0}
     after4 = {name: fa.launches(name) for name in want}
     t0 = time.perf_counter()
     images1, lat1 = pipe.generate(PROMPTS[:1], latent=latent1)
@@ -588,7 +731,7 @@ def phase_training(card: str, pipe):
     print(f"  launches per train step: {totals}")
     check(shape_launches == want, f"launches {dict(shape_launches)} != {dict(want)}")
     check(totals == {"flash_fwd": 352, "flash_fwd_streamed": 0, "flash_bwd_dq": 128,
-                     "flash_bwd_dkdv": 128}, f"launches per step {totals}")
+                     "flash_bwd_dkdv": 128, "flash_variant": 0}, f"launches per step {totals}")
 
     check(all(torch.equal(base[k], base_before[k]) for k in base), "a base weight changed")
     check(all(torch.equal(teacher[k], teacher_before[k]) for k in teacher), "a teacher weight changed")
@@ -713,6 +856,7 @@ def main() -> int:
         card = phase_card()
         phase_build()
         rows = phase_kernels(card) + phase_backward_kernels(card)
+        harness_rows = phase_harness(card, rows)
         pipe, generate_launches = phase_main_path(card)
         train_launches = phase_training(card, pipe)
     except Exception:  # report every phase failure and exit non-zero
@@ -722,9 +866,11 @@ def main() -> int:
     shape_launches = generate_launches + train_launches
     for row in rows:
         row["launches"] = shape_launches.get((row["kernel"],) + tuple(row["shape"]), 0)
+    # B5 runs on the harness path alone; its rows carry that path's launches
+    rows += harness_rows
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
-        print(f"chip_smoke: kernels not launched on the main path: {missing}", file=sys.stderr)
+        print(f"chip_smoke: kernels not launched on their path: {missing}", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,192 @@
+// Hopper pieces of the flash-attention forward B1 (flash_fwd.cu): cp.async
+// tile copies, shared-memory matrix descriptors, and the warpgroup products
+// (wgmma) it issues, with the fences around them.
+//
+// Shared-memory layout of every operand tile (no swizzle). A tile of R rows
+// (queries or keys) x DP columns (head dim, padded to a multiple of 16) is
+// cut into core matrices of 8 rows x 8 columns, each 128 contiguous bytes
+// (row r of the core matrix at byte 16 r). The core matrices of one 8-row
+// group lie side by side along the columns (128 bytes apart), and the 8-row
+// groups follow one another (DP * 16 bytes apart):
+//   byte(r, c) = (r / 8) * DP * 16 + (c / 8) * 128 + (r % 8) * 16 + (c % 8) * 2.
+// Q and K are read K-major (the head dim is the reduction): the descriptor's
+// leading byte offset (LBO) steps along the head dim, 128, and its stride
+// byte offset (SBO) along the rows, DP * 16. V, in the same layout, is the
+// B operand of P V read MN-major (the head dim is the output column, the
+// key the reduction; wgmma transposes bf16 on the fly): LBO steps along the
+// keys, DP * 16, and SBO along the head dim, 128.
+//
+// Register fragments: the fp32 accumulator of m64nNk16 gives warp w of the
+// warpgroup rows 16w + g and 16w + g + 8 (g = lane / 4) and columns
+// 8j + 2t, 8j + 2t + 1 (t = lane % 4) in d[j][0..1] and d[j][2..3], the
+// layout of mma.sync.m16n8k16's C; the register A operand of m64nNk16 is
+// mma.sync's A per warp. So the probabilities of 8-key tiles 2kk and 2kk+1
+// are the A operand of the P V product's k-step kk as they are.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace icd {
+
+using bf16 = __nv_bfloat16;
+
+// 16-byte global -> shared copy; with valid == false it writes zeros.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Makes this thread's generic-proxy writes to shared memory (cp.async
+// included) visible to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of these registers across
+// the wgmma that owns them (the asynchronous product names them only at
+// issue).
+template <int NT>
+__device__ __forceinline__ void fence_regs(float (&d)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e]) :: "memory");
+  }
+}
+
+// Matrix descriptor of a no-swizzle operand starting at `p` (16-byte
+// aligned): address, LBO and SBO in 16-byte units; base offset 0, layout
+// type 0 (no swizzle).
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32);
+}
+
+// Copies `rows` rows of d bf16 values (global row stride `gstride`
+// elements) into a tile of the layout above, DP columns wide; rows at or
+// past `valid` and columns d..DP are written as zeros. d is a multiple of
+// 8, so each 16-byte chunk is wholly inside the row or wholly padding.
+// Consecutive threads take consecutive chunks of a row.
+template <int DP>
+__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src, size_t gstride,
+                                                int rows, int valid, int d, int tid,
+                                                int nthreads) {
+  constexpr int CH = DP / 8;
+  for (int idx = tid; idx < rows * CH; idx += nthreads) {
+    const int r = idx / CH;
+    const int c = idx - r * CH;
+    const bool ok = r < valid && c * 8 < d;
+    const bf16* g = ok ? src + (size_t)r * gstride + c * 8 : src;
+    cp_async16(dst + (r >> 3) * (DP * 8) + c * 64 + (r & 7) * 8, g, ok);
+  }
+}
+
+// d (64 x 64, fp32) (+)= A (64 x 16, shared, K-major) * B (64 x 16, shared, K-major)^T
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 48, fp32) (+)= A (64 x 16, registers) * B (16 x 48, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[6][4], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 80, fp32) (+)= A (64 x 16, registers) * B (16 x 80, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[10][4], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 160, fp32) (+)= A (64 x 16, registers) * B (16 x 160, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[20][4], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+}  // namespace icd

@@ -49,8 +49,11 @@ KERNELS: Dict[str, tuple] = {
     "flash_fwd_streamed": ("flash_fwd_streamed.cu", "icd_flash_fwd_streamed"),
     "flash_bwd_dq": ("flash_bwd_dq.cu", "icd_flash_bwd_dq"),
     "flash_bwd_dkdv": ("flash_bwd_dkdv.cu", "icd_flash_bwd_dkdv"),
+    # B5, the softmax-variant harness: wrapper and plain version in
+    # `flash_variant.py`, one entry point per variant
+    "flash_variant": ("flash_variant.cu", "icd_flash_variant_base"),
 }
-_HEADERS = ("flash_common.cuh",)
+_HEADERS = ("flash_common.cuh", "flash_mma.cuh", "hopper.cuh")
 #: C entry point -> number of leading pointer arguments; every entry point is
 #: (pointers..., batch, heads, sq, sk, d, scale, stream) -> CUDA error code
 _ENTRY_POINTERS: Dict[str, int] = {
@@ -60,7 +63,7 @@ _ENTRY_POINTERS: Dict[str, int] = {
     "icd_flash_fwd_streamed_lse": 5,
     "icd_flash_bwd_dq": 7,              # q k v o do lse dq
     "icd_flash_bwd_dkdv": 8,            # q k v o do lse dk dv
-}
+}  # B5's entry points are registered by `flash_variant.py`
 
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 

@@ -1,4 +1,4 @@
-"""Kernels B1-B4 of the PyTorch port on a CUDA card, against their plain
+"""Kernels B1-B5 of the PyTorch port on a CUDA card, against their plain
 versions on the same bf16 inputs (plain math in fp32).
 
 Marked `gpu`; every test skips without a CUDA device. This file imports
@@ -19,13 +19,19 @@ version does neither). The backward kernels: max abs error <= 2e-2 *
 max |reference| for each of dq, dk, dv (they round P and dS to bf16 before
 the products and the result to bf16; the plain backward does neither), and
 1e-3 absolute for the logsumexp (fp32 on both sides, logits from bf16
-products accumulated in fp32; |lse| stays under ~50 here).
+products accumulated in fp32; |lse| stays under ~50 here). B5's variants
+against `flash_variant_plain` at the kernel's key tile (where the bf16
+variants round), with the forward's limit; and the two bf16 variants on
+`variant_probe` inputs, where the kernel must sit within a quarter of the
+variant's distance from base of its own plain version (the output's bf16
+rounding, <= 2^-10 there, against a distance of 7e-3 to 1.5e-2).
 """
 import pytest
 import torch
 
 from invertible_cd_tpu_torch.models.attention import fused_attention
 from invertible_cd_tpu_torch.ops import flash_attention as fa
+from invertible_cd_tpu_torch.ops import flash_variant as fv
 
 pytestmark = pytest.mark.gpu
 TOL = 2e-2
@@ -91,7 +97,8 @@ def test_fused_attention_routes_by_head_dim(cuda):
     fused_attention(*_qkv(cuda, 1, 64, 77, 8, 40))
     fused_attention(*_qkv(cuda, 1, 64, 64, 1, 512))
     assert {name: fa.launches(name) for name in fa.KERNELS} == {
-        "flash_fwd": 1, "flash_fwd_streamed": 1, "flash_bwd_dq": 0, "flash_bwd_dkdv": 0}
+        "flash_fwd": 1, "flash_fwd_streamed": 1, "flash_bwd_dq": 0, "flash_bwd_dkdv": 0,
+        "flash_variant": 0}
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
@@ -143,7 +150,8 @@ def test_b1_lse_b3_b4_match_plain(cuda, b, sq, sk, h, d):
     torch.cuda.synchronize()
     after = {name: fa.launches(name) for name in fa.KERNELS}
     assert {n: after[n] - before[n] for n in after} == {
-        "flash_fwd": 1, "flash_fwd_streamed": 0, "flash_bwd_dq": 1, "flash_bwd_dkdv": 1}
+        "flash_fwd": 1, "flash_fwd_streamed": 0, "flash_bwd_dq": 1, "flash_bwd_dkdv": 1,
+        "flash_variant": 0}
     _assert_close(o, q, k, v)
     assert torch.equal(o, fa.flash_attention(q, k, v))  # the no-lse variant: same output
 
@@ -179,7 +187,8 @@ def test_autograd_function_launches_backward_kernels(cuda):
     dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
     assert {name: fa.launches(name) for name in fa.KERNELS} == {
-        "flash_fwd": 1, "flash_fwd_streamed": 0, "flash_bwd_dq": 1, "flash_bwd_dkdv": 1}
+        "flash_fwd": 1, "flash_fwd_streamed": 0, "flash_bwd_dq": 1, "flash_bwd_dkdv": 1,
+        "flash_variant": 0}
     qf, kf, vf = (x.detach().float().requires_grad_(True) for x in (q, k, v))
     auto = torch.autograd.grad(fa.attention_plain(qf, kf, vf), (qf, kf, vf), do.float())
     for got, ref in zip((dq, dk, dv), auto):
@@ -215,3 +224,34 @@ def test_backward_wrappers_raise_instead_of_falling_back(cuda):
         fa.flash_backward_dkdv(q, k, v, o.cpu(), lse, do)
     with pytest.raises(TypeError):
         fa.flash_backward_dq(q, k, v, o, lse, do.float())
+
+
+@pytest.mark.parametrize("variant", fv.VARIANTS)
+@pytest.mark.parametrize("g,sq,sk,d", [(4, 256, 256, 40), (2, 200, 300, 64), (1, 70, 77, 128)])
+def test_b5_matches_plain(cuda, variant, g, sq, sk, d):
+    q, k, v = (x[:, :, 0] for x in _qkv(cuda, g, sq, sk, 1, d, seed=6))
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    before = fa.launches("flash_variant")
+    out = fv.flash_variant(q, k, v, variant)
+    torch.cuda.synchronize()
+    assert fa.launches("flash_variant") == before + 1
+    ref = fv.flash_variant_plain(q.float(), k.float(), v.float(), variant, block_k=fv.KEY_TILE)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    limit = TOL * min(1.0, ref.abs().max().item())
+    err = (out.float() - ref).abs().max().item()
+    assert err <= limit, f"max abs err {err:.3e} > {limit:.3e}"
+
+
+@pytest.mark.parametrize("variant", fv.BF16_VARIANTS)
+@pytest.mark.parametrize("g,s,d", [(2, 4096, 40), (1, 256, 64)])
+def test_b5_bf16_variants_round_as_they_say(cuda, variant, g, s, d):
+    scale = 40.0 ** -0.5
+    q, k, v = fv.variant_probe(g, s, d, variant, scale, device=cuda)
+    out = fv.flash_variant(q, k, v, variant, scale=scale)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    want = fv.flash_variant_plain(qf, kf, vf, variant, block_k=fv.KEY_TILE, scale=scale)
+    base = fv.flash_variant_plain(qf, kf, vf, "base", block_k=fv.KEY_TILE, scale=scale)
+    err = (out.float() - want).abs().max().item()
+    gap = (want - base).abs().max().item()
+    assert gap >= 5e-3, gap
+    assert err <= 0.25 * gap, f"max abs err {err:.3e} against a distance from base of {gap:.3e}"

@@ -25,7 +25,7 @@ def test_port_modules_are_all_found():
     for name in ("ops.flash_attention", "models.unet2d", "models.convert",
                  "pipelines.pipeline", "testing", "utils.tokenizer", "utils.logging",
                  "training.losses", "training.trainer", "training.checkpoint",
-                 "cli.train_icd"):
+                 "cli.train_icd", "ops.flash_variant", "cli.exp_softmax"):
         assert f"invertible_cd_tpu_torch.{name}" in mods
 
 
