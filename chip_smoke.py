@@ -55,6 +55,14 @@ nothing of JAX. Phases, each of which must pass:
              at G=32 (B1's earlier mma.sync design doing the same work);
   7. prints the kernels' JSON line, then the device JSON as the last line.
 
+`--kernels-only` stops after phase 3 and prints the kernel rows;
+`--package-root DIR` imports the package (and builds its kernels) from
+another checkout, e.g. a parent commit unpacked under `build/`, so that two
+versions of the kernels are timed in one call by the same code.
+Kernel times (every kernel row, the harness's too) are per launch: the
+median of 5 loops of 20 back-to-back launches, each loop between one pair of
+CUDA events (`cuda_timed`).
+
 Every bound is the largest of FLOPs / 989e12, exponentials / 3.9e12 (7.8e12
 for B5's exp2bf16, whose ex2.approx.bf16x2 does two a MUFU issue) and
 bytes / 3.35e12, in ms; "bound_limit" names which.
@@ -64,6 +72,7 @@ device is available.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import math
@@ -112,6 +121,12 @@ METRIC_NAMES = (
     "forward_cd_loss", "forward_preserve_loss", "forward_total_loss", "forward_grad_norm",
 )
 TINY_TOL = 5e-2  # max abs image error, tiny bundle bf16 on the card vs fp32 on the CPU
+# Kernel times: the median of LOOPS loops of LOOP_CALLS back-to-back calls,
+# each loop between one pair of CUDA events, over LOOP_CALLS (the host's work
+# for a launch then hides behind the device's; around a single launch the
+# two events would include it)
+LOOPS = 5
+LOOP_CALLS = 20
 
 SOURCES = {
     "flash_fwd": ("invertible_cd_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -158,28 +173,34 @@ def check(ok: bool, message: str) -> None:
         raise AssertionError(message)
 
 
-def cuda_timed(fn, reps: int = 10, warmup: int = 2):
-    """Median device time of `fn` in ms (CUDA events around each call), and
-    the last call's result."""
+def cuda_timed(fn, per_loop: int = LOOP_CALLS, loops: int = LOOPS, warmup: int = 2):
+    """Device ms of one call of `fn`: the median of `loops` loops of
+    `per_loop` back-to-back calls, each loop between one pair of CUDA
+    events, divided by `per_loop`; and the last call's result. Back to back,
+    the host's work for a call (the wrapper, the launch) runs while the card
+    runs the calls before it, so a kernel that outlasts that work is timed
+    without it."""
     import torch
 
+    result = None
     for _ in range(warmup):
-        fn()
+        result = fn()
     times = []
-    for _ in range(reps):
+    for _ in range(loops):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        result = fn()
+        for _ in range(per_loop):
+            result = fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / per_loop)
     return statistics.median(times), result
 
 
-def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median device time of `fn` in ms (CUDA events around each call)."""
-    return cuda_timed(fn, reps, warmup)[0]
+def cuda_ms(fn, per_loop: int = LOOP_CALLS, loops: int = LOOPS, warmup: int = 2) -> float:
+    """Device ms of one call of `fn`, as `cuda_timed`."""
+    return cuda_timed(fn, per_loop, loops, warmup)[0]
 
 
 def phase_card():
@@ -373,7 +394,7 @@ def phase_backward_kernels(card: str):
     return rows
 
 
-HARNESS_ITERS = 10
+HARNESS_ITERS = LOOP_CALLS  # back-to-back launches in each of the harness's 5 timed loops
 # On `variant_probe` inputs a bf16 variant's kernel must sit within this
 # share of the variant's distance from base (max abs, both plain in fp32) of
 # its own plain version. The kernel and the plain version take the same bf16
@@ -410,7 +431,8 @@ def phase_harness(card: str, b1_rows):
         for r in res["variants"]:
             variant, out = r["variant"], r.pop("out")
             plain_ms, ref = cuda_timed(lambda: fv.flash_variant_plain(
-                q, k, v, variant, block_k=fv.KEY_TILE, scale=exp_softmax.SCALE), reps=3, warmup=1)
+                q, k, v, variant, block_k=fv.KEY_TILE, scale=exp_softmax.SCALE),
+                per_loop=1, loops=3, warmup=1)
             err = (out.float() - ref.float()).abs().max().item()
             limit = KERNEL_TOL * min(1.0, ref.float().abs().max().item())
             if not (err <= limit and bool(torch.isfinite(out).all())):
@@ -541,16 +563,16 @@ def phase_main_path(card: str):
     check(torch.equal(again, images1), "same latent gave different images")
     print("  same latent -> identical images: ok")
 
-    # component times (batch 4), CUDA events, median of 5
+    # component times (batch 4), CUDA events around single calls, median of 5
     unet = pipe.unets["reverse"]
     ctx = pipe._encode_all(PROMPTS, need_uncond=False)[1]
     x = lat4.permute(0, 3, 1, 2).contiguous()
     w = w_embedding_for(pipe.default_guidance(), 999, BATCH, device="cuda")
     t = torch.full((BATCH,), 999, device="cuda")
     with torch.inference_mode():
-        clip_ms = cuda_ms(lambda: pipe._encode_all(PROMPTS, need_uncond=False), reps=5)
-        unet_ms = cuda_ms(lambda: unet(x, t, ctx, w), reps=5)
-        vae_ms = cuda_ms(lambda: pipe._decode_latents(x), reps=3, warmup=1)
+        clip_ms = cuda_ms(lambda: pipe._encode_all(PROMPTS, need_uncond=False), per_loop=1)
+        unet_ms = cuda_ms(lambda: unet(x, t, ctx, w), per_loop=1)
+        vae_ms = cuda_ms(lambda: pipe._decode_latents(x), per_loop=1, loops=3, warmup=1)
 
         # the UNet's kernel path against its plain (materialised-probability) path
         def identity_hook(probs, meta: AttnMeta):
@@ -841,7 +863,18 @@ def phase_training(card: str, pipe):
     return shape_launches
 
 
-def main() -> int:
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
+    p.add_argument("--kernels-only", action="store_true",
+                   help="run phases 1-3 only and print the kernel rows (not the device line)")
+    p.add_argument("--package-root", default=None,
+                   help="import invertible_cd_tpu_torch from this checkout (e.g. an unpacked "
+                        "parent commit, to time two versions of the kernels in one call)")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     try:
         import torch
     except ImportError as e:
@@ -850,12 +883,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.package_root:
+        sys.path.insert(0, os.path.abspath(args.package_root))
     try:
         import invertible_cd_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+        print(f"package: {os.path.dirname(invertible_cd_tpu_torch.__file__)}")
         card = phase_card()
         phase_build()
         rows = phase_kernels(card) + phase_backward_kernels(card)
+        if args.kernels_only:
+            print(json.dumps({"kernels": rows}))
+            return 0
         harness_rows = phase_harness(card, rows)
         pipe, generate_launches = phase_main_path(card)
         train_launches = phase_training(card, pipe)

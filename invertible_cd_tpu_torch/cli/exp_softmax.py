@@ -13,8 +13,9 @@ two shapes:
     UNet's 4096-token d=40 self-attention, d padded to 64);
   * the port's own, G=32 (batch 4 x 8 heads), S=4096, D=40.
 
-On the card each time is the median of `--iters` CUDA-event timings after
-two warm-up launches, and each shape also prints the time of torch's
+On the card each time is per launch: the median of 5 loops of `--iters`
+back-to-back launches, each loop between one pair of CUDA events, after two
+warm-up launches; each shape also prints the time of torch's
 `scaled_dot_product_attention` on the same inputs as a yardstick (the port
 never calls it). It runs on the CUDA device unless `--device cpu` is given;
 there it runs the plain version, and its times are host-clock times of the
@@ -40,7 +41,8 @@ SCALE = 40.0 ** -0.5  # the true d=40 softmax scale, also at the padded D=64
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--iters", type=int, default=16, help="timed launches per variant")
+    p.add_argument("--iters", type=int, default=16,
+                   help="back-to-back launches in each of the 5 timed loops per variant")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--shape", default=None, help="G,S,D (default: both shapes above)")
     return p.parse_args(argv)
@@ -53,24 +55,30 @@ def make_inputs(shape, device):
                  for _ in range(3))
 
 
-def time_ms(fn, iters: int, device) -> float:
-    """Median ms of `fn`: CUDA events on the card, the host clock on the CPU."""
+def time_ms(fn, iters: int, device, loops: int = 5) -> float:
+    """ms of one call of `fn`, after two warm-up calls: on the card the
+    median of `loops` loops of `iters` back-to-back calls, each loop between
+    one pair of CUDA events, divided by `iters` (the wrapper's host work then
+    runs under the card's work); on the CPU the median host-clock time of
+    `iters` single calls."""
     fn()
     fn()
     times = []
-    for _ in range(iters):
-        if device.type == "cuda":
+    if device.type == "cuda":
+        for _ in range(loops):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            for _ in range(iters):
+                fn()
             end.record()
             end.synchronize()
-            times.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
+            times.append(start.elapsed_time(end) / iters)
+        return statistics.median(times)
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
 
 
@@ -106,7 +114,8 @@ def main(argv=None) -> List[dict]:
     for shape in shapes:
         res = run_shape(shape, device, args.iters)
         g, s, d = shape
-        print(f"G={g} S={s} D={d} scale={SCALE:.6f} ({where}, median of {args.iters})", flush=True)
+        print(f"G={g} S={s} D={d} scale={SCALE:.6f} ({where}, {args.iters} launches a loop)",
+              flush=True)
         for row in res["variants"]:
             print(f"  {row['variant']:9s} {row['ms']:9.3f} ms/launch   "
                   f"max|out-base|={row['max_abs_diff_vs_base']:.2e}", flush=True)

@@ -3,76 +3,417 @@
 //
 // Replaces `_dkdv_kernel` in invertible_cd_tpu/ops/flash_attention.py
 // (launched by `_flash_backward`, the backward of `_flash_op`), at the shapes
-// of B1 and B3.
+// of B1 and B3: Sq = Sk = 4096/1024/256/64 with d = 40/80/160/160, and
+// Sk = 77 for cross-attention.
 //
-// Per 64 keys of one (batch, head), looping over 64-query tiles:
+// Per key of one (batch, head), over every query row:
 //   S^T  = K Q^T                P^T  = exp(scale * S^T - lse[query])
 //   dP^T = V dO^T               dS^T = P^T * (dP^T - delta[query])
-//   dV   = sum over tiles of P^T dO
-//   dK   = scale * sum over tiles of dS^T Q
+//   dV   = sum over queries of P^T dO
+//   dK   = scale * sum over queries of dS^T Q
 //
-// What bounds it on an H100: operations, four products of 2*Sq*Sk*d each
-// (8*Sq*Sk*d per head against 6 for B3), far above the card's ~295 operations
-// per byte at the 4096- and 1024-token shapes.
+// What bounds it on an H100 SXM (700 W) at the hottest shape, Sq = Sk =
+// 4096, d = 40, batch 4 x 8 heads: four products of 2 Sq Sk d each, 1.72e11
+// FLOPs, take 0.174 ms at 989 TFLOP/s; one exponential a (query, key),
+// 5.4e8, takes 0.138 ms on the MUFU unit; the bytes take microseconds. So
+// the tensor cores and the exponentials set the floor together, and the
+// elementwise work between the products (an FFMA, ex2, a subtraction, a
+// product and two bf16 packs a logit) has to stay off the tensor cores'
+// path. The earlier design (4 warps x 16 keys, mma.sync, every query tile
+// staged synchronously behind three barriers, delta recomputed from the O
+// tile by every key block) took 2.32 ms there. The Hopper design, at padded
+// head dims 48 and 80:
+//   * one block owns a key tile of 128 keys, 64 per consumer warpgroup; the
+//     two warpgroups share each staged Q and dO tile, which halves what the
+//     blocks read through L2; K and V stay in shared memory for the whole
+//     query loop;
+//   * S^T = K Q^T and dP^T = V dO^T are wgmma.m64n64k16 with K and V as the
+//     A operand and the Q and dO tiles as B, all K-major;
+//   * dV += P^T dO and dK += dS^T Q are wgmma m64n48/n80k16 with P^T and
+//     dS^T straight from the accumulator registers as the A operand (as B1's
+//     P) and dO and Q read MN-major from the same tiles the first two
+//     products read K-major: no tile is staged twice and none transposed;
+//   * Q, dO and the per-row (lse * log2 e, delta) pairs arrive through a
+//     ring of 3 stages filled with cp.async by all threads two tiles ahead,
+//     one barrier a tile; P^T = exp2(S^T * c - lse2) is one FFMA and one
+//     ex2.approx.ftz a logit, c = log2(e) / sqrt(d);
+//   * delta = rowsum(dO * O) is computed once per call by a row pre-pass
+//     (b4_rows), which also takes lse into base 2, so O is read once and not
+//     once per key block; the pre-pass is part of B4, so
+//     `flash_backward_dkdv` stands alone;
+//   * every dK/dV row has one writer, or a fixed-order sum: with Sk <= 128
+//     (cross-attention, one key tile) a block per (batch, head) would leave
+//     most of the 132 SMs idle while it walked all query tiles, so the query
+//     tiles are split over several blocks (b4_plan: about one block an SM),
+//     each writing fp32 partial dK and dV to the wrapper's workspace, and a
+//     second pass (b4_sum_splits) adds them in split order. No atomics:
+//     repeats are bit-identical.
+// A thread takes 208 registers at DP = 80 (168 at 48): one block an SM.
+// Tried and dropped: one warpgroup a block (64 keys, two blocks an SM),
+// as fast at 4096/40 and 27% slower at 1024/80 (0.110 against 0.087 ms on
+// an H100 80GB HBM3 at 700 W, chip_smoke.py's kernel rows).
+// Rows past Sq are zero Q and dO rows with zero delta: they add nothing to
+// dK or dV, so no query masking is needed. Keys past Sk are zero K and V
+// rows; they touch only their own dK/dV rows, which are never stored.
 //
-// Design. A block owns its 64 keys and loops over all query tiles itself, so
-// every dK/dV row has one writer: no atomics, and the result is the same bit
-// for bit from run to run, as on the TPU, where the key tile was a grid
-// step. Each of the 4 warps owns 16 keys. The tile is computed transposed
-// (keys as rows): then P^T and dS^T come out of mma.sync.m16n8k16 in the
-// accumulator layout that is already the A operand of the next product (what
-// `probs_as_a` does forward), and dO and Q, staged row-major, are read as
-// that product's B operand with ldmatrix.trans; no tile is stored twice.
-// delta = rowsum(dO * O) is computed here per query tile from the staged dO
-// and O tiles (two threads per row), as the TPU kernel does; nothing is
-// handed over from B3.
-// Registers: the two fp32 accumulators are 2 x 16 x DP per warp, DP per
-// thread (160 at the widest main-path width), so at DP > 80 the 64-query
-// tile is worked through in two 32-query halves, which halves the S^T and
-// dP^T registers; nvcc's spill report is printed with the build.
-// Query rows at or past Sq get P = 0 (their lse was never written, so it is
-// not read) and zero Q/dO/O rows; keys at or past Sk have zero K/V rows,
-// P = 0, and their dK/dV rows are never stored. The head dim is a
-// compile-time width (48/80/160/256) padded with zeros in shared memory; the
-// scale is the true 1/sqrt(d).
+// Head dims above 80 (DP = 160, 256: the 256- and 64-token shapes, where
+// the earlier design already beats SDPA's backward) keep the earlier
+// mma.sync loop as a static route by head dim; it computes delta itself.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace icd {
 
-constexpr int kB4Keys = 64;  // keys per block
-constexpr int kB4Rows = 64;  // query rows per tile
+// ---- Hopper route, padded head dims 48 and 80 ----
+constexpr int kB4Warpgroups = 2;             // consumer warpgroups a block
+constexpr int kB4Keys = 64 * kB4Warpgroups;  // keys a block
+constexpr int kB4Rows = 64;                  // query rows a tile
+constexpr int kB4Stages = 3;                 // Q/dO tiles in the ring, loaded two ahead
+constexpr int kB4CrossKeys = 128;            // Sk at or below this splits the query tiles
+
+// One ring stage: the Q tile, the dO tile, then (lse2, delta) of its rows.
+template <int DP>
+__host__ __device__ constexpr size_t b4_stage_bytes() {
+  return sizeof(bf16) * 2 * kB4Rows * DP + sizeof(float2) * kB4Rows;
+}
 
 template <int DP>
 constexpr size_t b4_smem_bytes() {
-  return sizeof(bf16) * (size_t)(2 * kB4Keys + 3 * kB4Rows) * (DP + 8) +
-         sizeof(float) * 2 * kB4Rows;
+  return sizeof(bf16) * 2 * kB4Keys * DP + kB4Stages * b4_stage_bytes<DP>();
 }
 
-// QCH: queries worked through at a time (a divisor of kB4Rows, multiple of 16)
+// How the query tiles of each key tile are cut: `tiles` per block, `splits`
+// blocks. One block a key tile unless Sk <= kB4CrossKeys; then the tiles
+// are spread so that the grid is about one block an SM.
+struct B4Plan {
+  int tiles;
+  int splits;
+};
+
+inline B4Plan b4_plan(int bh, int sq, int sk) {
+  const int nt = (sq + kB4Rows - 1) / kB4Rows;
+  if (sk > kB4CrossKeys) return {nt, 1};
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long blocks = (long long)((sk + kB4Keys - 1) / kB4Keys) * bh;
+  const long long spread = (nt * blocks + sms - 1) / sms;  // one block an SM (208 registers)
+  const int tiles = spread > 1 ? (int)spread : 1;
+  return {tiles, (nt + tiles - 1) / tiles};
+}
+
+// Workspace bytes: (lse2, delta) per row padded to whole tiles, then, when
+// the query tiles are split, fp32 partial dK and dV (splits, B*H, Sk, d).
+inline size_t b4_workspace_bytes(int batch, int heads, int sq, int sk, int d) {
+  const int bh = batch * heads;
+  const size_t rows = (size_t)bh * ((sq + kB4Rows - 1) / kB4Rows) * kB4Rows;
+  const B4Plan plan = b4_plan(bh, sq, sk);
+  const size_t part = plan.splits > 1 ? 2 * (size_t)plan.splits * bh * sk * d : 0;
+  return sizeof(float2) * rows + sizeof(float) * part;
+}
+
+// (lse * log2 e, rowsum(dO * O)) of every query row, rows padded to whole
+// tiles with (0, 0); one thread a row.
+__global__ void b4_rows(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                        const float* __restrict__ lse, float2* __restrict__ rows, int heads,
+                        int sq, int sq_pad, int d, int bh_count) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)bh_count * sq_pad) return;
+  const int bh = (int)(idx / sq_pad);
+  const int r = (int)(idx - (size_t)bh * sq_pad);
+  float2 out = make_float2(0.f, 0.f);
+  if (r < sq) {
+    const int b = bh / heads;
+    const int h = bh - b * heads;
+    const size_t off = ((size_t)b * sq + r) * heads * d + (size_t)h * d;
+    float sum = 0.f;
+    for (int c = 0; c < d; c += 8) {
+      const uint4 x4 = *reinterpret_cast<const uint4*>(dout + off + c);
+      const uint4 y4 = *reinterpret_cast<const uint4*>(o + off + c);
+      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&x4);
+      const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&y4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 xf = __bfloat1622float2(x[i]);
+        const float2 yf = __bfloat1622float2(y[i]);
+        sum += xf.x * yf.x + xf.y * yf.y;
+      }
+    }
+    out = make_float2(lse[(size_t)bh * sq + r] * kLog2e, sum);
+  }
+  rows[idx] = out;
+}
+
+// Rows g and g+8 of fp32 accumulator tiles, unscaled, into a (rows, d) fp32
+// block; rows at or past `limit` and columns at or past d are not stored.
+template <int NT>
+__device__ __forceinline__ void store_rows_f32(float* p, const float (&acc)[NT][4], int row0,
+                                               int limit, int d, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= limit) continue;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (col < d) {
+        *reinterpret_cast<float2*>(p + (size_t)row * d + col) =
+            make_float2(acc[n][2 * r], acc[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// grid (key tiles, B*H, splits); split z walks query tiles [z * tiles,
+// min((z + 1) * tiles, all)). `part` == nullptr: one split, dK and dV
+// written as bf16; otherwise fp32 partials, dK unscaled.
+template <int DP>
+__global__ void __launch_bounds__(128 * kB4Warpgroups, 1)
+flash_bwd_dkdv_b4(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float2* __restrict__ rows, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, float* __restrict__ part, int heads, int sq,
+                  int sq_pad, int sk, int d, int tiles, float scale, float scale_log2) {
+  constexpr int NT = 128 * kB4Warpgroups;   // threads
+  constexpr int NQ = kB4Rows / 8;           // 8-query column tiles of S^T
+  constexpr int NO = DP / 8;                // 8-column tiles of the dK and dV accumulators
+  constexpr uint32_t kGroup = DP * 16;      // bytes between 8-row groups of a tile
+  constexpr int kTile = kB4Rows * DP;       // elements of one Q or dO tile
+  constexpr size_t kStage = b4_stage_bytes<DP>();
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + kB4Keys * DP;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(sV + kB4Keys * DP);
+  auto stage_q = [&](int st) { return reinterpret_cast<bf16*>(ring + st * kStage); };
+  auto stage_do = [&](int st) { return stage_q(st) + kTile; };
+  auto stage_rows = [&](int st) { return reinterpret_cast<float2*>(stage_q(st) + 2 * kTile); };
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int k0 = blockIdx.x * kB4Keys;
+  const int t0 = blockIdx.z * tiles;
+  const int nt = min(sq_pad / kB4Rows - t0, tiles);
+  const size_t rs = (size_t)heads * d;  // row stride of (B, S, H, D)
+  const bf16* qb = q + (size_t)b * sq * rs + (size_t)h * d;
+  const bf16* dob = dout + (size_t)b * sq * rs + (size_t)h * d;
+  const float2* rowb = rows + (size_t)bh * sq_pad;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  const size_t koff = ((size_t)b * sk + k0) * rs + (size_t)h * d;
+  load_tile_async<DP>(sK, k + koff, rs, kB4Keys, sk - k0, d, tid, NT);
+  load_tile_async<DP>(sV, v + koff, rs, kB4Keys, sk - k0, d, tid, NT);
+  auto load_tile = [&](int j) {
+    const int st = j % kB4Stages;
+    const int q0 = (t0 + j) * kB4Rows;
+    load_tile_async<DP>(stage_q(st), qb + (size_t)q0 * rs, rs, kB4Rows, sq - q0, d, tid, NT);
+    load_tile_async<DP>(stage_do(st), dob + (size_t)q0 * rs, rs, kB4Rows, sq - q0, d, tid, NT);
+    if (tid < kB4Rows / 2) cp_async16(stage_rows(st) + 2 * tid, rowb + q0 + 2 * tid, true);
+  };
+#pragma unroll
+  for (int j = 0; j < kB4Stages - 1; ++j) {
+    if (j < nt) load_tile(j);
+    cp_async_commit();  // one group a tile, empty past the last (K and V ride in the first)
+  }
+
+  // descriptors: this warpgroup's K and V (A, K-major); stage 0 of Q and dO
+  // as the B of S^T and dP^T (K-major: LBO along the head dim, SBO along the
+  // rows) and as the B of dK and dV (MN-major: LBO along the queries, SBO
+  // along the head dim); a k-step of 16 advances K-major operands by two
+  // core matrices (256 bytes) and MN-major ones by two 8-row groups
+  const uint64_t desc_k = smem_desc(sK + wg * 64 * DP, 128, kGroup);
+  const uint64_t desc_v = smem_desc(sV + wg * 64 * DP, 128, kGroup);
+  const uint64_t desc_q = smem_desc(stage_q(0), 128, kGroup);
+  const uint64_t desc_do = smem_desc(stage_do(0), 128, kGroup);
+  const uint64_t desc_qn = smem_desc(stage_q(0), kGroup, 128);
+  const uint64_t desc_don = smem_desc(stage_do(0), kGroup, 128);
+  constexpr uint64_t kStageStep = kStage / 16;
+  constexpr uint64_t kRowStep = 2 * kGroup / 16;
+
+  float dk_acc[NO][4];
+  float dv_acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  }
+
+  for (int j = 0; j < nt; ++j) {
+    cp_async_wait<kB4Stages - 2>();  // tile j (and K, V) landed, for this thread's copies
+    fence_proxy_async();
+    __syncthreads();                 // for every thread's; and tile j-1's stage is free
+    if (j + kB4Stages - 1 < nt) load_tile(j + kB4Stages - 1);
+    cp_async_commit();
+
+    const int st = j % kB4Stages;
+    const uint64_t stage = (uint64_t)st * kStageStep;
+    float s[NQ][4];
+    float dp[NQ][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) wgmma_ss(s, desc_k + kk * 16, desc_q + stage + kk * 16, kk);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) wgmma_ss(dp, desc_v + kk * 16, desc_do + stage + kk * 16, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T and dS^T as bf16 A operands (k-step n / 2); this thread's query
+    // columns are 8n + 2t and 8n + 2t + 1, rows keys g and g + 8
+    const float2* sr = stage_rows(st);
+    uint32_t pa[NQ / 2][4];
+    uint32_t da[NQ / 2][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const float4 x = *reinterpret_cast<const float4*>(sr + n * 8 + 2 * t);  // l0 d0 l1 d1
+      const float p0 = fast_exp2(fmaf(s[n][0], scale_log2, -x.x));
+      const float p1 = fast_exp2(fmaf(s[n][1], scale_log2, -x.z));
+      const float p2 = fast_exp2(fmaf(s[n][2], scale_log2, -x.x));
+      const float p3 = fast_exp2(fmaf(s[n][3], scale_log2, -x.z));
+      pa[n / 2][(n % 2) * 2] = pack_bf16(p0, p1);
+      pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p2, p3);
+      da[n / 2][(n % 2) * 2] = pack_bf16(p0 * (dp[n][0] - x.y), p1 * (dp[n][1] - x.w));
+      da[n / 2][(n % 2) * 2 + 1] = pack_bf16(p2 * (dp[n][2] - x.y), p3 * (dp[n][3] - x.w));
+    }
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NQ / 2; ++kk) wgmma_rs(dv_acc, pa[kk], desc_don + stage + kk * kRowStep, 1);
+#pragma unroll
+    for (int kk = 0; kk < NQ / 2; ++kk) wgmma_rs(dk_acc, da[kk], desc_qn + stage + kk * kRowStep, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+  }
+  cp_async_wait<0>();
+
+  const int key0 = k0 + wg * 64 + warp * 16 + g;  // this thread's keys: key0 and key0 + 8
+  if (part == nullptr) {
+    const size_t kvbase = (size_t)b * sk * rs + (size_t)h * d;
+    const float one[2] = {1.f, 1.f};
+    const float mul[2] = {scale, scale};
+    store_rows_scaled<NO>(dv + kvbase, rs, dv_acc, one, key0, sk, 0, d, t);
+    store_rows_scaled<NO>(dk + kvbase, rs, dk_acc, mul, key0, sk, 0, d, t);
+  } else {
+    const size_t block = (size_t)sk * d;  // one (split, b, h) of the partials
+    float* pk = part + ((size_t)blockIdx.z * gridDim.y + bh) * block;
+    store_rows_f32<NO>(pk, dk_acc, key0, sk, d, t);
+    store_rows_f32<NO>(pk + (size_t)gridDim.z * gridDim.y * block, dv_acc, key0, sk, d, t);
+  }
+}
+
+// dK = scale * sum of the partial dK, dV = sum of the partial dV, in split
+// order; one thread a pair of columns of one (b, h, key).
+__global__ void b4_sum_splits(const float* __restrict__ part, bf16* __restrict__ dk,
+                              bf16* __restrict__ dv, int splits, int bh_count, int heads,
+                              int sk, int d, float scale) {
+  const size_t n = (size_t)bh_count * sk * d;
+  const size_t e = 2 * ((size_t)blockIdx.x * blockDim.x + threadIdx.x);
+  if (e >= n) return;
+  float2 sk_sum = make_float2(0.f, 0.f);
+  float2 sv_sum = make_float2(0.f, 0.f);
+  for (int z = 0; z < splits; ++z) {
+    const float2 a = *reinterpret_cast<const float2*>(part + z * n + e);
+    const float2 c = *reinterpret_cast<const float2*>(part + (splits + z) * n + e);
+    sk_sum.x += a.x;
+    sk_sum.y += a.y;
+    sv_sum.x += c.x;
+    sv_sum.y += c.y;
+  }
+  const int bh = (int)(e / ((size_t)sk * d));
+  const int rem = (int)(e - (size_t)bh * sk * d);
+  const int key = rem / d;
+  const int col = rem - key * d;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const size_t off = ((size_t)b * sk + key) * heads * d + (size_t)h * d + col;
+  *reinterpret_cast<uint32_t*>(dk + off) = pack_bf16(sk_sum.x * scale, sk_sum.y * scale);
+  *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(sv_sum.x, sv_sum.y);
+}
+
+template <int DP>
+int launch_b4(const void* q, const void* k, const void* v, const void* o, const void* dout,
+              const void* lse, void* dk, void* dv, void* work, int batch, int heads, int sq,
+              int sk, int d, float scale, void* stream) {
+  const size_t smem = b4_smem_bytes<DP>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dkdv_b4<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int bh = batch * heads;
+  const int sq_pad = (sq + kB4Rows - 1) / kB4Rows * kB4Rows;
+  const B4Plan plan = b4_plan(bh, sq, sk);
+  float2* rows = static_cast<float2*>(work);
+  float* part = plan.splits > 1 ? reinterpret_cast<float*>(rows + (size_t)bh * sq_pad) : nullptr;
+
+  const size_t nrows = (size_t)bh * sq_pad;
+  b4_rows<<<(unsigned)((nrows + 255) / 256), 256, 0, s>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      rows, heads, sq, sq_pad, d, bh);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((sk + kB4Keys - 1) / kB4Keys, bh, plan.splits);
+  flash_bwd_dkdv_b4<DP><<<grid, 128 * kB4Warpgroups, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), rows, static_cast<bf16*>(dk), static_cast<bf16*>(dv), part,
+      heads, sq, sq_pad, sk, d, plan.tiles, scale, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || part == nullptr) return (int)err;
+  const size_t pairs = (size_t)bh * sk * d / 2;
+  b4_sum_splits<<<(unsigned)((pairs + 255) / 256), 256, 0, s>>>(
+      part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), plan.splits, bh, heads, sk, d, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---- the mma.sync route, padded head dims 160 and 256 ----
+constexpr int kB4MmaKeys = 64;  // keys per block
+constexpr int kB4MmaRows = 64;  // query rows per tile
+
+template <int DP>
+constexpr size_t b4_mma_smem_bytes() {
+  return sizeof(bf16) * (size_t)(2 * kB4MmaKeys + 3 * kB4MmaRows) * (DP + 8) +
+         sizeof(float) * 2 * kB4MmaRows;
+}
+
+// Per 64 keys, 4 warps x 16 keys, looping over 64-query tiles staged with
+// plain loads; the tile is computed transposed (keys as rows), so P^T and
+// dS^T come out of mma.sync.m16n8k16 as the A operand of the next product,
+// and dO and Q are read as its B operand with ldmatrix.trans. delta is
+// computed per query tile from the staged dO and O tiles. QCH: queries
+// worked through at a time (32: the two fp32 accumulators take DP registers).
 template <int DP, int QCH>
 __global__ void __launch_bounds__(128)
-flash_bwd_dkdv_b4(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ o,
-                  const bf16* __restrict__ dout, const float* __restrict__ lse,
-                  bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int sq, int sk,
-                  int d, float scale, float scale_log2) {
-  static_assert(DP % 16 == 0 && kB4Rows % QCH == 0 && QCH % 16 == 0, "tile shapes");
+flash_bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ o,
+                   const bf16* __restrict__ dout, const float* __restrict__ lse,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int sq, int sk,
+                   int d, float scale, float scale_log2) {
+  static_assert(DP % 16 == 0 && kB4MmaRows % QCH == 0 && QCH % 16 == 0, "tile shapes");
   constexpr int LDI = DP + 8;  // row stride of every tile (elements)
   constexpr int NQ = QCH / 8;  // 8-query tiles of S^T and dP^T per warp
   constexpr int NO = DP / 8;   // 8-column tiles of the dK and dV accumulators
 
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem);
-  bf16* sV = sK + kB4Keys * LDI;
-  bf16* sQ = sV + kB4Keys * LDI;
-  bf16* sdO = sQ + kB4Rows * LDI;
-  bf16* sO = sdO + kB4Rows * LDI;
-  float* sLse = reinterpret_cast<float*>(sO + kB4Rows * LDI);  // base-2 domain
-  float* sDelta = sLse + kB4Rows;
+  bf16* sV = sK + kB4MmaKeys * LDI;
+  bf16* sQ = sV + kB4MmaKeys * LDI;
+  bf16* sdO = sQ + kB4MmaRows * LDI;
+  bf16* sO = sdO + kB4MmaRows * LDI;
+  float* sLse = reinterpret_cast<float*>(sO + kB4MmaRows * LDI);  // base-2 domain
+  float* sDelta = sLse + kB4MmaRows;
 
   const int b = blockIdx.y / heads;
   const int h = blockIdx.y - b * heads;
-  const int k0 = blockIdx.x * kB4Keys;
+  const int k0 = blockIdx.x * kB4MmaKeys;
   const size_t rs = (size_t)heads * d;  // row stride of (B, S, H, D)
   const size_t koff = ((size_t)b * sk + k0) * rs + (size_t)h * d;
   const size_t qbase = (size_t)b * sq * rs + (size_t)h * d;
@@ -85,8 +426,8 @@ flash_bwd_dkdv_b4(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vw = sV + warp * 16 * LDI;
   const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0 and key0 + 8
 
-  load_rows(sK, LDI, k + koff, rs, kB4Keys, sk - k0, d, DP);
-  load_rows(sV, LDI, v + koff, rs, kB4Keys, sk - k0, d, DP);
+  load_rows(sK, LDI, k + koff, rs, kB4MmaKeys, sk - k0, d, DP);
+  load_rows(sV, LDI, v + koff, rs, kB4MmaKeys, sk - k0, d, DP);
 
   float dkacc[NO][4];
   float dvacc[NO][4];
@@ -96,13 +437,13 @@ flash_bwd_dkdv_b4(const bf16* __restrict__ q, const bf16* __restrict__ k,
     dvacc[n][0] = dvacc[n][1] = dvacc[n][2] = dvacc[n][3] = 0.f;
   }
 
-  for (int q0 = 0; q0 < sq; q0 += kB4Rows) {
+  for (int q0 = 0; q0 < sq; q0 += kB4MmaRows) {
     __syncthreads();  // the previous query tile is consumed
     const size_t qoff = qbase + (size_t)q0 * rs;
-    load_rows(sQ, LDI, q + qoff, rs, kB4Rows, sq - q0, d, DP);
-    load_rows(sdO, LDI, dout + qoff, rs, kB4Rows, sq - q0, d, DP);
-    load_rows(sO, LDI, o + qoff, rs, kB4Rows, sq - q0, d, DP);
-    if (threadIdx.x < kB4Rows) {
+    load_rows(sQ, LDI, q + qoff, rs, kB4MmaRows, sq - q0, d, DP);
+    load_rows(sdO, LDI, dout + qoff, rs, kB4MmaRows, sq - q0, d, DP);
+    load_rows(sO, LDI, o + qoff, rs, kB4MmaRows, sq - q0, d, DP);
+    if (threadIdx.x < kB4MmaRows) {
       const int row = q0 + threadIdx.x;
       sLse[threadIdx.x] = row < sq ? lse[(size_t)blockIdx.y * sq + row] * kLog2e : 0.f;
     }
@@ -128,7 +469,7 @@ flash_bwd_dkdv_b4(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();
 
-    for (int qc = 0; qc < kB4Rows && q0 + qc < sq; qc += QCH) {
+    for (int qc = 0; qc < kB4MmaRows && q0 + qc < sq; qc += QCH) {
       float st[NQ][4];
       float dpt[NQ][4];
 #pragma unroll
@@ -188,16 +529,16 @@ flash_bwd_dkdv_b4(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_rows_scaled<NO>(dk + kvbase, rs, dkacc, mul, key0, sk, 0, d, t);
 }
 
-template <int DP, int QCH>
-int launch_b4(const void* q, const void* k, const void* v, const void* o, const void* dout,
-              const void* lse, void* dk, void* dv, int batch, int heads, int sq, int sk, int d,
-              float scale, void* stream) {
-  const size_t smem = b4_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkdv_b4<DP, QCH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((sk + kB4Keys - 1) / kB4Keys, batch * heads);
-  flash_bwd_dkdv_b4<DP, QCH><<<grid, 128, smem, (cudaStream_t)stream>>>(
+template <int DP>
+int launch_b4_mma(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                  const void* lse, void* dk, void* dv, int batch, int heads, int sq, int sk,
+                  int d, float scale, void* stream) {
+  const size_t smem = b4_mma_smem_bytes<DP>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dkdv_mma<DP, 32>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((sk + kB4MmaKeys - 1) / kB4MmaKeys, batch * heads);
+  flash_bwd_dkdv_mma<DP, 32><<<grid, 128, smem, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads,
@@ -207,19 +548,21 @@ int launch_b4(const void* q, const void* k, const void* v, const void* o, const 
 
 }  // namespace icd
 
+// Bytes of the workspace `icd_flash_bwd_dkdv` needs at this shape on the
+// current device (0 for head dims above 80).
+extern "C" size_t icd_flash_bwd_dkdv_workspace(int batch, int heads, int sq, int sk, int d) {
+  return d <= 80 ? icd::b4_workspace_bytes(batch, heads, sq, sk, d) : 0;
+}
+
+// `work`: icd_flash_bwd_dkdv_workspace bytes (16-byte aligned), or unused.
 extern "C" int icd_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* o,
                                   const void* dout, const void* lse, void* dk, void* dv,
-                                  int batch, int heads, int sq, int sk, int d, float scale,
-                                  void* stream) {
+                                  void* work, int batch, int heads, int sq, int sk, int d,
+                                  float scale, void* stream) {
   using namespace icd;
-#define ICD_B4_CASE(DP, QCH)                                                                  \
-  if (d <= DP)                                                                                \
-    return launch_b4<DP, QCH>(q, k, v, o, dout, lse, dk, dv, batch, heads, sq, sk, d, scale, \
-                              stream);
-  ICD_B4_CASE(48, 64)
-  ICD_B4_CASE(80, 64)
-  ICD_B4_CASE(160, 32)
-  ICD_B4_CASE(256, 32)
-#undef ICD_B4_CASE
+  if (d <= 48) return launch_b4<48>(q, k, v, o, dout, lse, dk, dv, work, batch, heads, sq, sk, d, scale, stream);
+  if (d <= 80) return launch_b4<80>(q, k, v, o, dout, lse, dk, dv, work, batch, heads, sq, sk, d, scale, stream);
+  if (d <= 160) return launch_b4_mma<160>(q, k, v, o, dout, lse, dk, dv, batch, heads, sq, sk, d, scale, stream);
+  if (d <= 256) return launch_b4_mma<256>(q, k, v, o, dout, lse, dk, dv, batch, heads, sq, sk, d, scale, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -72,14 +72,6 @@ __host__ __device__ constexpr int b1_min_blocks() {
   return DP <= 80 ? 2 : 1;
 }
 
-// 2^x on the MUFU unit, subnormal results flushed to zero (as p and alpha
-// may be: they only scale sums that are clamped at 1e-30).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <int DP>
 constexpr size_t b1_smem_bytes() {
   return sizeof(bf16) * ((size_t)kB1Rows * DP + (size_t)kB1Stages * 2 * kB1Keys * DP);

@@ -1,6 +1,7 @@
-// Hopper pieces of the flash-attention forward B1 (flash_fwd.cu): cp.async
-// tile copies, shared-memory matrix descriptors, and the warpgroup products
-// (wgmma) it issues, with the fences around them.
+// Hopper pieces of the flash-attention kernels B1 (flash_fwd.cu), B3
+// (flash_bwd_dq.cu) and B4 (flash_bwd_dkdv.cu): cp.async tile copies,
+// shared-memory matrix descriptors, the warpgroup products (wgmma) they
+// issue, with the fences around them, and the MUFU exponential.
 //
 // Shared-memory layout of every operand tile (no swizzle). A tile of R rows
 // (queries or keys) x DP columns (head dim, padded to a multiple of 16) is
@@ -45,6 +46,14 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// 2^x on the MUFU unit, subnormal results flushed to zero (as
+// probabilities and rescaling factors may be: they only scale sums).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Makes this thread's generic-proxy writes to shared memory (cp.async

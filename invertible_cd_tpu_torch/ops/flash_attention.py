@@ -62,7 +62,7 @@ _ENTRY_POINTERS: Dict[str, int] = {
     "icd_flash_fwd_streamed": 4,
     "icd_flash_fwd_streamed_lse": 5,
     "icd_flash_bwd_dq": 7,              # q k v o do lse dq
-    "icd_flash_bwd_dkdv": 8,            # q k v o do lse dk dv
+    "icd_flash_bwd_dkdv": 9,            # q k v o do lse dk dv workspace
 }  # B5's entry points are registered by `flash_variant.py`
 
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
@@ -326,14 +326,31 @@ def flash_backward_dq(q, k, v, o, lse, do) -> torch.Tensor:
     return dq
 
 
+def _dkdv_workspace(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """B4's scratch on q's device: per query row (lse * log2 e, delta), and
+    fp32 partial dK and dV where the query tiles are split; the size comes
+    from the kernel's own plan (`icd_flash_bwd_dkdv_workspace`)."""
+    fn = getattr(_lib("flash_bwd_dkdv"), "icd_flash_bwd_dkdv_workspace")
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_size_t
+    b, sq, h, d = q.shape
+    with torch.cuda.device(q.device):
+        nbytes = fn(b, h, sq, k.shape[1], d)
+    return torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+
+
 def flash_backward_dkdv(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel B4: (dK, dV) of the same function. CPU tensors take
-    `attention_backward_plain`."""
+    """Kernel B4: (dK, dV) of the same function (its row pre-pass and, for
+    split query tiles, its summing pass included: one launch). CPU tensors
+    take `attention_backward_plain`."""
     if q.device.type == "cpu":
         return attention_backward_plain(q, k, v, o, lse, do)[1:]
     _check_backward(q, k, v, o, lse, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkdv", KERNELS["flash_bwd_dkdv"][1], q, k, (q, k, v, o, do, lse, dk, dv))
+    work = _dkdv_workspace(q, k)
+    _launch("flash_bwd_dkdv", KERNELS["flash_bwd_dkdv"][1], q, k,
+            (q, k, v, o, do, lse, dk, dv, work))
     return dk, dv
 
 

@@ -28,12 +28,16 @@ ATOL, RTOL = 2e-5, 1e-4
 
 # (sq, sk, h, d, block_q, block_k): aligned at the two head dims the JAX
 # kernels pad, then ragged queries with the 77-key tail and with several
-# ragged key tiles, through the kernels' masked branches
+# ragged key tiles, through the kernels' masked branches; then the shapes
+# B4's routes split on: many query tiles with a ragged last one over the
+# 77-key tail (the split route), and Sk = 129, one key past it
 SHAPES = [
     (256, 256, 2, 40, 128, 128),
     (256, 256, 1, 80, 128, 128),
     (200, 77, 2, 40, 128, 128),
     (200, 300, 2, 40, 128, 128),
+    (1000, 77, 1, 40, 128, 128),
+    (256, 129, 1, 40, 128, 128),
 ]
 
 

@@ -131,6 +131,12 @@ BACKWARD_SHAPES = [
     (3, 17, 5, 4, 8),         # head dim padded 8 -> 48
     (1, 70, 90, 2, 136),      # head dim padded 136 -> 160
     (1, 64, 64, 1, 256),
+    (2, 256, 128, 8, 40),     # B4: Sk = 128, the widest split of the query tiles
+    (2, 256, 129, 8, 40),     # B4: Sk = 129, key tiles of 128 and a 1-key tail
+    (1, 1000, 77, 8, 40),     # B4: several query splits, the last one ragged
+    (2, 300, 300, 4, 72),     # head dim padded 72 -> 80
+    (1, 512, 77, 1, 80),      # batch x heads = 1, split
+    (1, 300, 400, 1, 40),     # batch x heads = 1, key tiles
 ]
 
 
@@ -173,6 +179,29 @@ def test_b1_lse_b3_b4_match_plain(cuda, b, sq, sk, h, d):
     assert torch.equal(dq, fa.flash_backward_dq(q, k, v, o, lse, do))
     dk2, dv2 = fa.flash_backward_dkdv(q, k, v, o, lse, do)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_b4_split_route_repeats_bit_for_bit(cuda):
+    """Sk <= 128 splits the query tiles of each (batch, head) over several
+    blocks whose fp32 partials a second pass adds in a fixed order: three
+    runs give the same bits, and each counts as one launch of B4."""
+    b, sq, sk, h, d = 4, 1024, 77, 8, 40
+    q, k, v = _qkv(cuda, b, sq, sk, h, d, seed=7)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(8),
+                     device=cuda).to(torch.bfloat16)
+    o, lse = fa.flash_forward_lse(q, k, v)
+    rows_only = 8 * b * h * sq  # (lse2, delta) per row, sq a whole number of tiles
+    assert fa._dkdv_workspace(q, k).numel() > rows_only  # the partials are there: split
+    before = fa.launches("flash_bwd_dkdv")
+    runs = [fa.flash_backward_dkdv(q, k, v, o, lse, do) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert fa.launches("flash_bwd_dkdv") == before + 3
+    for dk, dv in runs[1:]:
+        assert torch.equal(dk, runs[0][0]) and torch.equal(dv, runs[0][1])
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    ref_o, ref_lse = fa.attention_plain_lse(qf, kf, vf)
+    _, dk_ref, dv_ref = fa.attention_backward_plain(qf, kf, vf, ref_o, ref_lse, do.float())
+    assert _rel(runs[0][0], dk_ref) <= TOL and _rel(runs[0][1], dv_ref) <= TOL
 
 
 def test_autograd_function_launches_backward_kernels(cuda):
