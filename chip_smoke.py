@@ -11,13 +11,15 @@ nothing of JAX. Phases, each of which must pass:
   2. build:  compiles every kernel from `invertible_cd_tpu_torch/ops/csrc/`
              with nvcc for sm_90a, one process per source, in parallel;
   3. kernels vs plain: each kernel at every shape the main path gives it
-             (batch 4), against its plain fp32 version on the same bf16
-             inputs (q and k drawn at scale 2 and v at 0.5, so outputs are
-             O(1) at every key count; max abs error <= 2e-2 *
-             min(1, max |reference|)),
-             timed with CUDA events beside
+             (batch 4; B2 also at batch 1, the batch-1 generate's, where
+             it splits its key range), against its plain fp32 version on
+             the same bf16 inputs (q and k drawn at scale 2 and v at 0.5,
+             so outputs are O(1) at every key count; max abs error <= 2e-2
+             * min(1, max |reference|)), timed with CUDA events beside
              its plain version, torch SDPA (a yardstick the port never
-             calls) and its bound; B1's logsumexp variant (1e-3 absolute);
+             calls) and its bound; B1's logsumexp variant (1e-3 absolute),
+             with a hash of B1's o and lse bits on these fixed-seed inputs
+             (two builds of B1 compare in one `--kernels-only` call);
              the backward kernels B3 and B4 with dO ~ N(0, 1), against the
              plain explicit backward and against autograd through the plain
              forward (max abs error <= 2e-2 * max |reference| for each of
@@ -52,11 +54,15 @@ nothing of JAX. Phases, each of which must pass:
              variants also on `variant_probe` inputs, where the kernel must
              sit within PROBE_RATIO of the variant's distance from base of
              its own plain version; B1 at 4096/40 is set beside B5 `exp2`
-             at G=32 (B1's earlier mma.sync design doing the same work);
+             at G=32 (the same work on the same wgmma loop, on a (G, S, D)
+             layout instead of (B, S, 8, D));
   7. prints the kernels' JSON line, then the device JSON as the last line.
+     A kernel row's `launches` are those of its (Sq, Sk, d) in the generate
+     at its batch, plus, for the batch-4 rows, the three counted train
+     steps (batch 2); B5's rows carry the harness's.
 
-`--kernels-only` stops after phase 3 and prints the kernel rows;
-`--package-root DIR` imports the package (and builds its kernels) from
+`--kernels-only` runs phases 1-3 and the harness (6) and prints the kernel
+rows; `--package-root DIR` imports the package (and builds its kernels) from
 another checkout, e.g. a parent commit unpacked under `build/`, so that two
 versions of the kernels are timed in one call by the same code.
 Kernel times (every kernel row, the harness's too) are per launch: the
@@ -140,17 +146,19 @@ SOURCES = {
     "flash_variant": ("invertible_cd_tpu_torch/ops/csrc/flash_variant.cu",
                       "tools/exp_softmax.py:53"),
 }
-# (kernel, Sq, Sk, heads, head dim) at the main path's batch
+# (kernel, batch, Sq, Sk, heads, head dim): the main path's shapes; B2 also at
+# the batch-1 generate's batch, where its grid alone would fill 64 SMs
 SHAPES = [
-    ("flash_fwd", 4096, 4096, 8, 40),
-    ("flash_fwd", 1024, 1024, 8, 80),
-    ("flash_fwd", 256, 256, 8, 160),
-    ("flash_fwd", 64, 64, 8, 160),
-    ("flash_fwd", 4096, 77, 8, 40),
-    ("flash_fwd", 1024, 77, 8, 80),
-    ("flash_fwd", 256, 77, 8, 160),
-    ("flash_fwd", 64, 77, 8, 160),
-    ("flash_fwd_streamed", 4096, 4096, 1, 512),
+    ("flash_fwd", BATCH, 4096, 4096, 8, 40),
+    ("flash_fwd", BATCH, 1024, 1024, 8, 80),
+    ("flash_fwd", BATCH, 256, 256, 8, 160),
+    ("flash_fwd", BATCH, 64, 64, 8, 160),
+    ("flash_fwd", BATCH, 4096, 77, 8, 40),
+    ("flash_fwd", BATCH, 1024, 77, 8, 80),
+    ("flash_fwd", BATCH, 256, 77, 8, 160),
+    ("flash_fwd", BATCH, 64, 77, 8, 160),
+    ("flash_fwd_streamed", BATCH, 4096, 4096, 1, 512),
+    ("flash_fwd_streamed", 1, 4096, 4096, 1, 512),
 ]
 # attention layers of one SD1.5 UNet call by token count (self; as many cross
 # layers at Sk = 77): 2 down + 3 up at each of 4096/1024/256, 1 mid at 64
@@ -232,6 +240,16 @@ def phase_build():
                 print(f"  {name}: {line.strip()}")
 
 
+def bits_hash(t) -> str:
+    """A short hash of a tensor's bytes, to hold two builds' outputs equal."""
+    import hashlib
+
+    import torch
+
+    raw = t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    return hashlib.sha256(raw).hexdigest()[:16]
+
+
 def phase_kernels(card: str):
     import torch
     import torch.nn.functional as F
@@ -242,10 +260,10 @@ def phase_kernels(card: str):
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = []
     failures = []
-    print(f"kernels vs plain at batch {BATCH} ({card}):")
-    for name, sq, sk, h, d in SHAPES:
+    print(f"kernels vs plain at the main path's shapes ({card}):")
+    for name, batch, sq, sk, h, d in SHAPES:
         def rnd(s, scale=1.0):
-            return (scale * torch.randn((BATCH, s, h, d), generator=gen, device="cuda")).to(
+            return (scale * torch.randn((batch, s, h, d), generator=gen, device="cuda")).to(
                 torch.bfloat16)
         q, k, v = rnd(sq, QK_SCALE), rnd(sk, QK_SCALE), rnd(sk, V_SCALE)
         out = wrappers[name](q, k, v)
@@ -268,15 +286,18 @@ def phase_kernels(card: str):
                                 f"or output differs from the no-lse variant")
             lse_fields = {"lse_max_abs_err": lse_err,
                           "lse_ms": cuda_ms(lambda: fa.flash_forward_lse(q, k, v))}
+            # B1's bits on these fixed-seed inputs, for the package this run imports
+            print(f"  B1 bits {name}[sq={sq},sk={sk},d={d}]: o {bits_hash(out)} lse {bits_hash(lse)}")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         ms = cuda_ms(lambda: wrappers[name](q, k, v))
         plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        flops = 4.0 * BATCH * h * sq * sk * d
-        nbytes = 2.0 * BATCH * h * d * (2 * sq + 2 * sk)  # q, k, v read once, o written once
+        flops = 4.0 * batch * h * sq * sk * d
+        nbytes = 2.0 * batch * h * d * (2 * sq + 2 * sk)  # q, k, v read once, o written once
         rows.append({
-            "name": f"{name}[sq={sq},sk={sk},h={h},d={d}]",
+            "name": f"{name}[b={batch},sq={sq},sk={sk},h={h},d={d}]",
             "kernel": name,
+            "batch": batch,
             "shape": [sq, sk, d],
             "route": "cuda",
             "source": SOURCES[name][0],
@@ -284,13 +305,13 @@ def phase_kernels(card: str):
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
-            **bound(flops, BATCH * h * sq * sk, nbytes),
+            **bound(flops, batch * h * sq * sk, nbytes),
             "library_ms": library_ms,
             **lse_fields,
         })
         with_lse = (f"  with lse {lse_fields['lse_ms']:.3f} ms (lse err "
                     f"{lse_fields['lse_max_abs_err']:.1e})" if lse_fields else "")
-        print(f"  {rows[-1]['name']:<44} err {err:.2e} (max|ref| {ref_max:.3f}, "
+        print(f"  {rows[-1]['name']:<48} err {err:.2e} (max|ref| {ref_max:.3f}, "
               f"err/max|ref| {err / ref_max:.2e}, limit {limit:.2e})  "
               f"kernel {ms:.3f} ms{with_lse}  plain {plain_ms:.3f} ms  sdpa {library_ms:.3f} ms  "
               f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_limit']})  "
@@ -317,12 +338,12 @@ def phase_backward_kernels(card: str):
     rows = []
     failures = []
     print(f"backward kernels vs plain at batch {BATCH} ({card}):")
-    for name, sq, sk, h, d in SHAPES:
+    for name, batch, sq, sk, h, d in SHAPES:
         if name != "flash_fwd":
             continue
 
         def rnd(s, scale=1.0):
-            return (scale * torch.randn((BATCH, s, h, d), generator=gen, device="cuda")).to(
+            return (scale * torch.randn((batch, s, h, d), generator=gen, device="cuda")).to(
                 torch.bfloat16)
         q, k, v, do = rnd(sq, QK_SCALE), rnd(sk, QK_SCALE), rnd(sk, V_SCALE), rnd(sq)
         o, lse = fa.flash_forward_lse(q, k, v)
@@ -360,7 +381,7 @@ def phase_backward_kernels(card: str):
         plain_ms = cuda_ms(lambda: fa.attention_backward_plain(q, k, v, o, lse, do))
         library_ms = cuda_ms(
             lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True))
-        g = BATCH * h
+        g = batch * h
         # bf16 tensors read or written once each, plus the fp32 lse
         nbytes = {"flash_bwd_dq": 2.0 * g * d * (4 * sq + 2 * sk) + 4.0 * g * sq,    # q o do dq | k v
                   "flash_bwd_dkdv": 2.0 * g * d * (3 * sq + 4 * sk) + 4.0 * g * sq}  # q o do | k v dk dv
@@ -368,8 +389,9 @@ def phase_backward_kernels(card: str):
         for kernel, grads in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkdv", ("dk", "dv"))):
             flops = 2.0 * products[kernel] * g * sq * sk * d
             rows.append({
-                "name": f"{kernel}[sq={sq},sk={sk},h={h},d={d}]",
+                "name": f"{kernel}[b={batch},sq={sq},sk={sk},h={h},d={d}]",
                 "kernel": kernel,
+                "batch": batch,
                 "shape": [sq, sk, d],
                 "route": "cuda",
                 "source": SOURCES[kernel][0],
@@ -382,7 +404,7 @@ def phase_backward_kernels(card: str):
                 "library_ms": library_ms,
             })
             r = rows[-1]
-            print(f"  {r['name']:<44} "
+            print(f"  {r['name']:<48} "
                   + " ".join(f"{n} err {errs[n][0]:.2e} (/max|ref| {errs[n][0] / errs[n][1]:.2e})"
                              for n in grads)
                   + f"  kernel {r['ms']:.3f} ms  plain bwd {plain_ms:.3f} ms  sdpa bwd "
@@ -480,9 +502,8 @@ def phase_harness(card: str, b1_rows):
     check(all(r["launches"] > 0 for r in rows), "a variant was not launched by the harness")
     b1 = next(r for r in b1_rows if r["kernel"] == "flash_fwd" and r["shape"] == [4096, 4096, 40])
     b5 = next(r for r in rows if r["variant"] == "exp2" and r["shape"] == [4096, 4096, 40])
-    print(f"  B1 at 4096/4096/40, batch {BATCH} x 8 heads: {b1['ms']:.3f} ms; B5 exp2 (the mma.sync "
-          f"design) at G=32: {b5['ms']:.3f} ms; B1 {'faster' if b1['ms'] < b5['ms'] else 'NOT faster'}"
-          f" by {b5['ms'] / b1['ms']:.2f}x ({card})")
+    print(f"  same work, one loop: B1 at 4096/4096/40, batch {BATCH} x 8 heads: {b1['ms']:.3f} ms; "
+          f"B5 exp2 at G=32: {b5['ms']:.3f} ms; B5 / B1 = {b5['ms'] / b1['ms']:.3f} ({card})")
     return rows
 
 
@@ -539,12 +560,13 @@ def phase_main_path(card: str):
     want = {"flash_fwd": 128, "flash_fwd_streamed": 1, "flash_bwd_dq": 0, "flash_bwd_dkdv": 0,
             "flash_variant": 0}
     after4 = {name: fa.launches(name) for name in want}
+    shapes4 = collections.Counter(fa.LAUNCH_SHAPES)
     t0 = time.perf_counter()
     images1, lat1 = pipe.generate(PROMPTS[:1], latent=latent1)
     torch.cuda.synchronize()
     gen1_s = time.perf_counter() - t0
     launches = {name: fa.launches(name) for name in want}
-    shape_launches = collections.Counter(fa.LAUNCH_SHAPES)
+    shape_launches = {BATCH: shapes4, 1: collections.Counter(fa.LAUNCH_SHAPES) - shapes4}
     # --------------------------------------------------------------------
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     print(f"  launches after batch-{BATCH} generate {after4}, after batch-1 generate {launches}")
@@ -634,6 +656,9 @@ def trace_run(label: str, fn) -> None:
           f"{len(kernels)} kernel launches")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"    {ms:8.2f} ms {n:5d}x  {name[:110]}")
+    ours = sorted((kv for kv in by_name.items() if "icd::" in kv[0]), key=lambda kv: -kv[1][0])
+    print("  the port's kernels in that trace: " + "; ".join(
+        f"{name.split('(')[0].replace('void ', '')[:60]} {ms:.3f} ms / {n}" for name, (ms, n) in ours))
 
 
 def states_equal(a, b) -> bool:
@@ -866,7 +891,7 @@ def phase_training(card: str, pipe):
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     p.add_argument("--kernels-only", action="store_true",
-                   help="run phases 1-3 only and print the kernel rows (not the device line)")
+                   help="run phases 1-3 and 6 only and print the kernel rows (not the device line)")
     p.add_argument("--package-root", default=None,
                    help="import invertible_cd_tpu_torch from this checkout (e.g. an unpacked "
                         "parent commit, to time two versions of the kernels in one call)")
@@ -892,19 +917,21 @@ def main(argv=None) -> int:
         card = phase_card()
         phase_build()
         rows = phase_kernels(card) + phase_backward_kernels(card)
-        if args.kernels_only:
-            print(json.dumps({"kernels": rows}))
-            return 0
         harness_rows = phase_harness(card, rows)
+        if args.kernels_only:
+            print(json.dumps({"kernels": rows + harness_rows}))
+            return 0
         pipe, generate_launches = phase_main_path(card)
         train_launches = phase_training(card, pipe)
     except Exception:  # report every phase failure and exit non-zero
         traceback.print_exc()
         return 1
-    # launches on the main paths: two generates plus three train steps
-    shape_launches = generate_launches + train_launches
+    # launches on the main paths: the generate at the row's batch, plus three
+    # train steps (batch 2) for the rows at the generate's main batch
     for row in rows:
-        row["launches"] = shape_launches.get((row["kernel"],) + tuple(row["shape"]), 0)
+        key = (row["kernel"],) + tuple(row["shape"])
+        row["launches"] = generate_launches[row["batch"]][key] + (
+            train_launches[key] if row["batch"] == BATCH else 0)
     # B5 runs on the harness path alone; its rows carry that path's launches
     rows += harness_rows
     missing = [r["name"] for r in rows if r["launches"] == 0]

@@ -6,9 +6,9 @@
 // All kernels take bf16 q (B, Sq, H, D) and k/v (B, Sk, H, D), contiguous,
 // the layout the model's projections produce (no head transpose); o, dO and
 // the gradients have the layout of the tensor they belong to, and the row
-// logsumexp is fp32 (B, H, Sq) in natural log. Products use
-// `mma.sync.m16n8k16` (bf16 in, fp32 accumulate) with the operand layouts of
-// the PTX ISA:
+// logsumexp is fp32 (B, H, Sq) in natural log. The mma.sync routes' products
+// (the wgmma ones are in hopper.cuh) use `mma.sync.m16n8k16` (bf16 in, fp32
+// accumulate) with the operand layouts of the PTX ISA:
 //   A (16x16, row-major):  a0 = (g, 2t..2t+1)   a1 = (g+8, 2t..)
 //                          a2 = (g, 2t+8..)     a3 = (g+8, 2t+8..)
 //   B (16x8, k-major):     b0 = (k=2t.., n=g)   b1 = (k=2t+8.., n=g)

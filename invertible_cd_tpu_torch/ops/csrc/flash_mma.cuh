@@ -1,7 +1,7 @@
 // The earlier flash-attention forward tile loop on mma.sync (B1's first
-// design), shared by B1's route for padded head dim 256 (flash_fwd.cu) and
-// kernel B5's five softmax variants (flash_variant.cu). The softmax is the
-// one thing they vary; each passes its own as a policy type.
+// design), kept for B1's route at padded head dim 256 (flash_fwd.cu), which
+// is off every path of the port. B1's other widths and kernel B5 run the
+// Hopper loop of flash_wgmma.cuh. The softmax is passed as a policy type.
 //
 // One block = 64 query rows of one (batch, head), 4 warps x 16 rows;
 // mma.sync.m16n8k16 (bf16 in, fp32 accumulate); 64-key tiles of K

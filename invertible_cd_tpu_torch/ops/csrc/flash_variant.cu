@@ -17,13 +17,12 @@
 // against 0.087 ms of products): any d < 64 puts the MUFU above the tensor
 // cores on this card.
 //
-// The tile loop is B1's earlier mma.sync design (flash_mma.cuh, which B1
-// keeps for head dim 256): one block = 64 query rows, 4 warps x 16 rows,
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate), 64-key tiles of K
-// (row-major) and V (transposed) staged synchronously in shared memory,
-// logits, softmax state and accumulator in registers. The variants' softmax
-// stays here, so B1's Hopper design (flash_fwd.cu) leaves it where it was.
-// What each variant changes in the instruction mix, per logit:
+// The tile loop is B1's Hopper loop (flash_wgmma.cuh: 128-row blocks of two
+// warpgroups, wgmma for Q K^T and P V, a 3-stage cp.async K/V ring, 64-key
+// tiles, row sums held per thread until the end), so the harness measures
+// the softmax in the loop B1 runs. Each variant is a policy of that loop,
+// writing P as its wgmma register A operand. What each variant does per
+// logit:
 //   base      FMUL by the scale, FADD of -m, expf (an FMUL by log2(e) and a
 //             range-reduced MUFU ex2 inside), FADD into the row sum; alpha
 //             by expf;
@@ -37,12 +36,16 @@
 //             bf16 A operand of P V;
 //   exp2bf16  as exp2 up to logits - m, then ex2.approx.ftz.bf16x2: one MUFU
 //             issue for two exponentials;
-//   nomax     no running max, no alpha, no rescale of the accumulator:
-//             FMUL, expf, FADD. Unsafe by design (exp overflows for logits
-//             above ~88); the inputs must keep |logits| small.
-// Keys past Sk are masked to -1e30 (the TPU kernel assumed Sk a multiple of
-// its key tile); l is clamped at 1e-30 as there.
-#include "flash_mma.cuh"
+//   nomax     no running max, no alpha, no rescale of the accumulator or the
+//             row sums: FMUL, expf, FADD. Unsafe by design (exp overflows for
+//             logits above ~88); the inputs must keep |logits| small.
+// The bf16 variants round logits - m at each 64-key tile's running max, the
+// tile the plain version is held at (flash_variant.KEY_TILE). Keys past Sk
+// are masked to -1e30 on the ragged last tile (the TPU kernel assumed Sk a
+// multiple of its key tile); l is clamped at 1e-30 as there. Padded head
+// dims 48 (the UNet's 40), 64 (the tool's headline) and 128; there is no
+// route above 128.
+#include "flash_wgmma.cuh"
 
 namespace icd {
 
@@ -54,112 +57,111 @@ __device__ __forceinline__ uint32_t exp2_bf16x2(uint32_t x) {
   return y;
 }
 
-// One tile's softmax for rows g (index 0) and g+8 (index 1) of a warp: the
-// logits `s` (raw products) in, probabilities out as packed bf16 pairs
-// p[n][0] = row g, keys 2t..2t+1 of 8-key tile n, p[n][1] = row g+8.
-template <int NS, int V>
-__device__ __forceinline__ void variant_softmax(const float (&s)[NS][4], uint32_t (&p)[NS][2],
-                                                float (&m)[2], float (&l)[2], float (&alpha)[2],
-                                                float scale, int k0, int sk, int t) {
-  constexpr bool kUseExp2 = V == kExp2 || V == kExp2Bf16;
-  constexpr bool kUseBf16 = V == kBf16Exp || V == kExp2Bf16;
-  const float c = kUseExp2 ? scale * kLog2e : scale;
-  float x[NS][4];
-  float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-  for (int n = 0; n < NS; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = k0 + n * 8 + 2 * t + (e & 1);
-      x[n][e] = key < sk ? s[n][e] * c : kNegInf;
-      mx[e >> 1] = fmaxf(mx[e >> 1], x[n][e]);
-    }
-  }
-  float sum[2] = {0.f, 0.f};
-  if constexpr (V == kNoMax) {
+// The variant's softmax as a policy of the shared loop (flash_wgmma.cuh): the
+// raw logits `s` of rows g (index 0) and g+8 (index 1) in, P out as the bf16
+// A operands pa (k-step n / 2, row g in pa[n / 2][(n % 2) * 2], row g+8 in
+// the next register), this thread's share of the row sums in `sum`.
+template <int V>
+struct VariantSoftmax {
+  static constexpr bool kRescale = V != kNoMax;
+  static constexpr bool kLse = false;
+  template <int NS>
+  __device__ static void tile(float (&s)[NS][4], uint32_t (&pa)[NS / 2][4], float (&m)[2],
+                              float (&alpha)[2], float (&sum)[2], float scale, int k0, int sk,
+                              int t) {
+    constexpr bool kUseExp2 = V == kExp2 || V == kExp2Bf16;
+    constexpr bool kUseBf16 = V == kBf16Exp || V == kExp2Bf16;
+    const float c = kUseExp2 ? scale * kLog2e : scale;
+    const bool ragged = k0 + NS * 8 > sk;
+    float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
-      float pe[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        pe[e] = expf(x[n][e]);
-        sum[e >> 1] += pe[e];
+        float x = s[n][e] * c;
+        if (ragged && k0 + n * 8 + 2 * t + (e & 1) >= sk) x = kNegInf;
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
-      p[n][0] = pack_bf16(pe[0], pe[1]);
-      p[n][1] = pack_bf16(pe[2], pe[3]);
     }
-    alpha[0] = alpha[1] = 1.f;
-  } else {
+    sum[0] = sum[1] = 0.f;
+    if constexpr (V == kNoMax) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = kUseExp2 ? exp2f(m[r] - m_new) : expf(m[r] - m_new);
-      m[r] = m_new;
-    }
+      for (int n = 0; n < NS; ++n) {
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
+        for (int r = 0; r < 2; ++r) {
+          const float p0 = expf(s[n][2 * r]);
+          const float p1 = expf(s[n][2 * r + 1]);
+          sum[r] += p0 + p1;
+          pa[n / 2][(n % 2) * 2 + r] = pack_bf16(p0, p1);
+        }
+      }
+      alpha[0] = alpha[1] = 1.f;
+    } else {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float d0 = x[n][2 * r] - m[r];
-        const float d1 = x[n][2 * r + 1] - m[r];
-        if constexpr (kUseBf16) {
-          __nv_bfloat162 dv = __floats2bfloat162_rn(d0, d1);
-          __nv_bfloat162 pv;
-          if constexpr (kUseExp2) {
-            const uint32_t y = exp2_bf16x2(*reinterpret_cast<uint32_t*>(&dv));
-            pv = *reinterpret_cast<const __nv_bfloat162*>(&y);
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        alpha[r] = kUseExp2 ? exp2f(m[r] - m_new) : expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float d0 = s[n][2 * r] - m[r];
+          const float d1 = s[n][2 * r + 1] - m[r];
+          uint32_t p;
+          if constexpr (kUseBf16) {
+            __nv_bfloat162 dv = __floats2bfloat162_rn(d0, d1);
+            __nv_bfloat162 pv;
+            if constexpr (kUseExp2) {
+              const uint32_t y = exp2_bf16x2(*reinterpret_cast<uint32_t*>(&dv));
+              pv = *reinterpret_cast<const __nv_bfloat162*>(&y);
+            } else {
+              pv = h2exp(dv);
+            }
+            const float2 pf = __bfloat1622float2(pv);
+            sum[r] += pf.x + pf.y;
+            p = *reinterpret_cast<uint32_t*>(&pv);
           } else {
-            pv = h2exp(dv);
+            const float p0 = kUseExp2 ? exp2f(d0) : expf(d0);
+            const float p1 = kUseExp2 ? exp2f(d1) : expf(d1);
+            sum[r] += p0 + p1;
+            p = pack_bf16(p0, p1);
           }
-          const float2 pf = __bfloat1622float2(pv);
-          sum[r] += pf.x + pf.y;
-          p[n][r] = *reinterpret_cast<uint32_t*>(&pv);
-        } else {
-          const float p0 = kUseExp2 ? exp2f(d0) : expf(d0);
-          const float p1 = kUseExp2 ? exp2f(d1) : expf(d1);
-          sum[r] += p0 + p1;
-          p[n][r] = pack_bf16(p0, p1);
+          pa[n / 2][(n % 2) * 2 + r] = p;
         }
       }
     }
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-    l[r] = l[r] * alpha[r] + sum[r];
-  }
-}
-
-// The variant's softmax as the policy of the shared loop (flash_mma.cuh),
-// whose 64-key tile (kMmaKeys) is the one the plain version is held at.
-template <int V>
-struct VariantSoftmax {
-  static constexpr bool kRescale = V != kNoMax;
-  template <int NS>
-  __device__ static void tile(float (&s)[NS][4], uint32_t (&p)[NS][2], float (&m)[2],
-                              float (&l)[2], float (&alpha)[2], float scale, int k0, int sk,
-                              int t) {
-    variant_softmax<NS, V>(s, p, m, l, alpha, scale, k0, sk, t);
-  }
 };
 
-// Head dims 40 (the UNet's, padded to 48), 64 (the tool's headline) and up
-// to 128.
 template <int V>
 int dispatch_b5(const void* q, const void* k, const void* v, void* o, int batch, int heads,
                 int sq, int sk, int d, float scale, void* stream) {
   using S = VariantSoftmax<V>;
   void* const no_lse = nullptr;
-  if (d <= 48) return launch_fwd_mma<48, S>(q, k, v, o, no_lse, batch, heads, sq, sk, d, scale, stream);
-  if (d <= 64) return launch_fwd_mma<64, S>(q, k, v, o, no_lse, batch, heads, sq, sk, d, scale, stream);
-  if (d <= 128) return launch_fwd_mma<128, S>(q, k, v, o, no_lse, batch, heads, sq, sk, d, scale, stream);
+  if (d <= 48) return launch_fwd_wgmma<48, S>(q, k, v, o, no_lse, batch, heads, sq, sk, d, scale, stream);
+  if (d <= 64) return launch_fwd_wgmma<64, S>(q, k, v, o, no_lse, batch, heads, sq, sk, d, scale, stream);
+  if (d <= 128) return launch_fwd_wgmma<128, S>(q, k, v, o, no_lse, batch, heads, sq, sk, d, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace icd
+
+// One Q K^T and one P V product of the loop at B5's padded width for d
+// (q, k, v: 64 x d bf16; s: 64 x 64 fp32; o: 64 x d fp32): the card test of
+// the descriptors at each width (tests/test_torch_gpu.py).
+extern "C" int icd_wgmma_product_check(const void* q, const void* k, const void* v, void* s,
+                                       void* o, int d, void* stream) {
+  if (d <= 0 || d % 8) return (int)cudaErrorInvalidValue;
+  if (d <= 48) return icd::launch_wgmma_product_check<48>(q, k, v, s, o, d, stream);
+  if (d <= 64) return icd::launch_wgmma_product_check<64>(q, k, v, s, o, d, stream);
+  if (d <= 128) return icd::launch_wgmma_product_check<128>(q, k, v, s, o, d, stream);
+  return (int)cudaErrorInvalidValue;
+}
 
 #define ICD_B5_ENTRY(NAME, V)                                                              \
   extern "C" int icd_flash_variant_##NAME(const void* q, const void* k, const void* v,     \

@@ -10,8 +10,10 @@ PyTorch counterpart of `invertible_cd_tpu/ops/flash_attention.py`:
     `_dkdv_kernel`), tied together by `FlashAttentionFn`;
   * B2 `flash_attention_streamed`: 256 < head dim <= 512, the VAE mid-block
     head (source `csrc/flash_fwd_streamed.cu`, replaces
-    `_fwd_kernel_streamed`); its backward is plain PyTorch chunked over key
-    tiles (`attention_backward_chunked`), as the reference's is plain XLA.
+    `_fwd_kernel_streamed`; where its grid would leave SMs idle it splits
+    the key range and merges the splits in a second pass, which counts as
+    the same launch); its backward is plain PyTorch chunked over key tiles
+    (`attention_backward_chunked`), as the reference's is plain XLA.
 
 All take q (B, Sq, H, D) and k/v (B, Sk, H, D), bf16 and contiguous — the
 layout the attention projections produce — and return (B, Sq, H, D). The
@@ -53,14 +55,14 @@ KERNELS: Dict[str, tuple] = {
     # `flash_variant.py`, one entry point per variant
     "flash_variant": ("flash_variant.cu", "icd_flash_variant_base"),
 }
-_HEADERS = ("flash_common.cuh", "flash_mma.cuh", "hopper.cuh")
+_HEADERS = ("flash_common.cuh", "flash_mma.cuh", "flash_wgmma.cuh", "hopper.cuh")
 #: C entry point -> number of leading pointer arguments; every entry point is
 #: (pointers..., batch, heads, sq, sk, d, scale, stream) -> CUDA error code
 _ENTRY_POINTERS: Dict[str, int] = {
     "icd_flash_fwd": 4,                 # q k v o
     "icd_flash_fwd_lse": 5,             # q k v o lse
-    "icd_flash_fwd_streamed": 4,
-    "icd_flash_fwd_streamed_lse": 5,
+    "icd_flash_fwd_streamed": 5,        # q k v o workspace
+    "icd_flash_fwd_streamed_lse": 6,    # q k v o lse workspace
     "icd_flash_bwd_dq": 7,              # q k v o do lse dq
     "icd_flash_bwd_dkdv": 9,            # q k v o do lse dk dv workspace
 }  # B5's entry points are registered by `flash_variant.py`
@@ -294,7 +296,7 @@ def _launch(name: str, entry: str, q, k, pointers) -> None:
 
 
 def _forward(name: str, q, k, v, with_lse: bool):
-    """Kernel B1 or B2 on checked CUDA tensors -> (o, lse or None)."""
+    """Kernel B1 on checked CUDA tensors -> (o, lse or None)."""
     o = torch.empty_like(q)
     entry = KERNELS[name][1]
     if not with_lse:
@@ -303,6 +305,31 @@ def _forward(name: str, q, k, v, with_lse: bool):
     b, sq, h, _ = q.shape
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _launch(name, entry + "_lse", q, k, (q, k, v, o, lse))
+    return o, lse
+
+
+def pad_rows(t: torch.Tensor, multiple: int) -> torch.Tensor:
+    """(B, S, H, D) `t` with S zero-padded up to a multiple of `multiple`
+    (`t` itself when it is one already)."""
+    extra = -t.shape[1] % multiple
+    return t if extra == 0 else torch.nn.functional.pad(t, (0, 0, 0, 0, 0, extra))
+
+
+def _forward_streamed(q, k, v, with_lse: bool):
+    """Kernel B2 on checked CUDA tensors -> (o, lse or None). Its TMA copies
+    read K and V in whole groups of 8 rows, so a ragged Sk is zero-padded
+    here (a copy of K and V, never at the VAE's 4096 tokens); the count of
+    keys the kernel attends to stays Sk."""
+    k8, v8 = pad_rows(k, 8), pad_rows(v, 8)
+    o = torch.empty_like(q)
+    entry = KERNELS["flash_fwd_streamed"][1]
+    work = _workspace("flash_fwd_streamed", q, k)
+    if not with_lse:
+        _launch("flash_fwd_streamed", entry, q, k, (q, k8, v8, o, work))
+        return o, None
+    b, sq, h, _ = q.shape
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _launch("flash_fwd_streamed", entry + "_lse", q, k, (q, k8, v8, o, lse, work))
     return o, lse
 
 
@@ -326,11 +353,13 @@ def flash_backward_dq(q, k, v, o, lse, do) -> torch.Tensor:
     return dq
 
 
-def _dkdv_workspace(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """B4's scratch on q's device: per query row (lse * log2 e, delta), and
-    fp32 partial dK and dV where the query tiles are split; the size comes
-    from the kernel's own plan (`icd_flash_bwd_dkdv_workspace`)."""
-    fn = getattr(_lib("flash_bwd_dkdv"), "icd_flash_bwd_dkdv_workspace")
+def _workspace(name: str, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Kernel `name`'s scratch on q's device, sized by the kernel's own plan
+    (its C function `<entry>_workspace`): B4's per query row (lse * log2 e,
+    delta) and, where the query tiles are split, fp32 partial dK and dV;
+    B2's fp32 partial outputs and (m, l) where the key tiles are split
+    (none otherwise)."""
+    fn = getattr(_lib(name), KERNELS[name][1] + "_workspace")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 5
         fn.restype = ctypes.c_size_t
@@ -348,7 +377,7 @@ def flash_backward_dkdv(q, k, v, o, lse, do) -> Tuple[torch.Tensor, torch.Tensor
         return attention_backward_plain(q, k, v, o, lse, do)[1:]
     _check_backward(q, k, v, o, lse, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    work = _dkdv_workspace(q, k)
+    work = _workspace("flash_bwd_dkdv", q, k)
     _launch("flash_bwd_dkdv", KERNELS["flash_bwd_dkdv"][1], q, k,
             (q, k, v, o, do, lse, dk, dv, work))
     return dk, dv
@@ -394,7 +423,7 @@ class FlashAttentionStreamedFn(torch.autograd.Function):
             o, lse = attention_plain_lse(q, k, v) if need_grad else (attention_plain(q, k, v), None)
         else:
             _check(q, k, v, max_d=512, min_d=256)
-            o, lse = _forward("flash_fwd_streamed", q, k, v, with_lse=need_grad)
+            o, lse = _forward_streamed(q, k, v, with_lse=need_grad)
         if need_grad:
             ctx.save_for_backward(q, k, v, o, lse)
         return o

@@ -116,3 +116,14 @@ def test_kernel_library_names_track_sources():
         assert path.startswith(port.BUILD_DIR)
         assert os.path.basename(path).startswith(f"lib{name}-")
         assert os.path.exists(os.path.join(port._CSRC, port.KERNELS[name][0]))
+
+
+@pytest.mark.parametrize("sk,want", [(77, 80), (80, 80), (1, 8)])
+def test_b2_pads_keys_to_whole_row_groups(sk, want):
+    """B2's TMA copies read K and V in groups of 8 rows: its wrapper pads a
+    ragged key axis with zero rows and keeps every real row as it was."""
+    k = torch.randn((2, sk, 3, 16))
+    padded = port.pad_rows(k, 8)
+    assert padded.shape == (2, want, 3, 16) and padded.is_contiguous()
+    assert torch.equal(padded[:, :sk], k) and not padded[:, sk:].any()
+    assert (padded is k) == (sk == want)

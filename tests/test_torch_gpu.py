@@ -81,8 +81,19 @@ def test_b1_matches_plain(cuda, b, sq, sk, h, d):
     _assert_close(out, q, k, v)
 
 
-@pytest.mark.parametrize("b,sq,sk,h,d", [(1, 1024, 1024, 1, 512), (2, 100, 77, 1, 512),
-                                         (1, 64, 130, 2, 384)])
+B2_SHAPES = [
+    (1, 1024, 1024, 1, 512),
+    (2, 100, 77, 1, 512),
+    (1, 64, 130, 2, 384),
+    (4, 4096, 4096, 1, 512),  # the VAE mid-block at batch 4: one block a query tile
+    (1, 4096, 4096, 1, 512),  # and at batch 1: the key range split in two
+    (1, 512, 1000, 1, 512),   # split, Sk off the 32-key tile
+    (1, 300, 1000, 2, 320),   # split, two heads, d = 320, ragged queries
+    (2, 700, 333, 2, 384),    # split, d = 384, ragged on both sides
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", B2_SHAPES)
 def test_b2_matches_plain(cuda, b, sq, sk, h, d):
     q, k, v = _qkv(cuda, b, sq, sk, h, d, seed=1)
     before = fa.launches("flash_fwd_streamed")
@@ -90,6 +101,34 @@ def test_b2_matches_plain(cuda, b, sq, sk, h, d):
     torch.cuda.synchronize()
     assert fa.launches("flash_fwd_streamed") == before + 1
     _assert_close(out, q, k, v)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", B2_SHAPES)
+def test_b2_lse_matches_plain(cuda, b, sq, sk, h, d):
+    """The logsumexp entry point, on the split route too: the same output
+    as the inference entry point, and lse within 1e-3 of the plain one."""
+    q, k, v = _qkv(cuda, b, sq, sk, h, d, seed=9)
+    o, lse = fa._forward_streamed(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, fa.flash_attention_streamed(q, k, v))
+    ref_lse = fa.attention_plain_lse(q.float(), k.float(), v.float())[1]
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("b,split", [(1, True), (4, False)])
+def test_b2_repeats_bit_for_bit(cuda, b, split):
+    """At 4096^2, d = 512: batch 1 fills the card by splitting the key range
+    (fp32 partials merged in a fixed order by a second pass), batch 4 does
+    not; either way three runs give the same bits, one launch each."""
+    q, k, v = _qkv(cuda, b, 4096, 4096, 1, 512, seed=10)
+    assert (fa._workspace("flash_fwd_streamed", q, k).numel() > 0) == split
+    before = fa.launches("flash_fwd_streamed")
+    runs = [fa.flash_attention_streamed(q, k, v) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert fa.launches("flash_fwd_streamed") == before + 3
+    for out in runs[1:]:
+        assert torch.equal(out, runs[0])
 
 
 def test_fused_attention_routes_by_head_dim(cuda):
@@ -191,7 +230,7 @@ def test_b4_split_route_repeats_bit_for_bit(cuda):
                      device=cuda).to(torch.bfloat16)
     o, lse = fa.flash_forward_lse(q, k, v)
     rows_only = 8 * b * h * sq  # (lse2, delta) per row, sq a whole number of tiles
-    assert fa._dkdv_workspace(q, k).numel() > rows_only  # the partials are there: split
+    assert fa._workspace("flash_bwd_dkdv", q, k).numel() > rows_only  # the partials are there: split
     before = fa.launches("flash_bwd_dkdv")
     runs = [fa.flash_backward_dkdv(q, k, v, o, lse, do) for _ in range(3)]
     torch.cuda.synchronize()
@@ -256,7 +295,8 @@ def test_backward_wrappers_raise_instead_of_falling_back(cuda):
 
 
 @pytest.mark.parametrize("variant", fv.VARIANTS)
-@pytest.mark.parametrize("g,sq,sk,d", [(4, 256, 256, 40), (2, 200, 300, 64), (1, 70, 77, 128)])
+@pytest.mark.parametrize("g,sq,sk,d", [(4, 256, 256, 40), (2, 200, 300, 64), (1, 70, 77, 128),
+                                      (1, 129, 1000, 64), (2, 300, 190, 128)])
 def test_b5_matches_plain(cuda, variant, g, sq, sk, d):
     q, k, v = (x[:, :, 0] for x in _qkv(cuda, g, sq, sk, 1, d, seed=6))
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -272,7 +312,7 @@ def test_b5_matches_plain(cuda, variant, g, sq, sk, d):
 
 
 @pytest.mark.parametrize("variant", fv.BF16_VARIANTS)
-@pytest.mark.parametrize("g,s,d", [(2, 4096, 40), (1, 256, 64)])
+@pytest.mark.parametrize("g,s,d", [(2, 4096, 40), (1, 256, 64), (1, 1000, 128)])
 def test_b5_bf16_variants_round_as_they_say(cuda, variant, g, s, d):
     scale = 40.0 ** -0.5
     q, k, v = fv.variant_probe(g, s, d, variant, scale, device=cuda)
@@ -284,3 +324,25 @@ def test_b5_bf16_variants_round_as_they_say(cuda, variant, g, s, d):
     gap = (want - base).abs().max().item()
     assert gap >= 5e-3, gap
     assert err <= 0.25 * gap, f"max abs err {err:.3e} against a distance from base of {gap:.3e}"
+
+
+@pytest.mark.parametrize("d", [64, 128, 40])
+def test_wgmma_products_at_b5_widths(cuda, d):
+    """One Q K^T (wgmma_ss) and one P V (wgmma_rs, V read MN-major) of the
+    shared loop's layout and descriptors at B5's padded widths, against
+    torch on the same bf16 inputs: a wrong LBO/SBO reads other elements."""
+    import ctypes
+    fn = fa._lib("flash_variant").icd_wgmma_product_check
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn((64, d), generator=gen, device=cuda).to(torch.bfloat16) for _ in range(3))
+    s = torch.empty((64, 64), device=cuda)
+    o = torch.empty((64, d), device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), s.data_ptr(), o.data_ptr(), d, stream) == 0
+    torch.cuda.synchronize()
+    ref_s = q.float() @ k.float().T
+    assert (s - ref_s).abs().max().item() <= 1e-3 * ref_s.abs().max().item()
+    ref_o = s.to(torch.bfloat16).float() @ v.float()  # the kernel's own S, rounded as it rounds P
+    assert (o - ref_o).abs().max().item() <= 1e-4 * ref_o.abs().max().item()
