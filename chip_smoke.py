@@ -26,14 +26,31 @@ nothing of JAX. Phases, each of which must pass:
              dq, dk, dv), bit-identical on a repeat, timed beside the plain
              backward and the backward of torch SDPA;
   4. main path: `InvertibleCD.sd15` at full SD1.5 width with seeded
-             weights and a seeded r=64 reverse LoRA, `generate` on 4
-             prompts then on 1, four hops at 512^2. Checks shapes, finite
-             images in [0, 1], 128 launches of B1 and 1 of B2 per generate,
-             identical images for identical latents, the UNet's kernel path
-             against its materialised-probability path, and a tiny bundle
-             on the card against the same bundle in fp32 on the CPU; then
-             times CLIP, one UNet call and the VAE decode, and traces one
-             generate (device busy time, idle share, top kernels);
+             weights and seeded r=64 reverse and forward LoRAs, `generate`
+             on 4 prompts then on 1, four hops at 512^2. Checks shapes,
+             finite images in [0, 1], 128 launches of B1 and 1 of B2 per
+             generate, identical images for identical latents, the UNet's
+             kernel path against its materialised-probability path, and a
+             tiny bundle on the card against the same bundle in fp32 on the
+             CPU; then times CLIP, one UNet call and the VAE decode, and
+             traces one generate (device busy time, idle share, top kernels);
+  4b. edit:  on the same bundle, `invert` of a seeded 512^2 uint8 image
+             (batch 1: VAE encode, four forward hops) and `edit` (that
+             inversion, then the [source, target] pair decoded under a
+             replace + reweight + LocalBlend controller at the edit CLI's
+             cross 0.6 / self 0.4 steps). Checks shapes, finite images in
+             [0, 1], exact launches per shape: 128 x B1 + 1 x B2 for
+             `invert`, and for the controlled generate of `edit` the B1
+             count derived from the spec (the 5 self layers at 4096 tokens
+             every hop, the 11 others outside the self-replace hops; every
+             cross layer is hooked) + 1 x B2; identical output for an
+             identical image and noise; row 0 of the pair (never edited)
+             against `generate([source], latent=inversion, w=0)` within
+             UNET_REL_TOL; a tiny bundle's invert + edit on the card
+             against the same weights in fp32 on the CPU (the VAE encode,
+             and every UNet call and LocalBlend step teacher-forced);
+             times invert, the
+             controlled generate and edit, and traces one edit;
   5. training: `cli.train_icd.main` takes three optimizer steps at full
              SD1.5 width, batch 2, all four losses, seeded weights and
              batches; then the same step through `make_train_step` on the
@@ -59,15 +76,20 @@ nothing of JAX. Phases, each of which must pass:
   7. prints the kernels' JSON line, then the device JSON as the last line.
      A kernel row's `launches` are those of its (Sq, Sk, d) in the generate
      at its batch, plus, for the batch-4 rows, the three counted train
-     steps (batch 2); B5's rows carry the harness's.
+     steps (batch 2), for the batch-1 rows the counted `invert`, and for
+     the batch-2 rows the controlled generate of the counted `edit`; B5's
+     rows carry the harness's.
 
 `--kernels-only` runs phases 1-3 and the harness (6) and prints the kernel
 rows; `--package-root DIR` imports the package (and builds its kernels) from
 another checkout, e.g. a parent commit unpacked under `build/`, so that two
 versions of the kernels are timed in one call by the same code.
-Kernel times (every kernel row, the harness's too) are per launch: the
-median of 5 loops of 20 back-to-back launches, each loop between one pair of
-CUDA events (`cuda_timed`).
+Kernel times are per launch: 20 launches captured in one CUDA graph, the
+graph replayed 5 times between pairs of CUDA events, the median
+(`graph_ms`), so a launch shorter than its wrapper's host work is timed
+too; SDPA's forward the same way. The plain versions, SDPA's backward and
+the harness's rows (each above ~0.1 ms) are the median of 5 loops of 20
+back-to-back calls, each loop between one pair of CUDA events (`cuda_timed`).
 
 Every bound is the largest of FLOPs / 989e12, exponentials / 3.9e12 (7.8e12
 for B5's exp2bf16, whose ex2.approx.bf16x2 does two a MUFU issue) and
@@ -127,6 +149,14 @@ METRIC_NAMES = (
     "forward_cd_loss", "forward_preserve_loss", "forward_total_loss", "forward_grad_norm",
 )
 TINY_TOL = 5e-2  # max abs image error, tiny bundle bf16 on the card vs fp32 on the CPU
+# the edit phase: a source/target pair with the edit CLI's controller steps
+# (cli/edit.py: cross 0.6, self 0.4), LocalBlend on the swapped word and an
+# equalizer on the new one
+EDIT_SOURCE = "a photo of a corgi on the beach"
+EDIT_TARGET = "a photo of a cat on the beach"
+EDIT_CONTROLLER = dict(cross_replace_steps=0.6, self_replace_steps=0.4,
+                       blend_words=[["corgi"], ["cat"]],
+                       equalizer_params={"words": ["cat"], "values": [2.0]})
 # Kernel times: the median of LOOPS loops of LOOP_CALLS back-to-back calls,
 # each loop between one pair of CUDA events, over LOOP_CALLS (the host's work
 # for a launch then hides behind the device's; around a single launch the
@@ -147,7 +177,11 @@ SOURCES = {
                       "tools/exp_softmax.py:53"),
 }
 # (kernel, batch, Sq, Sk, heads, head dim): the main path's shapes; B2 also at
-# the batch-1 generate's batch, where its grid alone would fill 64 SMs
+# the batch-1 generate's batch, where its grid alone would fill 64 SMs. Then
+# the edit path's (appended, so the inputs drawn for the rows above stay the
+# same): B1 at batch 1 (the batch-1 generate and `invert`) and at batch 2 (the
+# self layers of the controlled pair that the controller leaves unhooked), B2
+# at batch 2 (the pair's decode)
 SHAPES = [
     ("flash_fwd", BATCH, 4096, 4096, 8, 40),
     ("flash_fwd", BATCH, 1024, 1024, 8, 80),
@@ -159,10 +193,24 @@ SHAPES = [
     ("flash_fwd", BATCH, 64, 77, 8, 160),
     ("flash_fwd_streamed", BATCH, 4096, 4096, 1, 512),
     ("flash_fwd_streamed", 1, 4096, 4096, 1, 512),
+    ("flash_fwd", 1, 4096, 4096, 8, 40),
+    ("flash_fwd", 1, 1024, 1024, 8, 80),
+    ("flash_fwd", 1, 256, 256, 8, 160),
+    ("flash_fwd", 1, 64, 64, 8, 160),
+    ("flash_fwd", 1, 4096, 77, 8, 40),
+    ("flash_fwd", 1, 1024, 77, 8, 80),
+    ("flash_fwd", 1, 256, 77, 8, 160),
+    ("flash_fwd", 1, 64, 77, 8, 160),
+    ("flash_fwd", 2, 4096, 4096, 8, 40),
+    ("flash_fwd", 2, 1024, 1024, 8, 80),
+    ("flash_fwd", 2, 256, 256, 8, 160),
+    ("flash_fwd", 2, 64, 64, 8, 160),
+    ("flash_fwd_streamed", 2, 4096, 4096, 1, 512),
 ]
 # attention layers of one SD1.5 UNet call by token count (self; as many cross
 # layers at Sk = 77): 2 down + 3 up at each of 4096/1024/256, 1 mid at 64
 LAYERS_PER_CALL = {4096: 5, 1024: 5, 256: 5, 64: 1}
+HEAD_DIM = {4096: 40, 1024: 80, 256: 160, 64: 160}
 
 
 def bound(flops: float, exps: float, nbytes: float, exp_rate: float = PEAK_EXP_PER_S) -> dict:
@@ -209,6 +257,41 @@ def cuda_timed(fn, per_loop: int = LOOP_CALLS, loops: int = LOOPS, warmup: int =
 def cuda_ms(fn, per_loop: int = LOOP_CALLS, loops: int = LOOPS, warmup: int = 2) -> float:
     """Device ms of one call of `fn`, as `cuda_timed`."""
     return cuda_timed(fn, per_loop, loops, warmup)[0]
+
+
+def graph_ms(fn, per_loop: int = LOOP_CALLS, loops: int = LOOPS, warmup: int = 2) -> float:
+    """Device ms of one call of `fn`: `per_loop` calls captured in one CUDA
+    graph (after a warm-up on a side stream, as capture asks), the graph
+    replayed `loops` times, each replay between one pair of CUDA events; the
+    median over `per_loop`. A replay issues the captured kernels with no host
+    work between them, so a call shorter than its wrapper's host work is
+    timed without that work. The wrappers launch on the current stream,
+    which inside the capture is the graph's; their launch counts rise once
+    per captured call, not per replay."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_loop):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(loops):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_loop)
+    del graph
+    return statistics.median(times)
 
 
 def phase_card():
@@ -285,13 +368,14 @@ def phase_kernels(card: str):
                 failures.append(f"{name}+lse sq={sq} sk={sk} d={d}: lse err {lse_err} > {LSE_TOL} "
                                 f"or output differs from the no-lse variant")
             lse_fields = {"lse_max_abs_err": lse_err,
-                          "lse_ms": cuda_ms(lambda: fa.flash_forward_lse(q, k, v))}
+                          "lse_ms": graph_ms(lambda: fa.flash_forward_lse(q, k, v))}
             # B1's bits on these fixed-seed inputs, for the package this run imports
-            print(f"  B1 bits {name}[sq={sq},sk={sk},d={d}]: o {bits_hash(out)} lse {bits_hash(lse)}")
+            print(f"  B1 bits {name}[b={batch},sq={sq},sk={sk},d={d}]: o {bits_hash(out)} "
+                  f"lse {bits_hash(lse)}")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        ms = cuda_ms(lambda: wrappers[name](q, k, v))
+        ms = graph_ms(lambda: wrappers[name](q, k, v))
         plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
         flops = 4.0 * batch * h * sq * sk * d
         nbytes = 2.0 * batch * h * d * (2 * sq + 2 * sk)  # q, k, v read once, o written once
         rows.append({
@@ -339,7 +423,7 @@ def phase_backward_kernels(card: str):
     failures = []
     print(f"backward kernels vs plain at batch {BATCH} ({card}):")
     for name, batch, sq, sk, h, d in SHAPES:
-        if name != "flash_fwd":
+        if name != "flash_fwd" or batch != BATCH:  # the train step's shapes
             continue
 
         def rnd(s, scale=1.0):
@@ -375,8 +459,8 @@ def phase_backward_kernels(card: str):
         sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
         dot = do.transpose(1, 2)
         times = {
-            "flash_bwd_dq": cuda_ms(lambda: fa.flash_backward_dq(q, k, v, o, lse, do)),
-            "flash_bwd_dkdv": cuda_ms(lambda: fa.flash_backward_dkdv(q, k, v, o, lse, do)),
+            "flash_bwd_dq": graph_ms(lambda: fa.flash_backward_dq(q, k, v, o, lse, do)),
+            "flash_bwd_dkdv": graph_ms(lambda: fa.flash_backward_dkdv(q, k, v, o, lse, do)),
         }
         plain_ms = cuda_ms(lambda: fa.attention_backward_plain(q, k, v, o, lse, do))
         library_ms = cuda_ms(
@@ -627,6 +711,221 @@ def phase_main_path(card: str):
           f"VAE decode {vae_ms:.2f} ms; peak memory {peak_gb:.2f} GiB ({card})")
     trace_run(f"batch {BATCH} generate", lambda: pipe.generate(PROMPTS, latent=latent4))
     return pipe, shape_launches
+
+
+def edit_path_launches(spec, n_hops: int):
+    """Kernel launches per (kernel, Sq, Sk, d) of `invert` at batch 1 and of
+    the controlled generate of `edit`, derived from the controller spec (not
+    from its routing predicate, which they check). `invert`: every layer of
+    every hop on B1, and B2 in the VAE encoder's mid-block. The controlled
+    pair: a replace or refine controller hooks every cross layer; a self
+    layer of more than 32^2 tokens is never hooked (it passes through
+    unedited and unstored); one of <= 32^2 tokens is hooked in the
+    self-replace hops, and in every hop when the spec stores all maps; B2
+    decodes the pair."""
+    check(spec.kind in ("replace", "refine"), f"controller kind {spec.kind}")
+    lo, hi = spec.self_replace_range
+    invert, pair = collections.Counter(), collections.Counter()
+    for tokens, layers in LAYERS_PER_CALL.items():
+        d = HEAD_DIM[tokens]
+        for sk in (tokens, 77):
+            invert[("flash_fwd", tokens, sk, d)] = n_hops * layers
+        for step in range(n_hops):
+            if tokens > 32 * 32 or not (spec.store_all or lo <= step < hi):
+                pair[("flash_fwd", tokens, tokens, d)] += layers
+    invert[("flash_fwd_streamed", 4096, 4096, 512)] = 1
+    pair[("flash_fwd_streamed", 4096, 4096, 512)] = 1
+    return invert, pair
+
+
+def forced_edit_errors(cpu_pipe, gpu_pipe, image, noise, controller):
+    """The CPU pipe's fp32 `edit` (its invert's forward hops, then the
+    controlled pair's reverse hops), with every UNet call and every step
+    callback (LocalBlend) repeated by the card pipe on the same inputs
+    (teacher forcing) under the card's own controller runtime, stepping in
+    lockstep with the CPU's. Returns the relative L2, card against CPU, of
+    each call's epsilon (`unet`), of each blended latent (`blend`) and of the
+    16^2 cross maps each blend accumulated (`maps`, the worst layer), how
+    far each CPU blend moved its latent (`moved`, relative L2; 0 where it
+    kept every pixel), and the CPU's images. A random tiny bundle amplifies rounding along the hops (on
+    the CPU alone, bf16 against fp32, its edited images differ by up to 1.0),
+    so the two pipes are compared call by call, not end to end."""
+    from invertible_cd_tpu_torch.edit import ControllerRuntime
+    from invertible_cd_tpu_torch.pipelines import sampler
+    from invertible_cd_tpu_torch.pipelines.pipeline import InvertibleCD
+
+    dev = gpu_pipe.device
+    card_rt = ControllerRuntime(controller[0], controller[1].to(dev))
+    step, errs = [0], {"unet": [], "blend": [], "maps": [], "moved": []}
+
+    def rel(got, want):
+        return ((got.float().cpu() - want).norm() / want.norm()).item()
+
+    def forced(unet):  # stands in for the CPU pipe's `_noise_model`
+        name = next(k for k, u in cpu_pipe.unets.items() if u is unet)
+        cpu_nm = InvertibleCD._noise_model(cpu_pipe, unet)
+        card_nm = InvertibleCD._noise_model(gpu_pipe, gpu_pipe.unets[name])
+
+        def nm(latent, t, context, w_emb, hook=None):
+            eps = cpu_nm(latent, t, context, w_emb, hook)
+            card_hook = None
+            if hook is not None:  # one hook a hop, in hop order
+                card_hook, step[0] = card_rt.hook_factory(step[0]), step[0] + 1
+            got = card_nm(latent.to(dev), t, context.to(dev),
+                          None if w_emb is None else w_emb.to(dev), card_hook).cpu()
+            errs["unet"].append(rel(got, eps))
+            return eps
+        return nm
+
+    cons_generation = sampler.cons_generation
+
+    def forced_generation(*args, step_callback=None, **kwargs):
+        def blend(latent, i):  # the card runtime's step callback on the same pre-blend latent
+            want = step_callback(latent, i)
+            errs["blend"].append(rel(card_rt.step_callback(latent.to(dev), i), want))
+            errs["moved"].append(rel(want, latent))
+            cpu_maps = step_callback.__self__._accum_maps  # the CPU's runtime
+            errs["maps"].append(max(rel(g, w) for g, w in zip(card_rt._accum_maps, cpu_maps)))
+            return want
+        return cons_generation(*args, step_callback=blend if step_callback else None, **kwargs)
+
+    cpu_pipe._noise_model = forced
+    sampler.cons_generation = forced_generation
+    try:
+        images, _ = cpu_pipe.edit(image, EDIT_SOURCE, EDIT_TARGET, controller, noise=noise)
+    finally:
+        del cpu_pipe._noise_model
+        sampler.cons_generation = cons_generation
+    return errs, images
+
+
+def phase_edit(card: str, pipe):
+    """The edit path on the generate path's bundle: `invert` and `edit` with
+    the launch counters reset, checks, times and one traced edit. Returns the
+    launches per (kernel, Sq, Sk, d) at batch 1 (the counted `invert`) and
+    at batch 2 (the controlled generate of the counted `edit`)."""
+    import numpy as np
+    import torch
+
+    from invertible_cd_tpu_torch.edit import make_controller
+    from invertible_cd_tpu_torch.ops import flash_attention as fa
+    from invertible_cd_tpu_torch.pipelines.pipeline import InvertibleCD
+    from invertible_cd_tpu_torch.testing import tiny_configs
+    from invertible_cd_tpu_torch.utils.tokenizer import HashTokenizer
+
+    n_hops = pipe.grid.num_reverse_steps
+    pair = [EDIT_SOURCE, EDIT_TARGET]
+    image = np.random.default_rng(21).integers(0, 256, (512, 512, 3), dtype=np.uint8)
+    noise = torch.randn((1, 64, 64, 4), generator=torch.Generator(device="cuda").manual_seed(22),
+                        device="cuda")
+    controller = make_controller(pair, pipe.tokenizer, n_hops, **EDIT_CONTROLLER)
+    want_invert, want_pair = edit_path_launches(controller[0], n_hops)
+    print(f"edit: {controller[0]}")
+
+    def edit():
+        return pipe.edit(image, EDIT_SOURCE, EDIT_TARGET, controller, noise=noise)
+
+    pipe.invert(image, EDIT_SOURCE, noise=noise)  # warm-up: plans and handles at batch 1 and 2
+    edit()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the edit path: counts reset just before, read just after ----
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    inv, clean = pipe.invert(image, EDIT_SOURCE, noise=noise)
+    torch.cuda.synchronize()
+    invert_s = time.perf_counter() - t0
+    invert_launches = collections.Counter(fa.LAUNCH_SHAPES)
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    images, latents = edit()
+    torch.cuda.synchronize()
+    edit_s = time.perf_counter() - t0
+    edit_launches = collections.Counter(fa.LAUNCH_SHAPES)
+    # --------------------------------------------------------------------
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    pair_launches = edit_launches - invert_launches
+    totals = {name: (sum(n for k, n in invert_launches.items() if k[0] == name),
+                     sum(n for k, n in pair_launches.items() if k[0] == name)) for name in fa.KERNELS}
+    print(f"  launches (invert, controlled pair of edit): {totals}")
+    check(invert_launches == want_invert, f"invert launches {dict(invert_launches)} != {dict(want_invert)}")
+    check(edit_launches == want_invert + want_pair,
+          f"edit launches {dict(edit_launches)} != {dict(want_invert + want_pair)}")
+    print(f"  derived from the spec and launched: invert {sum(want_invert.values())} "
+          f"(B1 {totals['flash_fwd'][0]}, B2 {totals['flash_fwd_streamed'][0]}); controlled pair "
+          f"{sum(want_pair.values())} (B1 {totals['flash_fwd'][1]}, B2 {totals['flash_fwd_streamed'][1]})")
+
+    for name, t, shape in (("inverted latent", inv, (1, 64, 64, 4)), ("clean latent", clean, (1, 64, 64, 4)),
+                           ("edited latents", latents, (2, 64, 64, 4)), ("images", images, (2, 512, 512, 3))):
+        check(tuple(t.shape) == shape and bool(torch.isfinite(t).all()),
+              f"{name} {tuple(t.shape)} != {shape} or not finite")
+    check(0.0 <= images.min().item() and images.max().item() <= 1.0, "images outside [0, 1]")
+    again, _ = edit()
+    check(torch.equal(again, images), "the same image and noise gave a different edit")
+    print("  same image and noise -> identical edit: ok")
+
+    # row 0 is never edited: the reconstruction of the inversion at w = 0
+    recon, recon_lat = pipe.generate([EDIT_SOURCE], latent=inv,
+                                     guidance=pipe.default_guidance(guidance_scale=0.0))
+    rel = ((latents[:1] - recon_lat).norm() / recon_lat.norm()).item()
+    moved = ((latents[1:] - latents[:1]).norm() / latents[:1].norm()).item()
+    print(f"  row 0 vs generate([source], latent=inversion, w=0): latent relative L2 {rel:.3e} "
+          f"(tol {UNET_REL_TOL}), max abs image error {(images[:1] - recon).abs().max().item():.3e}; "
+          f"row 1 differs from row 0 by {moved:.3f} (relative L2)")
+    check(rel <= UNET_REL_TOL, f"row 0 of the edit off the reconstruction by {rel}")
+
+    t0 = time.perf_counter()
+    pipe.generate(pair, latent=inv.expand(2, -1, -1, -1), controller=controller,
+                  guidance=pipe.default_guidance(guidance_scale=19.0, dynamic_guidance=True,
+                                                 tau1=0.8, tau2=0.8, edit_pair=True))
+    torch.cuda.synchronize()
+    pair_s = time.perf_counter() - t0
+
+    # a tiny bundle's invert + edit on the card (bf16, kernels) against the same
+    # weights in fp32 on the CPU: the VAE encode end to end, every UNet call and
+    # every LocalBlend step teacher-forced (see `forced_edit_errors`). Its LoRAs have rank 64, so they
+    # merge at the full-size bundle's scale alpha / rank = 8 / 64 (at rank 4 the
+    # scale is 2 and the tiny UNet's own bf16 rounding reaches 2-5% a call)
+    unet_cfg, clip_cfg, vae_cfg = tiny_configs()
+    cfgs = dict(unet_cfg=unet_cfg, clip_cfg=clip_cfg, vae_cfg=vae_cfg, latent_size=(16, 16))
+    cpu_pipe = InvertibleCD.sd15(device="cpu", dtype=torch.float32, seed=7, lora_rank=64,
+                                 tokenizer=HashTokenizer(clip_cfg.vocab_size), **cfgs)
+    params = {name: m.state_dict() for name, m in (
+        ("reverse", cpu_pipe.unets["reverse"]), ("forward", cpu_pipe.unets["forward"]),
+        ("text", cpu_pipe.text_encoder), ("vae", cpu_pipe.vae))}
+    gpu_pipe = InvertibleCD.sd15(params=params, device="cuda", dtype=torch.bfloat16,
+                                 tokenizer=cpu_pipe.tokenizer, **cfgs)
+    tiny_controller = make_controller(pair, cpu_pipe.tokenizer, n_hops, **EDIT_CONTROLLER)
+    tiny_image = np.random.default_rng(23).integers(0, 256, (32, 32, 3), dtype=np.uint8)
+    tiny_noise = torch.randn((1, 16, 16, 4), generator=torch.Generator().manual_seed(24))
+    want_inv, want_clean = cpu_pipe.invert(tiny_image, EDIT_SOURCE, noise=tiny_noise)
+    got_inv, got_clean = gpu_pipe.invert(tiny_image, EDIT_SOURCE, noise=tiny_noise)
+    clean_err = (got_clean.cpu() - want_clean).abs().max().item()
+    errs, want_img = forced_edit_errors(cpu_pipe, gpu_pipe, tiny_image, tiny_noise, tiny_controller)
+    got_img, _ = gpu_pipe.edit(tiny_image, EDIT_SOURCE, EDIT_TARGET, tiny_controller, noise=tiny_noise)
+    check(bool(torch.isfinite(got_img).all()), "tiny bundle edit on the card is not finite")
+    def fmt(name, spec="1e"):
+        return " ".join(f"{e:.{spec}}" for e in errs[name])
+
+    print(f"  tiny bundle, card bf16 vs CPU fp32: VAE encode max abs error {clean_err:.3e} "
+          f"(tol {TINY_TOL}); teacher-forced, relative L2 (tol {UNET_REL_TOL}): the "
+          f"{len(errs['unet'])} UNet calls' epsilon {fmt('unet')}, the {len(errs['blend'])} "
+          f"LocalBlend steps' accumulated maps {fmt('maps')} and blended latents {fmt('blend')} "
+          f"(each CPU blend moved its latent by {fmt('moved', '2e')}); not gated, end to end: "
+          f"inverted latent max abs error {(got_inv.cpu() - want_inv).abs().max().item():.3e}, "
+          f"edited images {(got_img.cpu() - want_img).abs().max().item():.3e}")
+    check(clean_err <= TINY_TOL, f"tiny bundle VAE encode off by {clean_err}")
+    check(len(errs["unet"]) == 2 * n_hops and max(errs["unet"]) <= UNET_REL_TOL,
+          f"tiny bundle UNet calls off by {errs['unet']}")
+    check(len(errs["blend"]) == n_hops and max(errs["blend"] + errs["maps"]) <= UNET_REL_TOL,
+          f"tiny bundle LocalBlend off: maps {errs['maps']}, latents {errs['blend']}")
+
+    print(f"  invert (batch 1): {invert_s * 1e3:.1f} ms; controlled generate of the pair: "
+          f"{pair_s * 1e3:.1f} ms; edit (invert + controlled pair): {edit_s * 1e3:.1f} ms; "
+          f"peak memory {peak_gb:.2f} GiB ({card})")
+    trace_run("edit, invert + controlled pair", edit)
+    return {1: invert_launches, 2: pair_launches}
 
 
 def trace_run(label: str, fn) -> None:
@@ -922,16 +1221,20 @@ def main(argv=None) -> int:
             print(json.dumps({"kernels": rows + harness_rows}))
             return 0
         pipe, generate_launches = phase_main_path(card)
+        edit_launches = phase_edit(card, pipe)
         train_launches = phase_training(card, pipe)
     except Exception:  # report every phase failure and exit non-zero
         traceback.print_exc()
         return 1
-    # launches on the main paths: the generate at the row's batch, plus three
-    # train steps (batch 2) for the rows at the generate's main batch
+    # launches on the main paths: the generate at the row's batch, the counted
+    # invert (batch 1) and controlled pair (batch 2), and three train steps
+    # (batch 2) for the rows at the generate's main batch
+    none = collections.Counter()
     for row in rows:
         key = (row["kernel"],) + tuple(row["shape"])
-        row["launches"] = generate_launches[row["batch"]][key] + (
-            train_launches[key] if row["batch"] == BATCH else 0)
+        row["launches"] = (generate_launches.get(row["batch"], none)[key]
+                           + edit_launches.get(row["batch"], none)[key]
+                           + (train_launches[key] if row["batch"] == BATCH else 0))
     # B5 runs on the harness path alone; its rows carry that path's launches
     rows += harness_rows
     missing = [r["name"] for r in rows if r["launches"] == 0]

@@ -15,9 +15,19 @@ diffusers / transformers naming:
   * CLIP's `token_embedding/embedding` -> `text_model.embeddings.token_embedding.weight`.
 
 `lora_from_flax` carries a JAX adapter tree across with the same key renames.
+
+Loading from disk (counterparts of the JAX module's loaders):
+  * `load_torch_file` (JAX :357): `.pt`/`.bin` through `torch.load`, and
+    `.safetensors` through a reader of the public format written here (no
+    `safetensors` package is needed);
+  * `convert_lora_from_kohya` (JAX :304) and `export_lora_to_kohya` (:339):
+    kohya LoRA files <-> this package's adapter dicts (`models.lora`), whose
+    layout is kohya's, so this is mostly key renaming.
 """
 from __future__ import annotations
 
+import json
+import re
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
@@ -123,4 +133,137 @@ def lora_from_flax(tree) -> Dict[str, Dict[str, torch.Tensor]]:
         down, up = np.asarray(ab["down"]), np.asarray(ab["up"])
         down = np.transpose(down, (3, 2, 0, 1)) if down.ndim == 4 else down.T
         out[key] = {"down": torch.tensor(down), "up": torch.tensor(up.T)}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Files on disk
+# ---------------------------------------------------------------------------
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
+}
+
+
+def _read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """The safetensors format: an 8-byte little-endian header length, a JSON
+    header {name: {"dtype", "shape", "data_offsets": [begin, end]}} (plus an
+    optional "__metadata__"), then the raw little-endian buffers, offsets
+    counted from the end of the header. Each tensor is read straight into
+    its own CPU buffer."""
+    out = {}
+    with open(path, "rb") as f:
+        (n,) = np.frombuffer(f.read(8), dtype="<u8")
+        header = json.loads(f.read(int(n)))
+        start = 8 + int(n)
+        header.pop("__metadata__", None)
+        for name, info in sorted(header.items(), key=lambda kv: kv[1]["data_offsets"][0]):
+            begin, end = info["data_offsets"]
+            raw = torch.empty(end - begin, dtype=torch.uint8)
+            f.seek(start + begin)
+            if f.readinto(raw.numpy()) != end - begin:
+                raise ValueError(f"{path}: tensor {name!r} runs past the end of the file")
+            out[name] = raw.view(_SAFETENSORS_DTYPES[info["dtype"]]).reshape(info["shape"])
+    return out
+
+
+def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
+    """A `.safetensors`, `.pt` or `.bin` state dict -> flat {name: CPU
+    tensor} (JAX `models/convert.py:357`); a `{"state_dict": ...}` wrapper
+    is unwrapped."""
+    if path.endswith(".safetensors"):
+        return _read_safetensors(path)
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return dict(sd)
+
+
+# ---------------------------------------------------------------------------
+# Kohya LoRA
+# ---------------------------------------------------------------------------
+_KOHYA_RE = re.compile(r"^lora_unet_(.+?)\.(lora_down|lora_up|alpha)(?:\.weight)?$")
+# the structural tokens of a kohya module name, tried in this order
+_KOHYA_TOKENS = (
+    "down_blocks", "up_blocks", "mid_block", "attentions",
+    "transformer_blocks", "resnets", "downsamplers", "upsamplers",
+    "attn1", "attn2", "to_q", "to_k", "to_v", "to_out_0",
+    "proj_in", "proj_out", "ff_net_0_proj", "ff_net_2",
+    "conv1", "conv2", "conv_shortcut", "conv", "time_emb_proj",
+    "time_embedding", "linear_1", "linear_2", "cond_proj",
+)
+_KOHYA_INDEXED = (
+    "down_blocks", "up_blocks", "attentions", "transformer_blocks", "resnets",
+    "downsamplers", "upsamplers",
+)
+_KOHYA_SPLIT = {"ff_net_0_proj": ["ff", "net.0", "proj"], "ff_net_2": ["ff", "net.2"],
+                "to_out_0": ["to_out.0"]}
+
+
+def _kohya_module_to_key(module: str) -> str:
+    """kohya's flat module name (the diffusers path joined with "_") -> the
+    state-dict key of the adapted weight, e.g.
+    `down_blocks_0_attentions_0_transformer_blocks_0_attn1_to_out_0` ->
+    `down_blocks.0.attentions.0.transformer_blocks.0.attn1.to_out.0.weight`.
+    The name is re-split on known structural tokens as JAX's
+    `_kohya_module_to_flax` (`models/convert.py:240`) splits it; an unknown
+    word is taken as one module name."""
+    out, s = [], module
+    while s:
+        for tok in _KOHYA_TOKENS:
+            if s != tok and not s.startswith(tok + "_"):
+                continue
+            rest = s[len(tok) + 1:]
+            m = re.match(r"^(\d+)(?:_(.*))?$", rest) if tok in _KOHYA_INDEXED else None
+            if m:
+                out.append(f"{tok}.{m.group(1)}")
+                s = m.group(2) or ""
+            else:
+                out.extend(_KOHYA_SPLIT.get(tok, [tok]))
+                s = rest
+            break
+        else:
+            head, _, s = s.partition("_")
+            out.append(head)
+    return ".".join(out) + ".weight"
+
+
+def convert_lora_from_kohya(
+    state_dict: Dict[str, torch.Tensor],
+) -> Tuple[Dict[str, Dict[str, torch.Tensor]], Dict[str, float]]:
+    """kohya LoRA tensors -> ({weight key: {"down", "up"}}, {weight key:
+    alpha}) (JAX `models/convert.py:304`). kohya stores `lora_down.weight`
+    (r, in[, kh, kw]) and `lora_up.weight` (out, r[, 1, 1]); `models.lora`
+    takes down as it is and up as (out, r). The per-module alpha gives the
+    merge its scale alpha / rank."""
+    adapters: Dict[str, Dict[str, torch.Tensor]] = {}
+    alphas: Dict[str, float] = {}
+    for name, value in state_dict.items():
+        m = _KOHYA_RE.match(name)
+        if not m:
+            continue
+        key, kind = _kohya_module_to_key(m.group(1)), m.group(2)
+        value = torch.as_tensor(value)
+        if kind == "alpha":
+            alphas[key] = float(value.reshape(-1)[0])
+        elif kind == "lora_down":
+            adapters.setdefault(key, {})["down"] = value
+        else:
+            adapters.setdefault(key, {})["up"] = value[:, :, 0, 0] if value.dim() == 4 else value
+    return adapters, alphas
+
+
+def export_lora_to_kohya(
+    lora: Dict[str, Dict[str, torch.Tensor]], alpha: float = 8.0,
+) -> Dict[str, torch.Tensor]:
+    """Inverse of `convert_lora_from_kohya` (JAX `models/convert.py:339`):
+    adapters trained here, in the reference's kohya format."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, ab in lora.items():
+        flat = "lora_unet_" + key[: -len(".weight")].replace(".", "_")
+        down, up = ab["down"].detach().cpu(), ab["up"].detach().cpu()
+        out[f"{flat}.lora_down.weight"] = down
+        out[f"{flat}.lora_up.weight"] = up[:, :, None, None] if down.dim() == 4 else up
+        out[f"{flat}.alpha"] = torch.tensor(alpha, dtype=torch.float32)
     return out

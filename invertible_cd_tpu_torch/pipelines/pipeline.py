@@ -1,14 +1,16 @@
-"""InvertibleCD — the user-facing pipeline bundling the UNet student, CLIP and VAE.
+"""InvertibleCD — the user-facing pipeline bundling the UNet students, CLIP and VAE.
 
 PyTorch counterpart of `invertible_cd_tpu/pipelines/pipeline.py` for the
-generation path:
+consistency paths:
 
-  generate():  CLIP encode -> 4 consistency hops -> VAE decode and clamp
+  generate():  CLIP encode -> 4 reverse consistency hops -> VAE decode and clamp
+  invert():    VAE encode -> 4 forward consistency hops (the forward student)
+  edit():      invert() under the source prompt, then generate() on the
+               [source, target] pair with a prompt-to-prompt controller
 
 Public functions keep the JAX package's layouts: latents (B, 64, 64, 4)
-NHWC in, images (B, 512, 512, 3) float32 in [0, 1] NHWC out. Inside, the
-models run NCHW. Inversion, editing, the DDIM baselines and SDXL come in
-later slices.
+NHWC in and out, images (B, 512, 512, 3) float32 in [0, 1] NHWC out. Inside,
+the models run NCHW. The DDIM baselines and SDXL come in later slices.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from ..diffusion.schedule import NoiseSchedule, make_schedule
 from ..diffusion.solver import SolverGrid, make_solver_grid
+from ..edit.controllers import ControllerArrays, ControllerRuntime, ControllerSpec
 from ..models.clip import CLIPTextConfig, CLIPTextModel
 from ..models.layers import cast_compute_weights, fan_in_init_
 from ..models.lora import merge_lora, seeded_lora
@@ -44,8 +47,9 @@ def resolve_device(device) -> torch.device:
 class InvertibleCD:
     """UNet student(s) + CLIP text encoder + VAE on one device.
 
-    `unets` maps a model name ("reverse"; "teacher" and "forward" when
-    given) to its UNet, with any LoRA already merged into the weights."""
+    `unets` maps a model name ("reverse" and "forward", the students;
+    "teacher" when given) to its UNet, with any LoRA already merged into the
+    weights."""
 
     unets: Dict[str, UNet2DCondition]
     text_encoder: CLIPTextModel
@@ -77,32 +81,41 @@ class InvertibleCD:
 
         `params` holds state dicts (diffusers / transformers keys) under
         "text", "vae" and one or more of "teacher", "reverse", "forward".
+        A UNet is built for every one of those keys that `params` holds; the
+        modules take the given tensors themselves (built on the meta device,
+        then assigned; a non-contiguous tensor is made contiguous first), so
+        where device, dtype and layout already match nothing is copied and
+        students that share the teacher's tensors share memory.
         Without `params`, full-width synthetic weights are drawn on the
         device from a torch.Generator seeded with `seed` (fan-in rule,
-        `models.layers.fan_in_init_`), with a seeded rank-`lora_rank`
-        reverse LoRA merged into the UNet by `merge_lora`."""
+        `models.layers.fan_in_init_`): CLIP, the VAE and one UNet base, then
+        a seeded rank-`lora_rank` LoRA for the "reverse" student and, drawn
+        after it, one for the "forward" student, each merged into its own
+        copy of the base by `merge_lora`."""
         device = resolve_device(device)
         unet_cfg = unet_cfg or UNetConfig.sd15()
         clip_cfg = clip_cfg or CLIPTextConfig.vit_l()
         vae_cfg = vae_cfg or VAEConfig.sd()
-        with torch.device(device):
+        with torch.device(device if params is None else "meta"):
             text = CLIPTextModel(clip_cfg)
             vae = AutoencoderKL(vae_cfg)
-            names = ("reverse",) if params is None else [k for k in UNET_KEYS if k in params]
+            names = ("reverse", "forward") if params is None else [
+                k for k in UNET_KEYS if k in params]
             unets = {name: UNet2DCondition(unet_cfg) for name in names}
         if params is None:
             gen = torch.Generator(device=device).manual_seed(seed)
             for module in (unets["reverse"], text, vae):
                 fan_in_init_(module, gen)
-            base = unets["reverse"].state_dict()
-            unets["reverse"].load_state_dict(
-                merge_lora(base, seeded_lora(base, gen, lora_rank), rank=lora_rank)
-            )
+            base = unets["reverse"].state_dict()  # the reverse UNet's own tensors
+            loras = {name: seeded_lora(base, gen, lora_rank) for name in ("reverse", "forward")}
+            # the forward student first: the reverse merge writes into `base`
+            for name in ("forward", "reverse"):
+                unets[name].load_state_dict(merge_lora(base, loras[name], rank=lora_rank))
         else:
-            text.load_state_dict(params["text"])
-            vae.load_state_dict(params["vae"])
-            for name, unet in unets.items():
-                unet.load_state_dict(params[name])
+            for module, name in ((text, "text"), (vae, "vae"), *((u, n) for n, u in unets.items())):
+                state = {k: v.contiguous() for k, v in params[name].items()}
+                module.load_state_dict(state, assign=True)
+                module.to(device)
         for module in (text, vae, *unets.values()):
             cast_compute_weights(module, dtype).eval().requires_grad_(False)
         return InvertibleCD(
@@ -160,11 +173,11 @@ class InvertibleCD:
     # Model calls
     # ------------------------------------------------------------------
     def _noise_model(self, unet: UNet2DCondition):
-        def nm(latent, t, context, w_emb):
+        def nm(latent, t, context, w_emb, hook=None):
             b = latent.shape[0]
             return unet(
                 latent, torch.full((b,), t, dtype=torch.long, device=latent.device),
-                context, w_cond=w_emb,
+                context, w_cond=w_emb, attn_hook=hook,
             )
         return nm
 
@@ -173,6 +186,19 @@ class InvertibleCD:
         img = self.vae.decode(latents / self.scaling_factor)
         img = torch.clamp(img.float() / 2 + 0.5, 0.0, 1.0)
         return img.permute(0, 2, 3, 1).contiguous()
+
+    def _encode_image(self, pixels: torch.Tensor) -> torch.Tensor:
+        """pixels (B, H, W, 3) in [-1, 1] -> scaled posterior-mean latents
+        (B, 4, h, w) fp32 (JAX `pipeline.py:238-241`)."""
+        mean = self.vae.encode_mean(pixels.permute(0, 3, 1, 2))
+        return mean.float() * self.scaling_factor
+
+    def _as_nchw(self, latent) -> torch.Tensor:
+        """An NHWC latent (tensor on any device, or numpy) -> NCHW fp32 on the device."""
+        if isinstance(latent, np.ndarray):
+            latent = np.array(latent, dtype=np.float32)  # writable (a broadcast view is not)
+        latent = torch.as_tensor(latent, dtype=torch.float32, device=self.device)
+        return latent.permute(0, 3, 1, 2)
 
     # ------------------------------------------------------------------
     # Public API
@@ -192,29 +218,178 @@ class InvertibleCD:
         generator: Optional[torch.Generator] = None,
         latent: Optional[torch.Tensor] = None,
         guidance: Optional[S.GuidanceConfig] = None,
+        controller: Optional[Tuple[ControllerSpec, ControllerArrays]] = None,
         model: str = "reverse",
+        amplify_prompt: Optional[Sequence[str]] = None,
+        return_trajectory: bool = False,
     ):
-        """Few-step consistency generation.
+        """Few-step consistency generation (JAX `pipeline.py:312-363`).
 
         `latent`: optional (B, h, w, 4) NHWC start latent (any device; numpy
         accepted); otherwise one latent drawn from `generator` (seed 0 when
-        None) is shared by the batch. Returns (images (B, H, W, 3) float32 in
-        [0, 1] NHWC, final latents (B, h, w, 4) NHWC), both on the device.
+        None) is shared by the batch. `controller`: a (spec, arrays) pair
+        from `edit.make_controller`, whose hooks edit attention and whose
+        step callback blends latents. `amplify_prompt`: the prompt(s) whose
+        context replaces the prompts' while `t > tau1 * 1000` under dynamic
+        guidance.
+
+        Returns (images (B, H, W, 3) float32 in [0, 1] NHWC, final latents
+        (B, h, w, 4) NHWC), both on the device; with `return_trajectory`
+        the latents are the (n_hops+1, B, h, w, 4) trajectory, row i hop i's
+        input; with a `store_all` controller the attention store
+        ({store_key: [(B, H, Sq, Sk) per hooked layer and hop]}) comes third.
         """
         if isinstance(prompts, str):
             prompts = [prompts]
         g = guidance or self.default_guidance()
         ctx_u, ctx_c = self._encode_all(prompts, need_uncond=g.w_embed_dim <= 0)
+        ctx_amp = None
+        if amplify_prompt is not None:
+            amplify_prompt = [amplify_prompt] if isinstance(amplify_prompt, str) else list(amplify_prompt)
+            if len(amplify_prompt) == 1 and len(prompts) > 1:
+                amplify_prompt = amplify_prompt * len(prompts)
+            ctx_amp = self._encode_all(amplify_prompt, need_uncond=False)[1]
         if latent is None:
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
             latent = self.init_latent(generator, len(prompts))
-        latent = torch.as_tensor(latent, dtype=torch.float32, device=self.device)
+        spec, arrays = controller if controller else (None, None)
+        rt = ControllerRuntime(spec, arrays.to(self.device)) if spec is not None else None
         lat = S.cons_generation(
-            self._noise_model(self.unets[model]), latent.permute(0, 3, 1, 2),
+            self._noise_model(self.unets[model]), self._as_nchw(latent),
             ctx_u, ctx_c, self.grid, self.schedule, g,
+            hook_factory=rt.hook_factory if rt else None,
+            step_callback=rt.step_callback if rt else None,
+            context_amplify=ctx_amp,
+            return_all=return_trajectory,
         )
-        return self._decode_latents(lat), lat.permute(0, 2, 3, 1).contiguous()
+        images = self._decode_latents(lat[-1].permute(0, 3, 1, 2) if return_trajectory else lat)
+        if not return_trajectory:
+            lat = lat.permute(0, 2, 3, 1).contiguous()
+        if spec is not None and spec.store_all:
+            return images, lat, rt.store
+        return images, lat
+
+    @torch.inference_mode()
+    def invert(
+        self,
+        image,
+        prompt="",
+        generator: Optional[torch.Generator] = None,
+        noise=None,
+        guidance: Optional[S.GuidanceConfig] = None,
+        return_trajectory: bool = False,
+    ):
+        """Forward-CD inversion of a real image (JAX `pipeline.py:365-403`).
+
+        `image`: (H, W, 3) or (B, H, W, 3) uint8/float in [0, 255] (numpy or
+        tensor). `prompt`: one string shared by the batch, or one per image.
+        `noise`: the (B, h, w, 4) NHWC start-timestep noise; otherwise drawn
+        from `generator` (seed 0 when None). The forward student is
+        w-conditioned and trained at w = 0, so the default guidance keeps
+        the w-embedding at w = 0 rather than dropping it.
+
+        Returns (noise latent (B, h, w, 4), clean latent (B, h, w, 4)), NHWC
+        on the device; `return_trajectory` replaces the noise latent with
+        the (n_hops+1, B, h, w, 4) forward trajectory."""
+        pixels = to_model_pixels(image).to(self.device)
+        g = guidance or self.default_guidance(guidance_scale=0.0)
+        prompts = [prompt] * pixels.shape[0] if isinstance(prompt, str) else list(prompt)
+        ctx_u, ctx_c = self._encode_all(prompts, need_uncond=g.w_embed_dim <= 0)
+        if noise is None:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            h, w = self.latent_size
+            noise = torch.randn((pixels.shape[0], h, w, 4), generator=generator, device=self.device)
+        latent = self._encode_image(pixels)
+        inv = S.cons_inversion(
+            self._noise_model(self.unets["forward"]), latent, self._as_nchw(noise),
+            ctx_u, ctx_c, self.grid, self.schedule, g, return_all=return_trajectory,
+        )
+        if not return_trajectory:
+            inv = inv.permute(0, 2, 3, 1).contiguous()
+        return inv, latent.permute(0, 2, 3, 1).contiguous()
+
+    def edit(
+        self,
+        image,
+        source_prompt: str,
+        target_prompt: str,
+        controller: Tuple[ControllerSpec, ControllerArrays],
+        generator: Optional[torch.Generator] = None,
+        guidance: Optional[S.GuidanceConfig] = None,
+        invert_guidance: Optional[S.GuidanceConfig] = None,
+        noise=None,
+    ):
+        """Invert-then-edit (JAX `pipeline.py:405-430`): forward CD encodes
+        the image under the source prompt, then reverse CD decodes the
+        [source, target] pair with the controller mixing attention; row 1 is
+        the edited image. Default guidance: w = 19, dynamic with tau1 = tau2
+        = 0.8, the w-embedding on the target row only (`edit_pair`).
+        `generator` / `noise` go to `invert`.
+
+        Returns `generate`'s result: (images (2, H, W, 3), latents (2, h, w,
+        4)), plus the store for a `store_all` controller."""
+        inv, _ = self.invert(image, source_prompt, generator=generator, noise=noise,
+                             guidance=invert_guidance)
+        latent = inv[:1].expand((2,) + tuple(inv.shape[1:]))
+        g = guidance or self.default_guidance(
+            guidance_scale=19.0, dynamic_guidance=True, tau1=0.8, tau2=0.8, edit_pair=True,
+        )
+        return self.generate(
+            [source_prompt, target_prompt], latent=latent, guidance=g, controller=controller,
+        )
+
+    @torch.inference_mode()
+    def decode(self, latents) -> np.ndarray:
+        """(B, h, w, 4) NHWC scaled latents -> images (B, H, W, 3) float32
+        numpy in [0, 1] (JAX `pipeline.py:604-606`)."""
+        return self._decode_latents(self._as_nchw(latents)).cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Helpers
+# ---------------------------------------------------------------------------
+def to_model_pixels(image) -> torch.Tensor:
+    """uint8/float [0, 255] (B, H, W, 3) or (H, W, 3), numpy or tensor ->
+    float32 [-1, 1] NHWC tensor on the input's device (JAX
+    `pipeline.py:615`)."""
+    arr = torch.as_tensor(np.asarray(image) if not isinstance(image, torch.Tensor) else image)
+    if arr.dim() == 3:
+        arr = arr[None]
+    return arr.to(torch.float32) / 127.5 - 1.0
+
+
+def load_512(image, left=0, right=0, top=0, bottom=0, size=512) -> np.ndarray:
+    """Load an image (path, PIL image or HWC array), apply optional edge-crop
+    offsets and a center square crop, and resize it to (size, size) uint8
+    RGB (JAX `pipeline.py:623`). With default offsets this is a plain
+    resize, as the reference's active code is; nonzero offsets clamp as the
+    reference does, `top` against `left`. PIL is imported here only."""
+    from PIL import Image
+
+    if isinstance(image, str):
+        arr = np.array(Image.open(image).convert("RGB"))[:, :, :3]
+    elif isinstance(image, Image.Image):
+        arr = np.array(image.convert("RGB"))[:, :, :3]
+    else:
+        arr = np.asarray(image)[:, :, :3]
+    if left or right or top or bottom:
+        h, w, _ = arr.shape
+        left = min(left, w - 1)
+        right = min(right, w - left - 1)
+        top = min(top, h - left - 1)  # the reference clamps top against left
+        bottom = min(bottom, h - top - 1)
+        arr = arr[top:h - bottom, left:w - right]
+        h, w, _ = arr.shape
+        if h < w:
+            offset = (w - h) // 2
+            arr = arr[:, offset:offset + h]
+        elif w < h:
+            offset = (h - w) // 2
+            arr = arr[offset:offset + w]
+    out = Image.fromarray(arr.astype(np.uint8)).resize((size, size), Image.BICUBIC)
+    return np.array(out)
 
 
 def to_uint8(images) -> np.ndarray:

@@ -86,6 +86,7 @@ B2_SHAPES = [
     (2, 100, 77, 1, 512),
     (1, 64, 130, 2, 384),
     (4, 4096, 4096, 1, 512),  # the VAE mid-block at batch 4: one block a query tile
+    (2, 4096, 4096, 1, 512),  # at batch 2, the decode of an edited pair: 128 blocks, no split
     (1, 4096, 4096, 1, 512),  # and at batch 1: the key range split in two
     (1, 512, 1000, 1, 512),   # split, Sk off the 32-key tile
     (1, 300, 1000, 2, 320),   # split, two heads, d = 320, ragged queries
@@ -116,7 +117,7 @@ def test_b2_lse_matches_plain(cuda, b, sq, sk, h, d):
     assert (lse - ref_lse).abs().max().item() <= 1e-3
 
 
-@pytest.mark.parametrize("b,split", [(1, True), (4, False)])
+@pytest.mark.parametrize("b,split", [(1, True), (2, False), (4, False)])
 def test_b2_repeats_bit_for_bit(cuda, b, split):
     """At 4096^2, d = 512: batch 1 fills the card by splitting the key range
     (fp32 partials merged in a fixed order by a second pass), batch 4 does
@@ -346,3 +347,38 @@ def test_wgmma_products_at_b5_widths(cuda, d):
     assert (s - ref_s).abs().max().item() <= 1e-3 * ref_s.abs().max().item()
     ref_o = s.to(torch.bfloat16).float() @ v.float()  # the kernel's own S, rounded as it rounds P
     assert (o - ref_o).abs().max().item() <= 1e-4 * ref_o.abs().max().item()
+
+
+def test_hooked_unet_at_full_width_matches_the_unhooked_one(cuda):
+    """SD1.5's UNet at full width, bf16, seeded weights: a store controller's
+    hook (the identity on every layer: it records the <= 32^2-token maps and
+    edits nothing) routes those 22 layers to materialised probabilities and
+    keeps the 10 at 4096 tokens on B1; its epsilon is within 5e-2 relative
+    L2 of the unhooked UNet's, whose 32 layers all take B1 (the two differ
+    only in B1's bf16 rounding of P and O against fp32 probabilities)."""
+    from invertible_cd_tpu_torch.edit import ControllerRuntime, empty_arrays, store_controller
+    from invertible_cd_tpu_torch.models.layers import cast_compute_weights, fan_in_init_
+    from invertible_cd_tpu_torch.models.unet2d import UNet2DCondition, UNetConfig
+    from invertible_cd_tpu_torch.pipelines.sampler import GuidanceConfig, w_embedding_for
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    with torch.device(cuda):
+        unet = UNet2DCondition(UNetConfig.sd15())
+    fan_in_init_(unet, gen)
+    unet = cast_compute_weights(unet, torch.bfloat16).eval().requires_grad_(False)
+    x = torch.randn((1, 4, 64, 64), generator=gen, device=cuda)
+    ctx = 0.1 * torch.randn((1, 77, 768), generator=gen, device=cuda)
+    w = w_embedding_for(GuidanceConfig(), 519, 1, device=cuda)
+    runtime = ControllerRuntime(store_controller(num_steps=1), empty_arrays(1, 1))
+    with torch.inference_mode():
+        fa.reset_launch_counts()
+        plain = unet(x, 519, ctx, w)
+        assert fa.launches("flash_fwd") == 32
+        fa.reset_launch_counts()
+        hooked = unet(x, 519, ctx, w, attn_hook=runtime.hook_factory(0))
+        torch.cuda.synchronize()
+    assert fa.launches("flash_fwd") == 10
+    assert sum(len(maps) for maps in runtime.store.values()) == 22
+    rel = ((hooked - plain).norm() / plain.norm()).item()
+    assert torch.isfinite(hooked).all() and rel <= 5e-2, f"relative L2 {rel:.3e}"
+

@@ -1,7 +1,8 @@
 """The PyTorch port imports nothing of JAX: importing every module of
 `invertible_cd_tpu_torch`, and `chip_smoke.py`, in a fresh interpreter
 leaves `jax`, `flax`, `optax`, `orbax` and `invertible_cd_tpu` out of
-`sys.modules`."""
+`sys.modules`; nor `PIL`, which the card machine does not have (`load_512`
+imports it when called)."""
 import os
 import pkgutil
 import subprocess
@@ -25,7 +26,9 @@ def test_port_modules_are_all_found():
     for name in ("ops.flash_attention", "models.unet2d", "models.convert",
                  "pipelines.pipeline", "testing", "utils.tokenizer", "utils.logging",
                  "training.losses", "training.trainer", "training.checkpoint",
-                 "cli.train_icd", "ops.flash_variant", "cli.exp_softmax"):
+                 "cli.train_icd", "ops.flash_variant", "cli.exp_softmax",
+                 "edit", "edit.aligner", "edit.controllers", "pipelines.loading",
+                 "pipelines.sampler"):
         assert f"invertible_cd_tpu_torch.{name}" in mods
 
 
@@ -35,7 +38,7 @@ def test_port_and_chip_smoke_import_no_jax():
         f"for m in {_port_modules()!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'invertible_cd_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'invertible_cd_tpu', 'PIL'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )

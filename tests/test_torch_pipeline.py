@@ -48,9 +48,10 @@ def port_pipe(tiny_pipe):
 
 @pytest.fixture(scope="module")
 def jax_generation(tiny_pipe):
+    """(start latent, images, final latents, the (5, 1, 16, 16, 4) trajectory)."""
     latent = np.asarray(tiny_pipe.init_latent(jax.random.PRNGKey(150), 1))
-    images, latents = tiny_pipe.generate([PROMPT], latent=jnp.asarray(latent))
-    return latent, np.asarray(images), np.asarray(latents)
+    images, traj = tiny_pipe.generate([PROMPT], latent=jnp.asarray(latent), return_trajectory=True)
+    return latent, np.asarray(images), np.asarray(traj[-1]), np.asarray(traj)
 
 
 @pytest.fixture(scope="module")
@@ -61,12 +62,24 @@ def port_generation(port_pipe, jax_generation):
 
 
 def test_generate_matches_jax_tiny_bundle(jax_generation, port_generation):
-    _, want_images, want_latents = jax_generation
+    _, want_images, want_latents, _ = jax_generation
     images, latents = port_generation
     assert images.shape == (1, 32, 32, 3) and images.dtype == np.float32
     assert latents.shape == (1, 16, 16, 4)
     np.testing.assert_allclose(latents, want_latents, atol=ATOL, rtol=RTOL)
     np.testing.assert_allclose(images, want_images, atol=ATOL, rtol=RTOL)
+
+
+def test_generate_trajectory_matches_jax(port_pipe, jax_generation, port_generation):
+    """`return_trajectory`: row i is hop i's input; the last row is the final
+    latent of the call without it, and its images match that call's."""
+    latent, want_images, _, want_traj = jax_generation
+    images, traj = port_pipe.generate([PROMPT], latent=torch.tensor(latent), return_trajectory=True)
+    assert tuple(traj.shape) == (5, 1, 16, 16, 4)
+    np.testing.assert_allclose(traj.numpy(), want_traj, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(images.numpy(), want_images, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(traj[-1], torch.from_numpy(port_generation[1]), atol=0, rtol=0)
+    torch.testing.assert_close(images, torch.from_numpy(port_generation[0]), atol=ATOL, rtol=RTOL)
 
 
 def test_generate_matches_golden(port_generation):
