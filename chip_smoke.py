@@ -12,7 +12,9 @@ nothing of JAX. Phases, each of which must pass:
              with nvcc for sm_90a, one process per source, in parallel;
   3. kernels vs plain: each kernel at every shape the main path gives it
              (batch 4; B2 also at batch 1, the batch-1 generate's, where
-             it splits its key range), against its plain fp32 version on
+             it splits its key range; then the edit's and SDXL's shapes, B2's
+             fp32 build on fp32 inputs with its lse held to the plain lse on
+             q and k rounded to TF32), against its plain fp32 version on
              the same bf16 inputs (q and k drawn at scale 2 and v at 0.5,
              so outputs are O(1) at every key count; max abs error <= 2e-2
              * min(1, max |reference|)), timed with CUDA events beside
@@ -51,6 +53,22 @@ nothing of JAX. Phases, each of which must pass:
              and every UNet call and LocalBlend step teacher-forced);
              times invert, the
              controlled generate and edit, and traces one edit;
+  4c. sdxl:  `InvertibleCDXL.sdxl` at full SDXL width (the 2.6B UNet, ViT-L
+             and bigG, the fp32 VAE) with seeded weights and seeded r=64
+             reverse and forward LoRAs, at 1024^2: `generate` of one prompt
+             (config 3), `invert` of a seeded 1024^2 image and the amplify
+             `edit` without a controller (config 4). Checks shapes, finite
+             images in [0, 1], identical output on a repeat, exact launches
+             per (kernel, Sq, Sk, d) derived from `UNetConfig.sdxl()` and the
+             hop count (140 x B1 a UNet call, B2's fp32 build once per VAE
+             encode or decode), the bf16-VAE opt-in's decodes at batch 1 and
+             2 through B2's bf16 build, one full-width UNet call's kernel
+             path against its materialised path, and the tiny XL bundle on
+             the card against the same weights in fp32 on the CPU (every UNet
+             call teacher-forced; the card's tiny VAE takes the bf16 opt-in,
+             its d = 32 head going to B1); times generate, invert and edit,
+             one UNet call, the fp32 VAE decode and encode and both text
+             encoders, reads peak memory and traces one generate;
   5. training: `cli.train_icd.main` takes three optimizer steps at full
              SD1.5 width, batch 2, all four losses, seeded weights and
              batches; then the same step through `make_train_step` on the
@@ -77,8 +95,10 @@ nothing of JAX. Phases, each of which must pass:
      A kernel row's `launches` are those of its (Sq, Sk, d) in the generate
      at its batch, plus, for the batch-4 rows, the three counted train
      steps (batch 2), for the batch-1 rows the counted `invert`, and for
-     the batch-2 rows the controlled generate of the counted `edit`; B5's
-     rows carry the harness's.
+     the batch-2 rows the controlled generate of the counted `edit`; the
+     SDXL rows those of phase 4c (batch 1: generate, invert and the bf16
+     opt-in's decode; batch 2: the edited pair and its opt-in decode);
+     B5's rows carry the harness's.
 
 `--kernels-only` runs phases 1-3 and the harness (6) and prints the kernel
 rows; `--package-root DIR` imports the package (and builds its kernels) from
@@ -91,7 +111,8 @@ too; SDPA's forward the same way. The plain versions, SDPA's backward and
 the harness's rows (each above ~0.1 ms) are the median of 5 loops of 20
 back-to-back calls, each loop between one pair of CUDA events (`cuda_timed`).
 
-Every bound is the largest of FLOPs / 989e12, exponentials / 3.9e12 (7.8e12
+Every bound is the largest of FLOPs / 989e12 (/ 494.7e12, TF32's rate, for
+B2's fp32 build, whose products are TF32), exponentials / 3.9e12 (7.8e12
 for B5's exp2bf16, whose ex2.approx.bf16x2 does two a MUFU issue) and
 bytes / 3.35e12, in ms; "bound_limit" names which.
 
@@ -113,6 +134,7 @@ import traceback
 
 # Published dense peaks of one H100 SXM (at its 700 W limit).
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 494.7e12  # B2's fp32 build multiplies on the tensor cores in TF32
 PEAK_BYTES = 3.35e12
 # fp32 exponentials a second: the MUFU unit issues 16 a clock per SM, 132 SMs
 # at 1.83 GHz (the figure FlashAttention-3's paper quotes for the H100 SXM);
@@ -169,6 +191,8 @@ SOURCES = {
                   "invertible_cd_tpu/ops/flash_attention.py:49"),
     "flash_fwd_streamed": ("invertible_cd_tpu_torch/ops/csrc/flash_fwd_streamed.cu",
                            "invertible_cd_tpu/ops/flash_attention.py:160"),
+    "flash_fwd_streamed_f32": ("invertible_cd_tpu_torch/ops/csrc/flash_fwd_streamed_f32.cu",
+                               "invertible_cd_tpu/ops/flash_attention.py:160"),
     "flash_bwd_dq": ("invertible_cd_tpu_torch/ops/csrc/flash_bwd_dq.cu",
                      "invertible_cd_tpu/ops/flash_attention.py:353"),
     "flash_bwd_dkdv": ("invertible_cd_tpu_torch/ops/csrc/flash_bwd_dkdv.cu",
@@ -206,6 +230,14 @@ SHAPES = [
     ("flash_fwd", 2, 256, 256, 8, 160),
     ("flash_fwd", 2, 64, 64, 8, 160),
     ("flash_fwd_streamed", 2, 4096, 4096, 1, 512),
+] + [  # SDXL at 1024^2: every head d = 64 (10 heads at 64^2 tokens, 20 at 32^2),
+    # batch 1 (generate, invert) and 2 (the edited pair); the VAE's d = 512 head
+    # over 128^2 tokens in fp32 (the default VAE) and bf16 (the opt-in)
+    ("flash_fwd", b, sq, sk, h, 64) for b in (1, 2)
+    for sq, h in ((4096, 10), (1024, 20)) for sk in (sq, 77)
+] + [
+    (name, b, 16384, 16384, 1, 512) for name in ("flash_fwd_streamed_f32", "flash_fwd_streamed")
+    for b in (1, 2)
 ]
 # attention layers of one SD1.5 UNet call by token count (self; as many cross
 # layers at Sk = 77): 2 down + 3 up at each of 4096/1024/256, 1 mid at 64
@@ -213,10 +245,11 @@ LAYERS_PER_CALL = {4096: 5, 1024: 5, 256: 5, 64: 1}
 HEAD_DIM = {4096: 40, 1024: 80, 256: 160, 64: 160}
 
 
-def bound(flops: float, exps: float, nbytes: float, exp_rate: float = PEAK_EXP_PER_S) -> dict:
+def bound(flops: float, exps: float, nbytes: float, exp_rate: float = PEAK_EXP_PER_S,
+          flop_rate: float = PEAK_BF16_FLOPS) -> dict:
     """The least time the card could take for the work: the largest of its
     FLOPs, exponentials and bytes over their peak rates."""
-    times = {"flops": flops / PEAK_BF16_FLOPS * 1e3, "exponentials": exps / exp_rate * 1e3,
+    times = {"flops": flops / flop_rate * 1e3, "exponentials": exps / exp_rate * 1e3,
              "bytes": nbytes / PEAK_BYTES * 1e3}
     limit = max(times, key=times.get)
     return {"bound_ms": times[limit], "bound_by": "bytes" if limit == "bytes" else "operations",
@@ -339,18 +372,27 @@ def phase_kernels(card: str):
 
     from invertible_cd_tpu_torch.ops import flash_attention as fa
 
-    wrappers = {"flash_fwd": fa.flash_attention, "flash_fwd_streamed": fa.flash_attention_streamed}
+    wrappers = {"flash_fwd": fa.flash_attention, "flash_fwd_streamed": fa.flash_attention_streamed,
+                "flash_fwd_streamed_f32": fa.flash_attention_streamed}
     gen = torch.Generator(device="cuda").manual_seed(1234)
     rows = []
     failures = []
     print(f"kernels vs plain at the main path's shapes ({card}):")
     for name, batch, sq, sk, h, d in SHAPES:
+        if name not in fa.KERNELS:  # a `--package-root` checkout from before that kernel
+            print(f"  {name}[b={batch},sq={sq},sk={sk},h={h},d={d}]: not in this package")
+            continue
+        fp32 = name == "flash_fwd_streamed_f32"  # B2's fp32 build takes fp32 inputs
+
         def rnd(s, scale=1.0):
-            return (scale * torch.randn((batch, s, h, d), generator=gen, device="cuda")).to(
-                torch.bfloat16)
+            x = scale * torch.randn((batch, s, h, d), generator=gen, device="cuda")
+            return x if fp32 else x.to(torch.bfloat16)
         q, k, v = rnd(sq, QK_SCALE), rnd(sk, QK_SCALE), rnd(sk, V_SCALE)
         out = wrappers[name](q, k, v)
         torch.cuda.synchronize()
+        if name.startswith("flash_fwd_streamed") and sq == 16384 and not torch.equal(
+                out, wrappers[name](q, k, v)):
+            failures.append(f"{name} b={batch} sq={sq}: a repeat gave other bits")
         ref = fa.attention_plain(q.float(), k.float(), v.float())  # fp32 on the bf16 inputs
         err = (out.float() - ref).abs().max().item()
         ref_max = ref.abs().max().item()
@@ -372,12 +414,22 @@ def phase_kernels(card: str):
             # B1's bits on these fixed-seed inputs, for the package this run imports
             print(f"  B1 bits {name}[b={batch},sq={sq},sk={sk},d={d}]: o {bits_hash(out)} "
                   f"lse {bits_hash(lse)}")
+        if fp32:  # TF32 products: the lse against the plain one on q, k rounded to TF32 and to bf16
+            _, lse = fa._forward_streamed_f32(q, k, v, with_lse=True)
+            errs = {r: (lse - fa.attention_plain_lse(fn(q), fn(k), v)[1]).abs().max().item()
+                    for r, fn in (("tf32", fa.round_tf32), ("bf16", lambda x: x.bfloat16().float()))}
+            if not errs["tf32"] <= LSE_TOL:
+                failures.append(f"{name} b={batch}: lse {errs['tf32']} off the TF32 plain lse")
+            lse_fields = {"lse_max_abs_err_vs_tf32_inputs": errs["tf32"],
+                          "lse_max_abs_err_vs_bf16_inputs": errs["bf16"]}
+            del lse
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         ms = graph_ms(lambda: wrappers[name](q, k, v))
         plain_ms = cuda_ms(lambda: fa.attention_plain(q, k, v))
         library_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
         flops = 4.0 * batch * h * sq * sk * d
-        nbytes = 2.0 * batch * h * d * (2 * sq + 2 * sk)  # q, k, v read once, o written once
+        # q, k, v read once, o written once
+        nbytes = (4.0 if fp32 else 2.0) * batch * h * d * (2 * sq + 2 * sk)
         rows.append({
             "name": f"{name}[b={batch},sq={sq},sk={sk},h={h},d={d}]",
             "kernel": name,
@@ -389,12 +441,17 @@ def phase_kernels(card: str):
             "max_abs_err": err,
             "ms": ms,
             "plain_ms": plain_ms,
-            **bound(flops, batch * h * sq * sk, nbytes),
+            **bound(flops, batch * h * sq * sk, nbytes,
+                    flop_rate=PEAK_TF32_FLOPS if fp32 else PEAK_BF16_FLOPS),
             "library_ms": library_ms,
             **lse_fields,
         })
         with_lse = (f"  with lse {lse_fields['lse_ms']:.3f} ms (lse err "
-                    f"{lse_fields['lse_max_abs_err']:.1e})" if lse_fields else "")
+                    f"{lse_fields['lse_max_abs_err']:.1e})" if "lse_ms" in lse_fields else "")
+        if fp32:
+            with_lse = (f"  lse err vs plain on TF32-rounded q, k "
+                        f"{lse_fields['lse_max_abs_err_vs_tf32_inputs']:.1e} (limit {LSE_TOL}), on "
+                        f"bf16-rounded {lse_fields['lse_max_abs_err_vs_bf16_inputs']:.1e}")
         print(f"  {rows[-1]['name']:<48} err {err:.2e} (max|ref| {ref_max:.3f}, "
               f"err/max|ref| {err / ref_max:.2e}, limit {limit:.2e})  "
               f"kernel {ms:.3f} ms{with_lse}  plain {plain_ms:.3f} ms  sdpa {library_ms:.3f} ms  "
@@ -761,7 +818,7 @@ def forced_edit_errors(cpu_pipe, gpu_pipe, image, noise, controller):
     def rel(got, want):
         return ((got.float().cpu() - want).norm() / want.norm()).item()
 
-    def forced(unet):  # stands in for the CPU pipe's `_noise_model`
+    def forced(unet, added=None):  # stands in for the CPU pipe's `_noise_model`
         name = next(k for k, u in cpu_pipe.unets.items() if u is unet)
         cpu_nm = InvertibleCD._noise_model(cpu_pipe, unet)
         card_nm = InvertibleCD._noise_model(gpu_pipe, gpu_pipe.unets[name])
@@ -928,6 +985,260 @@ def phase_edit(card: str, pipe):
     return {1: invert_launches, 2: pair_launches}
 
 
+def sdxl_launches_per_call(cfg, latent: int):
+    """Kernel launches per (kernel, Sq, Sk, d) of one SDXL UNet call at a
+    latent side of `latent`, derived from the config: at each level with
+    cross-attention, (layers_per_block down + layers_per_block + 1 up)
+    transformers of depth transformer_depth[level], plus the mid block's at
+    the last level; each block one self layer (Sk = Sq) and one cross layer
+    (Sk = 77) at (latent / 2^level)^2 tokens, head dim channels / heads."""
+    per_call = collections.Counter()
+    last = len(cfg.block_out_channels) - 1
+    for level, channels in enumerate(cfg.block_out_channels):
+        if not cfg.cross_attn_blocks[level]:
+            continue
+        tokens = (latent // 2 ** level) ** 2
+        blocks = (2 * cfg.layers_per_block + 1) * cfg.transformer_depth[level]
+        if level == last:
+            blocks += cfg.transformer_depth[-1]
+        for sk in (tokens, 77):
+            per_call[("flash_fwd", tokens, sk, channels // cfg.num_heads[level])] += blocks
+    return per_call
+
+
+def forced_unet_errors(cpu_pipe, gpu_pipe, run):
+    """`run()` on the CPU pipe (fp32) with every UNet call repeated by the
+    card pipe on the same inputs, added conditioning included (teacher
+    forcing). Returns the relative L2, card against CPU, of each call's
+    epsilon, and run()'s result."""
+    from invertible_cd_tpu_torch.pipelines.pipeline import InvertibleCD
+
+    dev, errs = gpu_pipe.device, []
+
+    def forced(unet, added=None):  # stands in for the CPU pipe's `_noise_model`
+        name = next(k for k, u in cpu_pipe.unets.items() if u is unet)
+        cpu_nm = InvertibleCD._noise_model(cpu_pipe, unet, added)
+        card_nm = InvertibleCD._noise_model(gpu_pipe, gpu_pipe.unets[name], None if added is None else {
+            k: v.to(dev) for k, v in added.items()})
+
+        def nm(latent, t, context, w_emb, hook=None):
+            eps = cpu_nm(latent, t, context, w_emb, hook)
+            got = card_nm(latent.to(dev), t, context.to(dev),
+                          None if w_emb is None else w_emb.to(dev)).float().cpu()
+            errs.append(((got - eps).norm() / eps.norm()).item())
+            return eps
+        return nm
+
+    cpu_pipe._noise_model = forced
+    try:
+        result = run()
+    finally:
+        del cpu_pipe._noise_model
+    return errs, result
+
+
+def phase_sdxl(card: str):
+    """The SDXL paths (BASELINE configs 3 and 4) at 1024^2: `generate` of one
+    prompt, `invert` of a seeded image and the amplify `edit`, on
+    `InvertibleCDXL.sdxl` at full width with seeded weights and LoRAs and the
+    fp32 VAE, launch counts reset just before each and read just after; then
+    the bf16-VAE opt-in's decodes, checks, times and one traced generate.
+    Returns the launches per (kernel, Sq, Sk, d) at batch 1 (generate,
+    invert, the opt-in decode) and batch 2 (the edited pair, its opt-in
+    decode)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from invertible_cd_tpu_torch.models.attention import AttnMeta
+    from invertible_cd_tpu_torch.models.layers import cast_compute_weights
+    from invertible_cd_tpu_torch.models.unet2d import count_attention_layers
+    from invertible_cd_tpu_torch.ops import flash_attention as fa
+    from invertible_cd_tpu_torch.pipelines.sampler import w_embedding_for
+    from invertible_cd_tpu_torch.pipelines.sdxl import InvertibleCDXL
+    from invertible_cd_tpu_torch.testing import tiny_configs_xl
+    from invertible_cd_tpu_torch.utils.tokenizer import HashTokenizer
+
+    t0 = time.perf_counter()
+    pipe = InvertibleCDXL.sdxl(device="cuda", dtype=torch.bfloat16, vae_dtype=torch.float32, seed=0)
+    torch.cuda.synchronize()
+    n_params = {name: sum(p.numel() for p in m.parameters()) for name, m in (
+        ("unet", pipe.unets["reverse"]), ("clip", pipe.text_encoder),
+        ("clip_big_g", pipe.text_encoder_2), ("vae", pipe.vae))}
+    print(f"sdxl: InvertibleCDXL.sdxl built in {time.perf_counter() - t0:.1f} s, params {n_params}, "
+          f"VAE {pipe.vae.dtype}")
+    cfg = pipe.unets["reverse"].cfg
+    n_hops = pipe.grid.num_reverse_steps
+    side = pipe.latent_size[0]
+    per_call = sdxl_launches_per_call(cfg, side)
+    check(sum(per_call.values()) == count_attention_layers(cfg) == 140,
+          f"{sum(per_call.values())} attention layers per call")
+    vae_key = ("flash_fwd_streamed_f32", side * side, side * side, pipe.vae.cfg.block_out_channels[-1])
+    want_hops = collections.Counter({k: n_hops * n for k, n in per_call.items()})
+    want_generate = want_hops + collections.Counter({vae_key: 1})  # the decode
+    want_invert = want_hops + collections.Counter({vae_key: 1})    # the encode
+    want_pair = want_hops + collections.Counter({vae_key: 1})      # batch 2, the decode
+
+    image = np.random.default_rng(31).integers(0, 256, (8 * side, 8 * side, 3), dtype=np.uint8)
+    noise = torch.randn((1, side, side, 4), generator=torch.Generator(device="cuda").manual_seed(32),
+                        device="cuda")
+    latent = torch.randn((1, side, side, 4), generator=torch.Generator(device="cuda").manual_seed(33),
+                         device="cuda")
+
+    def generate():
+        return pipe.generate([EDIT_SOURCE], latent=latent)
+
+    def edit():
+        return pipe.edit(image, EDIT_SOURCE, EDIT_TARGET, noise=noise)
+
+    generate()  # warm-up: plans and handles at batch 1 and 2
+    edit()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the SDXL paths: counts reset just before, read just after ----
+    counted = {}
+    times = {}
+    outputs = {}
+    for label, fn in (("generate", generate),
+                      ("invert", lambda: pipe.invert(image, EDIT_SOURCE, noise=noise)),
+                      ("edit", edit)):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        outputs[label] = fn()
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+        counted[label] = collections.Counter(fa.LAUNCH_SHAPES)
+    # --------------------------------------------------------------------
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    pair_launches = counted["edit"] - counted["invert"]
+    print(f"  launches per (kernel, Sq, Sk, d): generate {dict(counted['generate'])}; edit's pair "
+          f"{dict(pair_launches)}")
+    check(counted["generate"] == want_generate,
+          f"generate launches {dict(counted['generate'])} != {dict(want_generate)}")
+    check(counted["invert"] == want_invert,
+          f"invert launches {dict(counted['invert'])} != {dict(want_invert)}")
+    check(counted["edit"] == want_invert + want_pair,
+          f"edit launches {dict(counted['edit'])} != {dict(want_invert + want_pair)}")
+    print(f"  derived from UNetConfig.sdxl() and {n_hops} hops and launched: generate "
+          f"{sum(want_generate.values())}, invert {sum(want_invert.values())}, edit "
+          f"{sum((want_invert + want_pair).values())} (B2 fp32 at {vae_key[1]} tokens once each "
+          f"in generate and invert, twice in edit)")
+
+    images, lat = outputs["generate"]
+    inv, clean = outputs["invert"]
+    edit_images, edit_lat = outputs["edit"]
+    for name, t, shape in (("generate images", images, (1, 8 * side, 8 * side, 3)),
+                           ("generate latents", lat, (1, side, side, 4)),
+                           ("inverted latent", inv, (1, side, side, 4)),
+                           ("clean latent", clean, (1, side, side, 4)),
+                           ("edit images", edit_images, (2, 8 * side, 8 * side, 3)),
+                           ("edit latents", edit_lat, (2, side, side, 4))):
+        check(tuple(t.shape) == shape and bool(torch.isfinite(t).all()),
+              f"{name} {tuple(t.shape)} != {shape} or not finite")
+    for imgs in (images, edit_images):
+        check(imgs.dtype == torch.float32 and 0.0 <= imgs.min().item() and imgs.max().item() <= 1.0,
+              "images outside [0, 1]")
+    check(torch.equal(generate()[0], images), "the same latent gave a different image")
+    check(torch.equal(edit()[0], edit_images), "the same image and noise gave a different edit")
+    moved = ((edit_lat[1:] - edit_lat[:1]).norm() / edit_lat[:1].norm()).item()
+    print(f"  same latent, same image and noise -> identical generate and edit: ok; images: "
+          f"generate mean {images.mean().item():.4f} std {images.std().item():.4f}; the edit's "
+          f"row 1 differs from row 0 by {moved:.3f} (relative L2)")
+
+    # the bf16-VAE opt-in (`vae_dtype=torch.bfloat16`): the same VAE weights in
+    # bf16 decode the generate's latent (batch 1) and the edited pair (batch 2)
+    # through B2's bf16 build
+    vae16 = dataclasses.replace(pipe, vae=cast_compute_weights(copy.deepcopy(pipe.vae), torch.bfloat16))
+    bf16_key = ("flash_fwd_streamed",) + vae_key[1:]
+    opt_in = {}
+    for b, lat_b in ((1, lat), (2, edit_lat)):
+        fa.reset_launch_counts()
+        dec16 = vae16.decode(lat_b)
+        torch.cuda.synchronize()
+        opt_in[b] = collections.Counter(fa.LAUNCH_SHAPES)
+        check(opt_in[b] == collections.Counter({bf16_key: 1}), f"bf16 decode launches {dict(opt_in[b])}")
+        err = float(np.abs(dec16 - (images if b == 1 else edit_images).cpu().numpy()).max())
+        print(f"  bf16-VAE opt-in, batch {b}: decode max abs difference from the fp32 VAE's "
+              f"images {err:.3e} (not gated)")
+    del vae16
+
+    # one full-width UNet call: kernel path against the materialised path
+    unet = pipe.unets["reverse"]
+    ctx_u, ctx, added = pipe._encode_all([EDIT_SOURCE])
+    x = lat.permute(0, 3, 1, 2).contiguous()
+    w = w_embedding_for(pipe.default_guidance(), 999, 1, device="cuda")
+    t = torch.full((1,), 999, device="cuda")
+
+    def identity_hook(probs, meta: AttnMeta):
+        return probs
+    with torch.inference_mode():
+        eps_kernel = unet(x, t, ctx, w, added_cond=added)
+        eps_plain = unet(x, t, ctx, w, added_cond=added, attn_hook=identity_hook)
+        rel = ((eps_kernel - eps_plain).norm() / eps_plain.norm()).item()
+        unet_ms = cuda_ms(lambda: unet(x, t, ctx, w, added_cond=added), per_loop=1, loops=3)
+        decode_ms = cuda_ms(lambda: pipe._decode_latents(x), per_loop=1, loops=3, warmup=1)
+        pixels = torch.as_tensor(image, device="cuda")[None].float() / 127.5 - 1.0
+        encode_ms = cuda_ms(lambda: pipe._encode_image(pixels), per_loop=1, loops=3, warmup=1)
+        tokens = torch.as_tensor(pipe.tokenizer([EDIT_SOURCE]), dtype=torch.long, device="cuda")
+        tokens2 = torch.as_tensor(pipe.tokenizer_2([EDIT_SOURCE]), dtype=torch.long, device="cuda")
+        clip_ms = cuda_ms(lambda: pipe.text_encoder(tokens), per_loop=1)
+        clip2_ms = cuda_ms(lambda: pipe.text_encoder_2(tokens2), per_loop=1)
+    print(f"  UNet kernel path vs materialised path (batch 1, t=999): relative L2 {rel:.3e} "
+          f"(tol {UNET_REL_TOL})")
+    check(rel <= UNET_REL_TOL, f"SDXL UNet kernel path off by {rel}")
+
+    # the tiny XL bundle on the card against the same weights in fp32 on the
+    # CPU, every UNet call teacher-forced. The card's VAE takes the bf16
+    # opt-in: the tiny VAE's d = 32 head goes to B1, which takes bf16 only
+    unet_cfg, clip_cfg, clip2_cfg, vae_cfg = tiny_configs_xl()
+    tok = HashTokenizer(clip_cfg.vocab_size)
+    cfgs = dict(unet_cfg=unet_cfg, clip_cfg=clip_cfg, clip2_cfg=clip2_cfg, vae_cfg=vae_cfg,
+                latent_size=(16, 16), tokenizer=tok, tokenizer_2=tok, default_resolution=32)
+    cpu_pipe = InvertibleCDXL.sdxl(device="cpu", dtype=torch.float32, vae_dtype=torch.float32,
+                                   seed=7, lora_rank=64, **cfgs)
+    params = {name: m.state_dict() for name, m in (
+        ("reverse", cpu_pipe.unets["reverse"]), ("forward", cpu_pipe.unets["forward"]),
+        ("text", cpu_pipe.text_encoder), ("text_2", cpu_pipe.text_encoder_2), ("vae", cpu_pipe.vae))}
+    gpu_pipe = InvertibleCDXL.sdxl(params=params, device="cuda", dtype=torch.bfloat16,
+                                   vae_dtype=torch.bfloat16, **cfgs)
+    tiny_image = np.random.default_rng(34).integers(0, 256, (32, 32, 3), dtype=np.uint8)
+    tiny_noise = torch.randn((1, 16, 16, 4), generator=torch.Generator().manual_seed(35))
+    tiny_latent = torch.randn((1, 16, 16, 4), generator=torch.Generator().manual_seed(36))
+    errs = {}
+    for label, run in (
+            ("generate", lambda p: p.generate([EDIT_SOURCE], latent=tiny_latent)),
+            ("invert", lambda p: p.invert(tiny_image, EDIT_SOURCE, noise=tiny_noise)),
+            ("edit", lambda p: p.edit(tiny_image, EDIT_SOURCE, EDIT_TARGET, noise=tiny_noise))):
+        errs[label], want = forced_unet_errors(cpu_pipe, gpu_pipe, lambda: run(cpu_pipe))
+        got = run(gpu_pipe)
+        errs[label + " end to end"] = (got[1].float().cpu() - want[1]).abs().max().item()
+        check(all(bool(torch.isfinite(g).all()) for g in got), f"tiny XL {label} on the card not finite")
+    clean_err = (gpu_pipe.invert(tiny_image, EDIT_SOURCE, noise=tiny_noise)[1].cpu()
+                 - cpu_pipe.invert(tiny_image, EDIT_SOURCE, noise=tiny_noise)[1]).abs().max().item()
+    print(f"  tiny XL bundle, card bf16 vs CPU fp32, teacher-forced epsilon relative L2 (tol "
+          f"{UNET_REL_TOL}): " + "; ".join(
+              f"{k} {' '.join(f'{e:.1e}' for e in v)}" for k, v in errs.items() if isinstance(v, list))
+          + f"; VAE encode max abs error {clean_err:.3e} (tol {TINY_TOL}); not gated, end to end "
+          f"(second output, max abs): " + "; ".join(
+              f"{k} {v:.3e}" for k, v in errs.items() if not isinstance(v, list)))
+    check(len(errs["generate"]) == n_hops and len(errs["invert"]) == n_hops
+          and len(errs["edit"]) == 2 * n_hops, f"tiny XL UNet calls {errs}")
+    check(max(errs["generate"] + errs["invert"] + errs["edit"]) <= UNET_REL_TOL,
+          f"tiny XL UNet calls off: {errs}")
+    check(clean_err <= TINY_TOL, f"tiny XL VAE encode off by {clean_err}")
+
+    print(f"  generate (1 prompt, {n_hops} hops, 1024^2): {times['generate'] * 1e3:.1f} ms; invert: "
+          f"{times['invert'] * 1e3:.1f} ms; edit (invert + the amplify pair): {times['edit'] * 1e3:.1f} ms; "
+          f"peak memory {peak_gb:.2f} GiB ({card})")
+    print(f"  UNet call {unet_ms:.2f} ms; fp32 VAE decode {decode_ms:.2f} ms, encode {encode_ms:.2f} ms; "
+          f"text encoders ViT-L {clip_ms:.2f} ms, bigG {clip2_ms:.2f} ms ({card})")
+    trace_run("SDXL generate, 1024^2", generate)
+    return {1: counted["generate"] + counted["invert"] + opt_in[1], 2: pair_launches + opt_in[2]}
+
+
 def trace_run(label: str, fn) -> None:
     """One call of `fn` under torch.profiler: device busy time (sum of
     kernel times; one stream, so kernels do not overlap), the device's idle
@@ -1076,8 +1387,9 @@ def phase_training(card: str, pipe):
               for name in fa.KERNELS}
     print(f"  launches per train step: {totals}")
     check(shape_launches == want, f"launches {dict(shape_launches)} != {dict(want)}")
-    check(totals == {"flash_fwd": 352, "flash_fwd_streamed": 0, "flash_bwd_dq": 128,
-                     "flash_bwd_dkdv": 128, "flash_variant": 0}, f"launches per step {totals}")
+    check(totals == {"flash_fwd": 352, "flash_fwd_streamed": 0, "flash_fwd_streamed_f32": 0,
+                     "flash_bwd_dq": 128, "flash_bwd_dkdv": 128, "flash_variant": 0},
+          f"launches per step {totals}")
 
     check(all(torch.equal(base[k], base_before[k]) for k in base), "a base weight changed")
     check(all(torch.equal(teacher[k], teacher_before[k]) for k in teacher), "a teacher weight changed")
@@ -1222,18 +1534,23 @@ def main(argv=None) -> int:
             return 0
         pipe, generate_launches = phase_main_path(card)
         edit_launches = phase_edit(card, pipe)
+        sdxl_launches = phase_sdxl(card)
+        torch.cuda.empty_cache()  # the SDXL bundle is gone
         train_launches = phase_training(card, pipe)
     except Exception:  # report every phase failure and exit non-zero
         traceback.print_exc()
         return 1
     # launches on the main paths: the generate at the row's batch, the counted
-    # invert (batch 1) and controlled pair (batch 2), and three train steps
-    # (batch 2) for the rows at the generate's main batch
+    # invert (batch 1) and controlled pair (batch 2), SDXL's counted generate
+    # and invert (batch 1) and edited pair (batch 2) with the bf16-VAE
+    # opt-in's decodes, and three train steps (batch 2) for the rows at the
+    # generate's main batch
     none = collections.Counter()
     for row in rows:
         key = (row["kernel"],) + tuple(row["shape"])
         row["launches"] = (generate_launches.get(row["batch"], none)[key]
                            + edit_launches.get(row["batch"], none)[key]
+                           + sdxl_launches.get(row["batch"], none)[key]
                            + (train_launches[key] if row["batch"] == BATCH else 0))
     # B5 runs on the harness path alone; its rows carry that path's launches
     rows += harness_rows

@@ -144,23 +144,34 @@ def _next_meta(counter: list, place: str, is_cross: bool, sq: int, sk: int, head
 
 
 class Transformer2D(nn.Module):
-    """Spatial transformer: GN(eps 1e-6) -> 1x1 conv proj_in -> depth x
-    block -> 1x1 conv proj_out, + residual (SD1.5; SDXL's linear
-    projections come with the SDXL slice). Tokens are the NHWC row-major
-    flattening (b, h*w, c) of the feature map, as in the JAX package."""
+    """Spatial transformer: GN(eps 1e-6) -> proj_in -> depth x block ->
+    proj_out, + residual. The projections are 1x1 convolutions (SD1.5) or,
+    with `use_linear_projection`, linear layers over the tokens (SDXL).
+    Tokens are the NHWC row-major flattening (b, h*w, c) of the feature map,
+    as in the JAX package."""
 
-    def __init__(self, dim: int, heads: int, context_dim: int, depth: int = 1):
+    def __init__(self, dim: int, heads: int, context_dim: int, depth: int = 1,
+                 use_linear_projection: bool = False):
         super().__init__()
+        self.use_linear_projection = use_linear_projection
         self.norm = GroupNorm32(dim, eps=1e-6)
-        self.proj_in = nn.Conv2d(dim, dim, 1)
-        self.proj_out = nn.Conv2d(dim, dim, 1)
+        proj = nn.Linear if use_linear_projection else (lambda i, o: nn.Conv2d(i, o, 1))
+        self.proj_in = proj(dim, dim)
+        self.proj_out = proj(dim, dim)
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(dim, heads, context_dim) for _ in range(depth)]
         )
 
     def forward(self, x, context, place: str, layer_counter: list, hook=None):
         b, c, h, w = x.shape
-        hidden = self.proj_in(self.norm(x)).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        hidden = self.norm(x)
+        if self.use_linear_projection:
+            hidden = self.proj_in(hidden.permute(0, 2, 3, 1).reshape(b, h * w, c))
+        else:
+            hidden = self.proj_in(hidden).permute(0, 2, 3, 1).reshape(b, h * w, c)
         for block in self.transformer_blocks:
             hidden = block(hidden, context, place, layer_counter, hook)
+        if self.use_linear_projection:
+            hidden = self.proj_out(hidden)
+            return hidden.reshape(b, h, w, c).permute(0, 3, 1, 2) + x
         return self.proj_out(hidden.reshape(b, h, w, c).permute(0, 3, 1, 2)) + x

@@ -1,18 +1,22 @@
-"""CLIP text encoder in PyTorch (SD1.5's ViT-L), transformers naming.
+"""CLIP text encoders in PyTorch (ViT-L, and SDXL's OpenCLIP bigG), transformers naming.
 
 PyTorch counterpart of `invertible_cd_tpu/models/clip.py`. Module names
 follow transformers' `CLIPTextModel`, so `state_dict()` keys read
 `text_model.embeddings.token_embedding.weight`,
-`text_model.encoder.layers.N.self_attn.q_proj.weight`, ... The causal
+`text_model.encoder.layers.N.self_attn.q_proj.weight`, ... and, for
+bigG (transformers' `CLIPTextModelWithProjection`), `text_projection.weight`
+beside them. The causal
 attention is plain tensor code, as in the JAX package (it never reached a
 Pallas kernel there).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from .layers import LayerNorm32
 
@@ -25,11 +29,20 @@ class CLIPTextConfig:
     num_heads: int = 12
     max_position_embeddings: int = 77
     intermediate_size: int = 3072
+    hidden_act: str = "quick_gelu"  # OpenCLIP bigG uses "gelu"
+    projection_dim: Optional[int] = None
     eos_token_id: int = 49407
 
     @staticmethod
     def vit_l() -> "CLIPTextConfig":
         return CLIPTextConfig()
+
+    @staticmethod
+    def open_clip_big_g() -> "CLIPTextConfig":
+        return CLIPTextConfig(
+            hidden_size=1280, num_layers=32, num_heads=20,
+            intermediate_size=5120, hidden_act="gelu", projection_dim=1280,
+        )
 
     @staticmethod
     def tiny(vocab_size: int = 1000) -> "CLIPTextConfig":
@@ -66,12 +79,16 @@ class CLIPAttention(nn.Module):
 class CLIPMLP(nn.Module):
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
+        if cfg.hidden_act not in ("quick_gelu", "gelu"):
+            raise ValueError(f"hidden_act {cfg.hidden_act!r}")
+        self.quick = cfg.hidden_act == "quick_gelu"
         self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, x):
         h = self.fc1(x)
-        return self.fc2(h * torch.sigmoid(1.702 * h))  # quick_gelu
+        # quick_gelu, or the exact (erf) gelu
+        return self.fc2(h * torch.sigmoid(1.702 * h) if self.quick else F.gelu(h))
 
 
 class CLIPEncoderLayer(nn.Module):
@@ -114,13 +131,16 @@ class CLIPTextTransformer(nn.Module):
 
 class CLIPTextModel(nn.Module):
     """forward(input_ids (B, S) int) -> dict(last_hidden_state,
-    penultimate_hidden_state, pooled_output). SDXL's OpenCLIP encoder
-    (gelu, text projection) comes with the SDXL slice."""
+    penultimate_hidden_state, pooled_output), plus projected_pooled (the
+    pooled output through `text_projection`) when the config has a
+    `projection_dim`."""
 
     def __init__(self, cfg: CLIPTextConfig):
         super().__init__()
         self.cfg = cfg
         self.text_model = CLIPTextTransformer(cfg)
+        if cfg.projection_dim is not None:
+            self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
 
     def forward(self, input_ids: torch.Tensor):
         tm = self.text_model
@@ -136,8 +156,11 @@ class CLIPTextModel(nn.Module):
         # pooled output at the first EOS token (argmax of the EOS indicator)
         eos_pos = (input_ids == self.cfg.eos_token_id).int().argmax(dim=-1)
         pooled = last[torch.arange(last.shape[0], device=last.device), eos_pos]
-        return {
+        out = {
             "last_hidden_state": last,
             "penultimate_hidden_state": penultimate,
             "pooled_output": pooled,
         }
+        if self.cfg.projection_dim is not None:
+            out["projected_pooled"] = self.text_projection(pooled)
+        return out

@@ -14,7 +14,9 @@ diffusers / transformers naming:
   * the VAE's `downsamplers_0` conv -> `downsamplers.0.conv`;
   * CLIP's `token_embedding/embedding` -> `text_model.embeddings.token_embedding.weight`.
 
-`lora_from_flax` carries a JAX adapter tree across with the same key renames.
+`bundle_state_dicts_from_flax` carries a whole JAX bundle's params dict
+across (UNets, both text encoders, VAE), and `lora_from_flax` a JAX adapter
+tree, with the same key renames.
 
 Loading from disk (counterparts of the JAX module's loaders):
   * `load_torch_file` (JAX :357): `.pt`/`.bin` through `torch.load`, and
@@ -115,6 +117,17 @@ def clip_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
                 key = f"{layer}.{sub[0]}"
         out[f"{key}.{leaf}"] = tensor
     return out
+
+
+def bundle_state_dicts_from_flax(params) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX pipeline's params dict ({"teacher", "reverse", "forward",
+    "text", "text_2", "vae"}: any of them, Flax trees of numpy arrays) ->
+    the state dicts `InvertibleCD.sd15(params=...)` and
+    `InvertibleCDXL.sdxl(params=...)` take, under the same names."""
+    convert = {"text": clip_state_dict_from_flax, "text_2": clip_state_dict_from_flax,
+               "vae": vae_state_dict_from_flax}
+    return {name: convert.get(name, unet_state_dict_from_flax)(tree)
+            for name, tree in params.items()}
 
 
 def lora_from_flax(tree) -> Dict[str, Dict[str, torch.Tensor]]:

@@ -1,9 +1,12 @@
-"""UNet2DCondition in PyTorch — the SD1.5 denoiser, NCHW, diffusers naming.
+"""UNet2DCondition in PyTorch — the SD1.5 and SDXL denoiser, NCHW, diffusers naming.
 
-PyTorch counterpart of `invertible_cd_tpu/models/unet2d.py` for the SD1.5
-family: epsilon prediction conditioned on timestep + CLIP text context, with
-the iCD guidance w-embedding on `cond_proj` and the controller hook on every
-attention layer. SDXL's added conditioning comes with the SDXL slice.
+PyTorch counterpart of `invertible_cd_tpu/models/unet2d.py`: epsilon
+prediction conditioned on timestep + CLIP text context, with the iCD
+guidance w-embedding on `cond_proj`, SDXL's added conditioning (pooled text
+embeds + micro-conditioning time ids through `add_embedding`) and the
+controller hook on every attention layer. One config-driven module family
+serves SD1.5 (320/640/1280/1280, 8 heads, conv projections) and SDXL
+(320/640/1280, 5/10/20 heads, transformer depths 1/2/10, linear projections).
 """
 from __future__ import annotations
 
@@ -38,7 +41,11 @@ class UNetConfig:
     num_heads: Tuple[int, ...] = (8, 8, 8, 8)
     transformer_depth: Tuple[int, ...] = (1, 1, 1, 1)
     cross_attention_dim: int = 768
+    use_linear_projection: bool = False
     time_cond_proj_dim: Optional[int] = None  # 512 for iCD w-embedding models
+    # SDXL added conditioning: micro-conditioning time_ids + pooled text.
+    addition_embed_dim: Optional[int] = None  # 2816 for SDXL
+    addition_time_embed_dim: Optional[int] = None  # 256 for SDXL
     flip_sin_to_cos: bool = True
     freq_shift: float = 0.0
 
@@ -49,6 +56,20 @@ class UNetConfig:
     @staticmethod
     def sd15(w_embed_dim: Optional[int] = 512) -> "UNetConfig":
         return UNetConfig(time_cond_proj_dim=w_embed_dim)
+
+    @staticmethod
+    def sdxl(w_embed_dim: Optional[int] = 512) -> "UNetConfig":
+        return UNetConfig(
+            block_out_channels=(320, 640, 1280),
+            cross_attn_blocks=(False, True, True),
+            num_heads=(5, 10, 20),
+            transformer_depth=(1, 2, 10),
+            cross_attention_dim=2048,
+            use_linear_projection=True,
+            time_cond_proj_dim=w_embed_dim,
+            addition_embed_dim=2816,
+            addition_time_embed_dim=256,
+        )
 
     @staticmethod
     def tiny(cross_attention_dim: int = 32, w_embed_dim: Optional[int] = 8) -> "UNetConfig":
@@ -68,6 +89,7 @@ def _transformer(cfg: UNetConfig, level: int, channels: int) -> Transformer2D:
     return Transformer2D(
         channels, cfg.num_heads[level], cfg.cross_attention_dim,
         depth=cfg.transformer_depth[level],
+        use_linear_projection=cfg.use_linear_projection,
     )
 
 
@@ -147,6 +169,8 @@ class UNet2DCondition(nn.Module):
       timesteps: (B,) int tensor or a python int.
       encoder_hidden_states: (B, S, cross_attention_dim) text context.
       w_cond: optional (B, time_cond_proj_dim) guidance embedding.
+      added_cond: SDXL's {"text_embeds": (B, P), "time_ids": (B, 6)}; required
+        when the config has `addition_embed_dim`.
       attn_hook: optional controller hook (see attention.AttnHook).
     Returns the (B, out_channels, H, W) epsilon prediction in fp32; the
     compute dtype is that of the convolution weights.
@@ -157,6 +181,8 @@ class UNet2DCondition(nn.Module):
         self.cfg = cfg
         c0 = cfg.block_out_channels[0]
         self.time_embedding = TimestepEmbedding(c0, cfg.time_embed_dim, cfg.time_cond_proj_dim)
+        if cfg.addition_embed_dim is not None:
+            self.add_embedding = TimestepEmbedding(cfg.addition_embed_dim, cfg.time_embed_dim)
         self.conv_in = nn.Conv2d(cfg.in_channels, c0, 3, padding=1)
 
         n = len(cfg.block_out_channels)
@@ -192,6 +218,7 @@ class UNet2DCondition(nn.Module):
         timesteps,
         encoder_hidden_states: torch.Tensor,
         w_cond: Optional[torch.Tensor] = None,
+        added_cond: Optional[dict] = None,
         attn_hook: Optional[AttnHook] = None,
     ) -> torch.Tensor:
         cfg = self.cfg
@@ -205,6 +232,16 @@ class UNet2DCondition(nn.Module):
             dtype=dtype,
         )
         temb = self.time_embedding(t_feat, w_cond.to(dtype) if w_cond is not None else None)
+        if cfg.addition_embed_dim is not None:
+            if added_cond is None:
+                raise ValueError("this UNet config needs added_cond (text_embeds, time_ids)")
+            tid_emb = sinusoidal_timestep_embedding(
+                added_cond["time_ids"].reshape(-1), cfg.addition_time_embed_dim,
+                flip_sin_to_cos=cfg.flip_sin_to_cos, downscale_freq_shift=cfg.freq_shift,
+                dtype=dtype,
+            ).reshape(b, -1)
+            add_feat = torch.cat([added_cond["text_embeds"].to(dtype), tid_emb], dim=-1)
+            temb = temb + self.add_embedding(add_feat)
 
         context = encoder_hidden_states.to(dtype)
         layer_counter = [0]

@@ -1,9 +1,11 @@
 """AutoencoderKL (SD VAE) in PyTorch — latent codec, NCHW, diffusers naming.
 
 PyTorch counterpart of `invertible_cd_tpu/models/vae.py`. `encode_mean`
-returns the posterior mean (never a sample); the 0.18215 scaling lives in
-the pipeline. The mid-block's single-head attention goes through
-`fused_attention`: at the SD width (d=512) that is kernel B2 on the card.
+returns the posterior mean (never a sample); the 0.18215 / 0.13025 scaling
+lives in the pipeline. The VAE computes in the dtype of its weights: bf16
+for SD1.5, fp32 by default for SDXL (bf16 as an opt-in). The mid-block's
+single-head attention goes through `fused_attention`: at the SD width
+(d=512) that is kernel B2 on the card, in the bf16 or the fp32 build.
 """
 from __future__ import annotations
 
@@ -30,6 +32,10 @@ class VAEConfig:
     @staticmethod
     def sd() -> "VAEConfig":
         return VAEConfig()
+
+    @staticmethod
+    def sdxl() -> "VAEConfig":
+        return VAEConfig(scaling_factor=0.13025)
 
     @staticmethod
     def tiny() -> "VAEConfig":

@@ -1,5 +1,5 @@
 // The Hopper flash-attention forward tile loop, shared by kernel B1
-// (flash_fwd.cu: padded head dims 48, 80 and 160) and kernel B5's five
+// (flash_fwd.cu: padded head dims 48, 64, 80 and 160) and kernel B5's five
 // softmax variants (flash_variant.cu: padded head dims 48, 64 and 128). The
 // softmax is the one thing they vary; each passes its own as a policy type.
 //

@@ -9,14 +9,18 @@ PyTorch counterpart of `invertible_cd_tpu/ops/flash_attention.py`:
   * B4 `flash_backward_dkdv` (`csrc/flash_bwd_dkdv.cu`, replaces
     `_dkdv_kernel`), tied together by `FlashAttentionFn`;
   * B2 `flash_attention_streamed`: 256 < head dim <= 512, the VAE mid-block
-    head (source `csrc/flash_fwd_streamed.cu`, replaces
-    `_fwd_kernel_streamed`; where its grid would leave SMs idle it splits
-    the key range and merges the splits in a second pass, which counts as
-    the same launch); its backward is plain PyTorch chunked over key tiles
-    (`attention_backward_chunked`), as the reference's is plain XLA.
+    head (replaces `_fwd_kernel_streamed`), in two builds routed by dtype:
+    bf16 (source `csrc/flash_fwd_streamed.cu`; where its grid would leave
+    SMs idle it splits the key range and merges the splits in a second
+    pass, which counts as the same launch) and fp32 for SDXL's fp32 VAE
+    (`csrc/flash_fwd_streamed_f32.cu`, kernel name `flash_fwd_streamed_f32`,
+    TF32 tensor-core products with fp32 accumulation); its backward is plain
+    PyTorch chunked over key tiles (`attention_backward_chunked`), as the
+    reference's is plain XLA.
 
-All take q (B, Sq, H, D) and k/v (B, Sk, H, D), bf16 and contiguous — the
-layout the attention projections produce — and return (B, Sq, H, D). The
+All take q (B, Sq, H, D) and k/v (B, Sk, H, D), contiguous — the layout the
+attention projections produce — bf16 (B2 also fp32), and return
+(B, Sq, H, D) in the input dtype. The
 row logsumexp that the backward recomputes the probabilities from is fp32
 (B, H, Sq), natural log; a forward writes it only when a gradient is needed.
 
@@ -49,6 +53,7 @@ BUILD_DIR = os.path.join(_REPO, "build", "kernels")
 KERNELS: Dict[str, tuple] = {
     "flash_fwd": ("flash_fwd.cu", "icd_flash_fwd"),
     "flash_fwd_streamed": ("flash_fwd_streamed.cu", "icd_flash_fwd_streamed"),
+    "flash_fwd_streamed_f32": ("flash_fwd_streamed_f32.cu", "icd_flash_fwd_streamed_f32"),
     "flash_bwd_dq": ("flash_bwd_dq.cu", "icd_flash_bwd_dq"),
     "flash_bwd_dkdv": ("flash_bwd_dkdv.cu", "icd_flash_bwd_dkdv"),
     # B5, the softmax-variant harness: wrapper and plain version in
@@ -63,6 +68,8 @@ _ENTRY_POINTERS: Dict[str, int] = {
     "icd_flash_fwd_lse": 5,             # q k v o lse
     "icd_flash_fwd_streamed": 5,        # q k v o workspace
     "icd_flash_fwd_streamed_lse": 6,    # q k v o lse workspace
+    "icd_flash_fwd_streamed_f32": 4,    # q k v o
+    "icd_flash_fwd_streamed_f32_lse": 5,  # q k v o lse
     "icd_flash_bwd_dq": 7,              # q k v o do lse dq
     "icd_flash_bwd_dkdv": 9,            # q k v o do lse dk dv workspace
 }  # B5's entry points are registered by `flash_variant.py`
@@ -181,6 +188,14 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype)
 
 
+def round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 `x` rounded to TF32 (10 mantissa bits) as B2's fp32 build rounds
+    its operands (cvt.rna.tf32.f32: to nearest, ties away from zero); the
+    plain versions on rounded inputs model its products."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 def attention_plain_lse(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -255,9 +270,9 @@ def _check_tensor(name: str, t: torch.Tensor, like: torch.Tensor, dtype=torch.bf
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _check(q, k, v, max_d: int, min_d: int):
+def _check(q, k, v, max_d: int, min_d: int, dtype=torch.bfloat16):
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_tensor(name, t, q)
+        _check_tensor(name, t, q, dtype)
         if t.dim() != 4:
             raise ValueError(f"{name} must be (B, S, H, D), got {tuple(t.shape)}")
     b, sq, h, d = q.shape
@@ -330,6 +345,20 @@ def _forward_streamed(q, k, v, with_lse: bool):
     b, sq, h, _ = q.shape
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _launch("flash_fwd_streamed", entry + "_lse", q, k, (q, k8, v8, o, lse, work))
+    return o, lse
+
+
+def _forward_streamed_f32(q, k, v, with_lse: bool):
+    """Kernel B2's fp32 build on checked CUDA tensors -> (o, lse or None).
+    Its copies bound-check every row, so a ragged Sk needs no padding."""
+    o = torch.empty_like(q)
+    name = "flash_fwd_streamed_f32"
+    if not with_lse:
+        _launch(name, KERNELS[name][1], q, k, (q, k, v, o))
+        return o, None
+    b, sq, h, _ = q.shape
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _launch(name, KERNELS[name][1] + "_lse", q, k, (q, k, v, o, lse))
     return o, lse
 
 
@@ -415,12 +444,16 @@ class FlashAttentionFn(torch.autograd.Function):
 
 
 class FlashAttentionStreamedFn(torch.autograd.Function):
-    """B2 forward; the backward is `attention_backward_chunked`."""
+    """B2 forward, its bf16 or fp32 build by the inputs' dtype (any other
+    dtype raises); the backward is `attention_backward_chunked`."""
 
     @staticmethod
     def forward(ctx, q, k, v, need_grad: bool):
         if q.device.type == "cpu":
             o, lse = attention_plain_lse(q, k, v) if need_grad else (attention_plain(q, k, v), None)
+        elif q.dtype == torch.float32:
+            _check(q, k, v, max_d=512, min_d=256, dtype=torch.float32)
+            o, lse = _forward_streamed_f32(q, k, v, with_lse=need_grad)
         else:
             _check(q, k, v, max_d=512, min_d=256)
             o, lse = _forward_streamed(q, k, v, with_lse=need_grad)
@@ -441,6 +474,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 
 def flash_attention_streamed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Kernel B2 (256 < head dim <= 512), differentiable through the chunked
-    plain backward. CPU tensors take the plain versions."""
+    """Kernel B2 (256 < head dim <= 512; bf16, or fp32 through its fp32
+    build), differentiable through the chunked plain backward. CPU tensors
+    take the plain versions."""
     return FlashAttentionStreamedFn.apply(q, k, v, _needs_grad(q, k, v))

@@ -6,7 +6,9 @@ artifacts on disk:
 
   * teacher UNet: a diffusers state dict (`.pt` / `.safetensors`, the
     guidance-distilled teacher);
-  * VAE / CLIP text encoder: diffusers / transformers state dicts;
+  * VAE / CLIP text encoders (SDXL's second one, bigG with its
+    `text_projection`, under "text_2"): diffusers / transformers state
+    dicts;
   * reverse / forward students: kohya LoRA files fused into the teacher's
     weights at the file's alpha and rank.
 
@@ -41,6 +43,7 @@ def load_bundle_params(
     teacher: Optional[str] = None,
     vae: Optional[str] = None,
     text: Optional[str] = None,
+    text_2: Optional[str] = None,
     reverse_lora: Optional[str] = None,
     forward_lora: Optional[str] = None,
     params: Optional[Dict[str, StateDict]] = None,
@@ -52,15 +55,18 @@ def load_bundle_params(
     `params` (an existing dict) supplies anything not given a file. A
     student fuses its LoRA into the teacher; without a LoRA file it shares
     the teacher's weights (the same tensors). A LoRA without a teacher
-    raises. `dtype` casts every floating tensor."""
+    raises. `text_2` is SDXL's second text encoder (bigG, transformers'
+    `CLIPTextModelWithProjection` keys). `dtype` casts every floating
+    tensor."""
     out = dict(params or {})
     if teacher:
         base = load_torch_file(teacher)
         out["teacher"] = out["reverse"] = out["forward"] = base
     if vae:
         out["vae"] = load_torch_file(vae)
-    if text:
-        out["text"] = {k: v for k, v in load_torch_file(text).items() if "position_ids" not in k}
+    for name, path in (("text", text), ("text_2", text_2)):
+        if path:
+            out[name] = {k: v for k, v in load_torch_file(path).items() if "position_ids" not in k}
     for name, path in (("reverse", reverse_lora), ("forward", forward_lora)):
         if path:
             if "teacher" not in out:

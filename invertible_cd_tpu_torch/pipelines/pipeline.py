@@ -10,7 +10,8 @@ consistency paths:
 
 Public functions keep the JAX package's layouts: latents (B, 64, 64, 4)
 NHWC in and out, images (B, 512, 512, 3) float32 in [0, 1] NHWC out. Inside,
-the models run NCHW. The DDIM baselines and SDXL come in later slices.
+the models run NCHW. SDXL's pipeline (`pipelines/sdxl.py`) subclasses this
+one; the DDIM baselines come in a later slice.
 """
 from __future__ import annotations
 
@@ -77,50 +78,21 @@ class InvertibleCD:
         latent_size: Tuple[int, int] = (64, 64),
         lora_rank: int = 64,
     ) -> "InvertibleCD":
-        """SD1.5 bundle on `device`, computing in `dtype`.
-
-        `params` holds state dicts (diffusers / transformers keys) under
-        "text", "vae" and one or more of "teacher", "reverse", "forward".
-        A UNet is built for every one of those keys that `params` holds; the
-        modules take the given tensors themselves (built on the meta device,
-        then assigned; a non-contiguous tensor is made contiguous first), so
-        where device, dtype and layout already match nothing is copied and
-        students that share the teacher's tensors share memory.
-        Without `params`, full-width synthetic weights are drawn on the
-        device from a torch.Generator seeded with `seed` (fan-in rule,
-        `models.layers.fan_in_init_`): CLIP, the VAE and one UNet base, then
-        a seeded rank-`lora_rank` LoRA for the "reverse" student and, drawn
-        after it, one for the "forward" student, each merged into its own
-        copy of the base by `merge_lora`."""
+        """SD1.5 bundle on `device`, computing in `dtype`: the modules of
+        `build_modules`, from `params` ("text", "vae" and one or more of
+        "teacher", "reverse", "forward"; diffusers / transformers keys) or,
+        without it, from seeded full-width synthetic weights with seeded
+        rank-`lora_rank` LoRAs merged into the two students."""
         device = resolve_device(device)
         unet_cfg = unet_cfg or UNetConfig.sd15()
-        clip_cfg = clip_cfg or CLIPTextConfig.vit_l()
         vae_cfg = vae_cfg or VAEConfig.sd()
-        with torch.device(device if params is None else "meta"):
-            text = CLIPTextModel(clip_cfg)
-            vae = AutoencoderKL(vae_cfg)
-            names = ("reverse", "forward") if params is None else [
-                k for k in UNET_KEYS if k in params]
-            unets = {name: UNet2DCondition(unet_cfg) for name in names}
-        if params is None:
-            gen = torch.Generator(device=device).manual_seed(seed)
-            for module in (unets["reverse"], text, vae):
-                fan_in_init_(module, gen)
-            base = unets["reverse"].state_dict()  # the reverse UNet's own tensors
-            loras = {name: seeded_lora(base, gen, lora_rank) for name in ("reverse", "forward")}
-            # the forward student first: the reverse merge writes into `base`
-            for name in ("forward", "reverse"):
-                unets[name].load_state_dict(merge_lora(base, loras[name], rank=lora_rank))
-        else:
-            for module, name in ((text, "text"), (vae, "vae"), *((u, n) for n, u in unets.items())):
-                state = {k: v.contiguous() for k, v in params[name].items()}
-                module.load_state_dict(state, assign=True)
-                module.to(device)
-        for module in (text, vae, *unets.values()):
-            cast_compute_weights(module, dtype).eval().requires_grad_(False)
+        unets, texts, vae = build_modules(
+            params, device, seed, lora_rank, unet_cfg,
+            {"text": clip_cfg or CLIPTextConfig.vit_l()}, vae_cfg, dtype, dtype,
+        )
         return InvertibleCD(
             unets=unets,
-            text_encoder=text,
+            text_encoder=texts["text"],
             vae=vae,
             tokenizer=tokenizer or default_tokenizer(),
             schedule=make_schedule(device=device),
@@ -162,22 +134,36 @@ class InvertibleCD:
 
     @torch.inference_mode()
     def _encode_all(self, prompts: Sequence[str], need_uncond: bool = True):
-        """(ctx_uncond, ctx_cond). `need_uncond=False` skips the "" CLIP
-        pass: the w-conditioned sampler never reads the uncond context."""
+        """(ctx_uncond, ctx_cond, added_cond): SD1.5 has no added
+        conditioning (None); the SDXL pipeline overrides this to supply its
+        pooled-text and time-id conditioning. `need_uncond=False` skips the
+        "" CLIP pass: the w-conditioned sampler never reads the uncond
+        context."""
         if need_uncond:
-            return self.encode_prompt(prompts)
+            return (*self.encode_prompt(prompts), None)
         ctx_c = self._encode_tokens(prompts)
-        return ctx_c, ctx_c
+        return ctx_c, ctx_c, None
 
     # ------------------------------------------------------------------
     # Model calls
     # ------------------------------------------------------------------
-    def _noise_model(self, unet: UNet2DCondition):
+    def _noise_model(self, unet: UNet2DCondition, added: Optional[dict] = None):
+        """The sampler's noise model over `unet`, with SDXL's added
+        conditioning broadcast to the batch of each call (JAX
+        `pipeline.py:190-219`): a call on a doubled CFG batch [uncond; cond]
+        gives the uncond half zero text embeds (the reference zeroes the
+        uncond pooled embeds) and every half the time ids."""
         def nm(latent, t, context, w_emb, hook=None):
             b = latent.shape[0]
+            added_b = added
+            if added is not None and b > added["text_embeds"].shape[0]:
+                te = added["text_embeds"]
+                rep = b // te.shape[0]
+                added_b = {"text_embeds": torch.cat([torch.zeros_like(te)] * (rep - 1) + [te]),
+                           "time_ids": torch.cat([added["time_ids"]] * rep)}
             return unet(
                 latent, torch.full((b,), t, dtype=torch.long, device=latent.device),
-                context, w_cond=w_emb, attn_hook=hook,
+                context, w_cond=w_emb, added_cond=added_b, attn_hook=hook,
             )
         return nm
 
@@ -242,7 +228,7 @@ class InvertibleCD:
         if isinstance(prompts, str):
             prompts = [prompts]
         g = guidance or self.default_guidance()
-        ctx_u, ctx_c = self._encode_all(prompts, need_uncond=g.w_embed_dim <= 0)
+        ctx_u, ctx_c, added = self._encode_all(prompts, need_uncond=g.w_embed_dim <= 0)
         ctx_amp = None
         if amplify_prompt is not None:
             amplify_prompt = [amplify_prompt] if isinstance(amplify_prompt, str) else list(amplify_prompt)
@@ -256,7 +242,7 @@ class InvertibleCD:
         spec, arrays = controller if controller else (None, None)
         rt = ControllerRuntime(spec, arrays.to(self.device)) if spec is not None else None
         lat = S.cons_generation(
-            self._noise_model(self.unets[model]), self._as_nchw(latent),
+            self._noise_model(self.unets[model], added), self._as_nchw(latent),
             ctx_u, ctx_c, self.grid, self.schedule, g,
             hook_factory=rt.hook_factory if rt else None,
             step_callback=rt.step_callback if rt else None,
@@ -295,7 +281,7 @@ class InvertibleCD:
         pixels = to_model_pixels(image).to(self.device)
         g = guidance or self.default_guidance(guidance_scale=0.0)
         prompts = [prompt] * pixels.shape[0] if isinstance(prompt, str) else list(prompt)
-        ctx_u, ctx_c = self._encode_all(prompts, need_uncond=g.w_embed_dim <= 0)
+        ctx_u, ctx_c, added = self._encode_all(prompts, need_uncond=g.w_embed_dim <= 0)
         if noise is None:
             if generator is None:
                 generator = torch.Generator(device=self.device).manual_seed(0)
@@ -303,7 +289,7 @@ class InvertibleCD:
             noise = torch.randn((pixels.shape[0], h, w, 4), generator=generator, device=self.device)
         latent = self._encode_image(pixels)
         inv = S.cons_inversion(
-            self._noise_model(self.unets["forward"]), latent, self._as_nchw(noise),
+            self._noise_model(self.unets["forward"], added), latent, self._as_nchw(noise),
             ctx_u, ctx_c, self.grid, self.schedule, g, return_all=return_trajectory,
         )
         if not return_trajectory:
@@ -350,6 +336,58 @@ class InvertibleCD:
 # ---------------------------------------------------------------------------
 # Helpers
 # ---------------------------------------------------------------------------
+def build_modules(
+    params: Optional[Dict[str, Dict[str, torch.Tensor]]],
+    device: torch.device,
+    seed: int,
+    lora_rank: int,
+    unet_cfg: UNetConfig,
+    text_cfgs: Dict[str, CLIPTextConfig],
+    vae_cfg: VAEConfig,
+    dtype,
+    vae_dtype,
+):
+    """A bundle's modules on `device`: (UNets by name, text encoders by
+    name, VAE), the UNets and text encoders computing in `dtype`, the VAE in
+    `vae_dtype` (norms stay fp32).
+
+    `params` holds state dicts under the names of `text_cfgs`, "vae" and
+    one or more of "teacher", "reverse", "forward"; a UNet is built for each
+    of those that `params` holds. The modules are built on the meta device
+    and take the given tensors themselves (a non-contiguous one made
+    contiguous), so where device, dtype and layout already match nothing is
+    copied. Without `params`, full-width synthetic weights are drawn on the
+    device from a torch.Generator seeded with `seed` (fan-in rule,
+    `models.layers.fan_in_init_`): one UNet base, the text encoders in the
+    order given, the VAE, then a seeded rank-`lora_rank` LoRA for the
+    "reverse" student and, drawn after it, one for the "forward" student,
+    each merged into its own copy of the base by `merge_lora`."""
+    with torch.device(device if params is None else "meta"):
+        texts = {name: CLIPTextModel(cfg) for name, cfg in text_cfgs.items()}
+        vae = AutoencoderKL(vae_cfg)
+        names = ("reverse", "forward") if params is None else [
+            k for k in UNET_KEYS if k in params]
+        unets = {name: UNet2DCondition(unet_cfg) for name in names}
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        for module in (unets["reverse"], *texts.values(), vae):
+            fan_in_init_(module, gen)
+        base = unets["reverse"].state_dict()  # the reverse UNet's own tensors
+        loras = {name: seeded_lora(base, gen, lora_rank) for name in ("reverse", "forward")}
+        # the forward student first: the reverse merge writes into `base`
+        for name in ("forward", "reverse"):
+            unets[name].load_state_dict(merge_lora(base, loras[name], rank=lora_rank))
+    else:
+        for name, module in (*texts.items(), ("vae", vae), *unets.items()):
+            state = {k: v.contiguous() for k, v in params[name].items()}
+            module.load_state_dict(state, assign=True)
+            module.to(device)
+    for module in (*texts.values(), *unets.values()):
+        cast_compute_weights(module, dtype).eval().requires_grad_(False)
+    cast_compute_weights(vae, vae_dtype).eval().requires_grad_(False)
+    return unets, texts, vae
+
+
 def to_model_pixels(image) -> torch.Tensor:
     """uint8/float [0, 255] (B, H, W, 3) or (H, W, 3), numpy or tensor ->
     float32 [-1, 1] NHWC tensor on the input's device (JAX

@@ -127,3 +127,18 @@ def test_b2_pads_keys_to_whole_row_groups(sk, want):
     assert padded.shape == (2, want, 3, 16) and padded.is_contiguous()
     assert torch.equal(padded[:, :sk], k) and not padded[:, sk:].any()
     assert (padded is k) == (sk == want)
+
+
+def test_round_tf32_rounds_to_nearest_ties_away():
+    """The rounding B2's fp32 build applies to its operands (cvt.rna): 10
+    mantissa bits kept, to nearest, ties away from zero; signs and zeros
+    kept, and the result is exact in TF32."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1 + ulp / 2, 1 + ulp / 4, 1 + 3 * ulp / 4, -(1 + ulp / 2), 3.14159,
+                      0.0, -0.0, 2.0 ** -130])
+    got = port.round_tf32(x)
+    want = torch.tensor([1.0, 1 + ulp, 1.0, 1 + ulp, -(1 + ulp), 3.140625, 0.0, -0.0, 2.0 ** -130])
+    assert torch.equal(got, want) and torch.equal(torch.signbit(got), torch.signbit(want))
+    y = torch.randn(1000, generator=torch.Generator().manual_seed(0))
+    assert torch.equal(port.round_tf32(port.round_tf32(y)), port.round_tf32(y))
+    assert ((port.round_tf32(y) - y).abs() <= y.abs() * 2.0 ** -11).all()

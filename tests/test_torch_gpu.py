@@ -39,7 +39,7 @@ TOL = 2e-2
 
 def _assert_close(out, q, k, v):
     ref = fa.attention_plain(q.float(), k.float(), v.float())
-    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert out.shape == q.shape and out.dtype == q.dtype
     limit = TOL * min(1.0, ref.abs().max().item())
     err = (out.float() - ref).abs().max().item()
     assert err <= limit, f"max abs err {err:.3e} > {limit:.3e}"
@@ -52,11 +52,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _qkv(cuda, b, sq, sk, h, d, seed=0):
+def _qkv(cuda, b, sq, sk, h, d, seed=0, dtype=torch.bfloat16):
     gen = torch.Generator(device=cuda).manual_seed(seed)
 
     def rnd(s, scale):
-        return (scale * torch.randn((b, s, h, d), generator=gen, device=cuda)).to(torch.bfloat16)
+        return (scale * torch.randn((b, s, h, d), generator=gen, device=cuda)).to(dtype)
     return rnd(sq, 2.0), rnd(sk, 2.0), rnd(sk, 0.5)
 
 
@@ -70,6 +70,9 @@ def _qkv(cuda, b, sq, sk, h, d, seed=0):
         (1, 64, 64, 1, 256),
         (3, 17, 5, 4, 8),       # head dim padded 8 -> 48
         (1, 70, 90, 2, 136),    # head dim padded 136 -> 160
+        (1, 4096, 4096, 10, 64),  # SDXL's self layers at 64^2 tokens: DP 64, unpadded
+        (2, 1024, 77, 20, 64),  # SDXL's cross layers at 32^2 tokens
+        (1, 100, 90, 3, 56),    # head dim padded 56 -> 64, ragged on both sides
     ],
 )
 def test_b1_matches_plain(cuda, b, sq, sk, h, d):
@@ -91,6 +94,19 @@ B2_SHAPES = [
     (1, 512, 1000, 1, 512),   # split, Sk off the 32-key tile
     (1, 300, 1000, 2, 320),   # split, two heads, d = 320, ragged queries
     (2, 700, 333, 2, 384),    # split, d = 384, ragged on both sides
+    (1, 16384, 16384, 1, 512),  # SDXL's VAE mid-block at 1024^2 under the bf16 opt-in
+    (2, 16384, 16384, 1, 512),  # and its decode of an edited pair
+]
+# B2's fp32 build (SDXL's default fp32 VAE; it never splits the key range):
+# SDXL's shapes, and ragged ones
+B2_F32_SHAPES = [
+    (1, 16384, 16384, 1, 512),
+    (2, 16384, 16384, 1, 512),
+    (1, 1024, 1024, 1, 512),
+    (2, 100, 77, 1, 512),     # ragged queries, Sk off the 16-key tile
+    (1, 64, 130, 2, 384),
+    (1, 300, 1000, 2, 320),   # two heads, d = 320, ragged queries
+    (2, 700, 333, 2, 264),    # d = 264, ragged on both sides
 ]
 
 
@@ -117,6 +133,37 @@ def test_b2_lse_matches_plain(cuda, b, sq, sk, h, d):
     assert (lse - ref_lse).abs().max().item() <= 1e-3
 
 
+@pytest.mark.parametrize("b,sq,sk,h,d", B2_F32_SHAPES)
+def test_b2_fp32_matches_plain(cuda, b, sq, sk, h, d):
+    """fp32 inputs launch B2's fp32 build (TF32 products, fp32 everything
+    else), held to the fp32 plain version with the bf16 builds' limit; its
+    lse entry point gives the same output, and an lse within 1e-3 of the
+    plain one on q and k rounded to TF32 (TF32 moves a logit by up to
+    2^-10 scale sum|q_i k_i|, a few 1e-3 here; a kernel that rounded q and k
+    to bf16 would be ~8x further off); a repeat gives the same bits."""
+    q, k, v = _qkv(cuda, b, sq, sk, h, d, seed=11, dtype=torch.float32)
+    before = {name: fa.launches(name) for name in ("flash_fwd_streamed", "flash_fwd_streamed_f32")}
+    out = fa.flash_attention_streamed(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches("flash_fwd_streamed_f32") == before["flash_fwd_streamed_f32"] + 1
+    assert fa.launches("flash_fwd_streamed") == before["flash_fwd_streamed"]
+    _assert_close(out, q, k, v)
+    o, lse = fa._forward_streamed_f32(q, k, v, with_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, out)
+    ref_lse = fa.attention_plain_lse(fa.round_tf32(q), fa.round_tf32(k), v)[1]
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    assert torch.equal(fa.flash_attention_streamed(q, k, v), out)
+
+
+def test_b2_takes_bf16_and_fp32_only(cuda):
+    q, k, v = _qkv(cuda, 1, 64, 64, 1, 512, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa.flash_attention_streamed(q, k, v)
+    with pytest.raises(TypeError):
+        fa.flash_attention_streamed(q.float(), k, v.float())
+
+
 @pytest.mark.parametrize("b,split", [(1, True), (2, False), (4, False)])
 def test_b2_repeats_bit_for_bit(cuda, b, split):
     """At 4096^2, d = 512: batch 1 fills the card by splitting the key range
@@ -137,8 +184,8 @@ def test_fused_attention_routes_by_head_dim(cuda):
     fused_attention(*_qkv(cuda, 1, 64, 77, 8, 40))
     fused_attention(*_qkv(cuda, 1, 64, 64, 1, 512))
     assert {name: fa.launches(name) for name in fa.KERNELS} == {
-        "flash_fwd": 1, "flash_fwd_streamed": 1, "flash_bwd_dq": 0, "flash_bwd_dkdv": 0,
-        "flash_variant": 0}
+        "flash_fwd": 1, "flash_fwd_streamed": 1, "flash_fwd_streamed_f32": 0, "flash_bwd_dq": 0,
+        "flash_bwd_dkdv": 0, "flash_variant": 0}
 
 
 def test_wrappers_raise_instead_of_falling_back(cuda):
@@ -196,8 +243,8 @@ def test_b1_lse_b3_b4_match_plain(cuda, b, sq, sk, h, d):
     torch.cuda.synchronize()
     after = {name: fa.launches(name) for name in fa.KERNELS}
     assert {n: after[n] - before[n] for n in after} == {
-        "flash_fwd": 1, "flash_fwd_streamed": 0, "flash_bwd_dq": 1, "flash_bwd_dkdv": 1,
-        "flash_variant": 0}
+        "flash_fwd": 1, "flash_fwd_streamed": 0, "flash_fwd_streamed_f32": 0, "flash_bwd_dq": 1,
+        "flash_bwd_dkdv": 1, "flash_variant": 0}
     _assert_close(o, q, k, v)
     assert torch.equal(o, fa.flash_attention(q, k, v))  # the no-lse variant: same output
 
@@ -256,8 +303,8 @@ def test_autograd_function_launches_backward_kernels(cuda):
     dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
     assert {name: fa.launches(name) for name in fa.KERNELS} == {
-        "flash_fwd": 1, "flash_fwd_streamed": 0, "flash_bwd_dq": 1, "flash_bwd_dkdv": 1,
-        "flash_variant": 0}
+        "flash_fwd": 1, "flash_fwd_streamed": 0, "flash_fwd_streamed_f32": 0, "flash_bwd_dq": 1,
+        "flash_bwd_dkdv": 1, "flash_variant": 0}
     qf, kf, vf = (x.detach().float().requires_grad_(True) for x in (q, k, v))
     auto = torch.autograd.grad(fa.attention_plain(qf, kf, vf), (qf, kf, vf), do.float())
     for got, ref in zip((dq, dk, dv), auto):
@@ -306,7 +353,7 @@ def test_b5_matches_plain(cuda, variant, g, sq, sk, d):
     torch.cuda.synchronize()
     assert fa.launches("flash_variant") == before + 1
     ref = fv.flash_variant_plain(q.float(), k.float(), v.float(), variant, block_k=fv.KEY_TILE)
-    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert out.shape == q.shape and out.dtype == q.dtype
     limit = TOL * min(1.0, ref.abs().max().item())
     err = (out.float() - ref).abs().max().item()
     assert err <= limit, f"max abs err {err:.3e} > {limit:.3e}"

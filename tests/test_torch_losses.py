@@ -31,6 +31,8 @@ from invertible_cd_tpu_torch.models.lora import call_with_state, merge_lora
 from invertible_cd_tpu_torch.models.unet2d import UNet2DCondition, UNetConfig
 from invertible_cd_tpu_torch.training import losses as TL
 
+from _torch_jax_params import seeded_params, traced_init
+
 ENDPOINTS, FORWARD_ENDPOINTS = "0,259,519,779", "259,519,779,999"
 RANK, B = 4, 2
 
@@ -49,10 +51,10 @@ def world():
     rng = np.random.default_rng(0)
     jcfg = JUNetConfig.tiny()
     junet = JUNet(jcfg)
-    jbase = junet.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,), jnp.int32),
+    jbase = seeded_params(traced_init(  # numpy-seeded weights: Flax's init runs op by op
+        junet, jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,), jnp.int32),
         jnp.zeros((1, 77, jcfg.cross_attention_dim)), jnp.zeros((1, jcfg.time_cond_proj_dim)),
-    )["params"]
+    ))["params"]
 
     def j_lora(seed):
         lora = _np_tree(j_init_lora(jax.random.PRNGKey(seed), jbase, rank=RANK))

@@ -3,7 +3,9 @@ the CPU, on weights bridged from the JAX tiny bundle
 (`invertible_cd_tpu_torch.models.convert`) and numpy-seeded inputs.
 
 Tolerance: atol 1e-4 / rtol 1e-3 (fp32 in both frameworks; convolution and
-matmul summation orders differ), unless a test states otherwise.
+matmul summation orders differ), unless a test states otherwise. The JAX
+side runs compiled (`jax.jit`), once per call: eager Flax dispatches op by
+op and took most of this file's time.
 """
 import jax
 import jax.numpy as jnp
@@ -77,7 +79,7 @@ def test_groupnorm32(channels):
     """48 channels exercises the group-count fallback (32 -> 24)."""
     x = _randn(2, 8, 8, channels) * 3 + 1
     scale, bias = _randn(channels), _randn(channels)
-    want = jlayers.GroupNorm32(32, epsilon=1e-6).apply(
+    want = jax.jit(jlayers.GroupNorm32(32, epsilon=1e-6).apply)(
         {"params": {"GroupNorm_0": {"scale": scale, "bias": bias}}}, jnp.asarray(x)
     )
     gn = GroupNorm32(channels, eps=1e-6)
@@ -89,8 +91,8 @@ def test_groupnorm32(channels):
 def test_resnet_block(in_ch, out_ch, eps):
     x, temb = _randn(2, 8, 8, in_ch), _randn(2, 16)
     jblock = jlayers.ResnetBlock2D(out_ch, norm_eps=eps)
-    params = jblock.init(jax.random.PRNGKey(1), jnp.asarray(x), jnp.asarray(temb))
-    want = jblock.apply(params, jnp.asarray(x), jnp.asarray(temb))
+    params = jax.jit(jblock.init)(jax.random.PRNGKey(1), jnp.asarray(x), jnp.asarray(temb))
+    want = jax.jit(jblock.apply)(params, jnp.asarray(x), jnp.asarray(temb))
     block = ResnetBlock2D(in_ch, out_ch, 16, eps=eps)
     block.load_state_dict(convert.unet_state_dict_from_flax(_np_tree(params)))
     got = _nhwc(block(_nchw(x), torch.from_numpy(temb)))
@@ -101,8 +103,10 @@ def test_transformer2d():
     dim, ctx_dim, heads = 64, 32, 4
     x, ctx = _randn(2, 8, 8, dim), _randn(2, 77, ctx_dim)
     jblock = JTransformer2D(heads)
-    params = jblock.init(jax.random.PRNGKey(2), jnp.asarray(x), jnp.asarray(ctx), "down", [0], None)
-    want = jblock.apply(params, jnp.asarray(x), jnp.asarray(ctx), "down", [0], None)
+    params = jax.jit(lambda x, c: jblock.init(jax.random.PRNGKey(2), x, c, "down", [0], None))(
+        jnp.asarray(x), jnp.asarray(ctx))
+    want = jax.jit(lambda p, x, c: jblock.apply(p, x, c, "down", [0], None))(
+        params, jnp.asarray(x), jnp.asarray(ctx))
     block = Transformer2D(dim, heads, ctx_dim)
     block.load_state_dict(convert.unet_state_dict_from_flax(_np_tree(params)))
     counter = [0]
@@ -114,7 +118,7 @@ def test_transformer2d():
 def test_unet(tiny_pipe, port_pipe):
     x, ctx, w = _randn(2, 16, 16, 4), _randn(2, 77, 32), _randn(2, 8)
     t = np.array([999, 259], np.int64)
-    want = tiny_pipe.unet.apply(
+    want = jax.jit(tiny_pipe.unet.apply)(
         tiny_pipe.params["reverse"], jnp.asarray(x), jnp.asarray(t, jnp.int32),
         jnp.asarray(ctx), jnp.asarray(w),
     )
@@ -129,8 +133,9 @@ def test_unet(tiny_pipe, port_pipe):
 def test_vae_decode_and_encode(tiny_pipe, port_pipe):
     z, pix = _randn(2, 16, 16, 4), _randn(2, 32, 32, 3) * 0.5
     vp = tiny_pipe.params["vae"]
-    want_dec = tiny_pipe.vae.apply(vp, jnp.asarray(z), method=JVAE.decode)
-    want_enc = tiny_pipe.vae.apply(vp, jnp.asarray(pix), method=JVAE.encode_mean)
+    want_dec = jax.jit(lambda p, z: tiny_pipe.vae.apply(p, z, method=JVAE.decode))(vp, jnp.asarray(z))
+    want_enc = jax.jit(lambda p, x: tiny_pipe.vae.apply(p, x, method=JVAE.encode_mean))(
+        vp, jnp.asarray(pix))
     with torch.no_grad():
         got_dec = _nhwc(port_pipe.vae.decode(_nchw(z)))
         got_enc = _nhwc(port_pipe.vae.encode_mean(_nchw(pix)))
@@ -140,7 +145,7 @@ def test_vae_decode_and_encode(tiny_pipe, port_pipe):
 
 def test_clip(tiny_pipe, port_pipe):
     tokens = tiny_pipe.tokenizer(["a photo of a cat", "", "an astronaut riding a horse"])
-    want = tiny_pipe.text_encoder.apply(tiny_pipe.params["text"], jnp.asarray(tokens))
+    want = jax.jit(tiny_pipe.text_encoder.apply)(tiny_pipe.params["text"], jnp.asarray(tokens))
     with torch.no_grad():
         got = port_pipe.text_encoder(torch.from_numpy(tokens).long())
     for key in ("last_hidden_state", "penultimate_hidden_state", "pooled_output"):

@@ -41,6 +41,8 @@ from invertible_cd_tpu_torch.training.checkpoint import (
 )
 from invertible_cd_tpu_torch.training.trainer import init_optimizer
 
+from _torch_jax_params import seeded_params, traced_init
+
 ENDPOINTS, FORWARD_ENDPOINTS = "0,259,519,779", "259,519,779,999"
 RANK, B = 4, 2
 METRICS = (
@@ -62,9 +64,9 @@ def jax_world():
     """The JAX tiny UNet, its weights and a non-zero adapter tree per student."""
     jcfg = JUNetConfig.tiny()
     junet = JUNet(jcfg)
-    jbase = junet.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,), jnp.int32),
-        jnp.zeros((1, 77, jcfg.cross_attention_dim)), jnp.zeros((1, jcfg.time_cond_proj_dim)))
+    jbase = seeded_params(traced_init(  # numpy-seeded weights: Flax's init runs op by op
+        junet, jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,), jnp.int32),
+        jnp.zeros((1, 77, jcfg.cross_attention_dim)), jnp.zeros((1, jcfg.time_cond_proj_dim))))
 
     def lora(seed):
         tree = _np_tree(j_init_lora(jax.random.PRNGKey(seed), jbase["params"], rank=RANK))
