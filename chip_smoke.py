@@ -22,7 +22,8 @@ nothing of JAX. Phases, each of which must pass:
              calls) and its bound; B1's logsumexp variant (1e-3 absolute),
              with a hash of B1's o and lse bits on these fixed-seed inputs
              (two builds of B1 compare in one `--kernels-only` call);
-             the backward kernels B3 and B4 with dO ~ N(0, 1), against the
+             the backward kernels B3 and B4 with dO ~ N(0, 1) at the train
+             step's batch and at NTI's (batch 1), against the
              plain explicit backward and against autograd through the plain
              forward (max abs error <= 2e-2 * max |reference| for each of
              dq, dk, dv), bit-identical on a repeat, timed beside the plain
@@ -53,6 +54,26 @@ nothing of JAX. Phases, each of which must pass:
              and every UNet call and LocalBlend step teacher-forced);
              times invert, the
              controlled generate and edit, and traces one edit;
+  4d. baselines: on the same bundle's seeded teacher (the unmerged base),
+             the 50-step DDIM baselines: `ddim_invert` of a seeded 512^2
+             image (CFG 1.0, run on the doubled batch as JAX does),
+             `ddim_generate` from its inversion at CFG 7.5, the controlled
+             pair under the edit's controller at 50 steps (CFG batch 4), NPI's
+             reconstruction and `null_text_inversion` at the reference's
+             defaults (10 inner iterations at most, epsilon 1e-5) with its
+             reconstruction. Checks shapes, finite images in [0, 1], exact
+             launches per (kernel, Sq, Sk, d) and batch derived from the
+             config, the grid, the spec and NTI's inner iterations as the run
+             reports them (32 x B1 a UNet call; an NTI step of k iterations
+             (2 + k) x 32 x B1 and k x 31 x B3 and B4, the layers after the
+             first cross layer), an identical repeat, NTI's gradient through
+             B1 with lse, B3 and B4 against the materialised path within
+             UNET_REL_TOL, a tiny bundle on the card against the CPU (every
+             UNet call of the DDIM paths and the pair's LocalBlend maps
+             teacher-forced; NTI per outer step with every inner iteration
+             run: its first gradient and its embedding); times each path,
+             one teacher call at batch 2 and one NTI inner iteration, and
+             traces one `ddim_generate`;
   4c. sdxl:  `InvertibleCDXL.sdxl` at full SDXL width (the 2.6B UNet, ViT-L
              and bigG, the fp32 VAE) with seeded weights and seeded r=64
              reverse and forward LoRAs, at 1024^2: `generate` of one prompt
@@ -95,10 +116,12 @@ nothing of JAX. Phases, each of which must pass:
      A kernel row's `launches` are those of its (Sq, Sk, d) in the generate
      at its batch, plus, for the batch-4 rows, the three counted train
      steps (batch 2), for the batch-1 rows the counted `invert`, and for
-     the batch-2 rows the controlled generate of the counted `edit`; the
-     SDXL rows those of phase 4c (batch 1: generate, invert and the bf16
-     opt-in's decode; batch 2: the edited pair and its opt-in decode);
-     B5's rows carry the harness's.
+     the batch-2 rows the controlled generate of the counted `edit`; plus
+     the baselines' (phase 4d) at the batch each kernel ran at: NTI's B1,
+     B3 and B4 at batch 1, the DDIM paths' B1 at batch 2 (the controlled
+     pair's at 4), B2 at the prompts' batch; the SDXL rows those of phase
+     4c (batch 1: generate, invert and the bf16 opt-in's decode; batch 2:
+     the edited pair and its opt-in decode); B5's rows carry the harness's.
 
 `--kernels-only` runs phases 1-3 and the harness (6) and prints the kernel
 rows; `--package-root DIR` imports the package (and builds its kernels) from
@@ -238,6 +261,14 @@ SHAPES = [
 ] + [
     (name, b, 16384, 16384, 1, 512) for name in ("flash_fwd_streamed_f32", "flash_fwd_streamed")
     for b in (1, 2)
+] + [  # the DDIM baselines' CFG batch 2 leaves the cross layers unhooked
+    ("flash_fwd", 2, sq, 77, 8, d) for sq, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))
+]
+# (batch, Sq, Sk, heads, head dim) of B3 and B4: the train step's eight shapes
+# (at the generate's batch) and NTI's (batch 1)
+BACKWARD_SHAPES = [
+    (b, sq, sk, 8, d) for b in (BATCH, 1)
+    for sq, d in ((4096, 40), (1024, 80), (256, 160), (64, 160)) for sk in (sq, 77)
 ]
 # attention layers of one SD1.5 UNet call by token count (self; as many cross
 # layers at Sk = 77): 2 down + 3 up at each of 4096/1024/256, 1 mid at 64
@@ -464,7 +495,8 @@ def phase_kernels(card: str):
 
 
 def phase_backward_kernels(card: str):
-    """B3 and B4 at the eight B1 shapes: against the plain explicit backward
+    """B3 and B4 at the eight B1 shapes, at the generate's batch (the train
+    step's shapes) and at batch 1 (NTI's): against the plain explicit backward
     and against autograd through the plain forward (which knows nothing of
     lse, so a wrong lse cannot hide), repeated for bit-identity, and timed.
     `plain_ms` (the plain backward) and `library_ms` (the backward of torch
@@ -478,11 +510,8 @@ def phase_backward_kernels(card: str):
     gen = torch.Generator(device="cuda").manual_seed(4321)
     rows = []
     failures = []
-    print(f"backward kernels vs plain at batch {BATCH} ({card}):")
-    for name, batch, sq, sk, h, d in SHAPES:
-        if name != "flash_fwd" or batch != BATCH:  # the train step's shapes
-            continue
-
+    print(f"backward kernels vs plain at batch {BATCH} and 1 ({card}):")
+    for batch, sq, sk, h, d in BACKWARD_SHAPES:
         def rnd(s, scale=1.0):
             return (scale * torch.randn((batch, s, h, d), generator=gen, device="cuda")).to(
                 torch.bfloat16)
@@ -770,28 +799,27 @@ def phase_main_path(card: str):
     return pipe, shape_launches
 
 
-def edit_path_launches(spec, n_hops: int):
+def edit_path_launches(spec, n_hops: int, per_call, vae_key):
     """Kernel launches per (kernel, Sq, Sk, d) of `invert` at batch 1 and of
-    the controlled generate of `edit`, derived from the controller spec (not
+    the controlled generate of `edit`, derived from one UNet call's launches
+    (`per_call`, see `unet_launches_per_call`) and the controller spec (not
     from its routing predicate, which they check). `invert`: every layer of
-    every hop on B1, and B2 in the VAE encoder's mid-block. The controlled
-    pair: a replace or refine controller hooks every cross layer; a self
-    layer of more than 32^2 tokens is never hooked (it passes through
+    every hop on B1, and B2 (`vae_key`) in the VAE encoder's mid-block. The
+    controlled pair: a replace or refine controller hooks every cross layer;
+    a self layer of more than 32^2 tokens is never hooked (it passes through
     unedited and unstored); one of <= 32^2 tokens is hooked in the
     self-replace hops, and in every hop when the spec stores all maps; B2
     decodes the pair."""
     check(spec.kind in ("replace", "refine"), f"controller kind {spec.kind}")
     lo, hi = spec.self_replace_range
-    invert, pair = collections.Counter(), collections.Counter()
-    for tokens, layers in LAYERS_PER_CALL.items():
-        d = HEAD_DIM[tokens]
-        for sk in (tokens, 77):
-            invert[("flash_fwd", tokens, sk, d)] = n_hops * layers
+    invert = collections.Counter({key: n_hops * c for key, c in per_call.items()})
+    pair = collections.Counter()
+    for (kernel, sq, sk, d), c in per_call.items():
         for step in range(n_hops):
-            if tokens > 32 * 32 or not (spec.store_all or lo <= step < hi):
-                pair[("flash_fwd", tokens, tokens, d)] += layers
-    invert[("flash_fwd_streamed", 4096, 4096, 512)] = 1
-    pair[("flash_fwd_streamed", 4096, 4096, 512)] = 1
+            if sk == sq and (sq > 32 * 32 or not (spec.store_all or lo <= step < hi)):
+                pair[(kernel, sq, sk, d)] += c
+    invert[vae_key] = 1
+    pair[vae_key] = 1
     return invert, pair
 
 
@@ -876,7 +904,9 @@ def phase_edit(card: str, pipe):
     noise = torch.randn((1, 64, 64, 4), generator=torch.Generator(device="cuda").manual_seed(22),
                         device="cuda")
     controller = make_controller(pair, pipe.tokenizer, n_hops, **EDIT_CONTROLLER)
-    want_invert, want_pair = edit_path_launches(controller[0], n_hops)
+    want_invert, want_pair = edit_path_launches(
+        controller[0], n_hops, unet_launches_per_call(pipe.unets["reverse"].cfg, 64),
+        ("flash_fwd_streamed", 4096, 4096, 512))
     print(f"edit: {controller[0]}")
 
     def edit():
@@ -985,25 +1015,392 @@ def phase_edit(card: str, pipe):
     return {1: invert_launches, 2: pair_launches}
 
 
-def sdxl_launches_per_call(cfg, latent: int):
-    """Kernel launches per (kernel, Sq, Sk, d) of one SDXL UNet call at a
-    latent side of `latent`, derived from the config: at each level with
+# the DDIM baselines (phase 4d): NTI at the reference's defaults
+DDIM_CFG = 7.5
+NTI_INNER_STEPS = 10
+NTI_EPSILON = 1e-5
+# the tiny bundle's NTI on the card: a 10-step grid, 3 inner iterations an
+# outer step (its DDIM paths keep the 50-step grid)
+TINY_NTI_GRID = 10
+TINY_NTI_INNER = 3
+
+
+def forced_ddim_errors(cpu_pipe, gpu_pipe, run, controller=None):
+    """`run()` on the CPU pipe (fp32), a DDIM path, with every UNet call
+    repeated by the card pipe on the same inputs (teacher forcing); with a
+    controller, the card's own runtime gives each call's hook (wrapped for
+    the CFG batch's cond half, as the sampler wraps the CPU's) and runs each
+    step callback (LocalBlend) on the same pre-blend latent. Returns the
+    relative L2, card against CPU, of each call's epsilon (`unet`), of the
+    16^2 cross maps each blend accumulated (`maps`, the worst layer) and of
+    each blended latent (`blend`), and run()'s result."""
+    from invertible_cd_tpu_torch.edit import ControllerRuntime
+    from invertible_cd_tpu_torch.pipelines import sampler
+    from invertible_cd_tpu_torch.pipelines.pipeline import InvertibleCD
+
+    dev = gpu_pipe.device
+    card_rt = ControllerRuntime(controller[0], controller[1].to(dev)) if controller else None
+    step, errs = [0], {"unet": [], "maps": [], "blend": []}
+
+    def rel(got, want):
+        return ((got.float().cpu() - want).norm() / want.norm()).item()
+
+    def forced(unet, added=None):  # stands in for the CPU pipe's `_noise_model`
+        name = next(k for k, u in cpu_pipe.unets.items() if u is unet)
+        cpu_nm = InvertibleCD._noise_model(cpu_pipe, unet)
+        card_nm = InvertibleCD._noise_model(gpu_pipe, gpu_pipe.unets[name])
+
+        def nm(latent, t, context, w_emb, hook=None):
+            eps = cpu_nm(latent, t, context, w_emb, hook)
+            card_hook = None
+            if hook is not None:  # one hook a step, in step order
+                card_hook = sampler._wrap_cond_half(card_rt.hook_factory(step[0]))
+                step[0] += 1
+            got = card_nm(latent.to(dev), t, context.to(dev), None, card_hook)
+            errs["unet"].append(rel(got, eps))
+            return eps
+        return nm
+
+    ddim_loop = sampler.ddim_loop
+
+    def forced_loop(*args, step_callback=None, **kwargs):
+        def blend(latent, i):
+            want = step_callback(latent, i)
+            errs["blend"].append(rel(card_rt.step_callback(latent.to(dev), i), want))
+            cpu_maps = step_callback.__self__._accum_maps  # the CPU's runtime
+            errs["maps"].append(max(rel(g, w) for g, w in zip(card_rt._accum_maps, cpu_maps)))
+            return want
+        return ddim_loop(*args, step_callback=blend if step_callback else None, **kwargs)
+
+    cpu_pipe._noise_model = forced
+    sampler.ddim_loop = forced_loop
+    try:
+        result = run()
+    finally:
+        del cpu_pipe._noise_model
+        sampler.ddim_loop = ddim_loop
+    return errs, result
+
+
+def forced_nti_errors(cpu_pipe, gpu_pipe, image):
+    """NTI on both pipes, teacher-forced per outer step: the CPU pipe's DDIM
+    inversion of `image` on its grid, then each outer step run by both
+    pipes on the CPU's inputs (embedding, current and target latent), with
+    the threshold at -inf so that every inner iteration runs on both; the CPU
+    step's outputs go on. Returns the relative L2, card against CPU, of each
+    step's optimised embedding, of the embedding's change and of the next
+    latent."""
+    import math
+
+    import torch
+
+    from invertible_cd_tpu_torch.pipelines import nti
+
+    dev = gpu_pipe.device
+    n = cpu_pipe.grid.n_steps
+    traj, _ = cpu_pipe.ddim_invert(image, EDIT_SOURCE)
+    x = traj.permute(0, 1, 4, 2, 3)
+    ctx_u, ctx_c = (c.clone() for c in cpu_pipe.encode_prompt([EDIT_SOURCE]))
+    steps = [nti.make_nti_step(p, TINY_NTI_INNER, DDIM_CFG) for p in (cpu_pipe, gpu_pipe)]
+    errs = {"gradient": [], "embedding": [], "change": [], "latent": []}
+
+    def rel(got, want):
+        return ((got.float().cpu() - want).norm() / want.norm()).item()
+
+    def first_gradient(pipe, u, cur, prev, ctx, t):
+        nm = pipe._noise_model(pipe.unets["teacher"])
+        with torch.no_grad():
+            cond_noise = nm(cur, t, ctx, None)
+        u = u.to(torch.float32, copy=True).requires_grad_(True)
+        loss = nti.nti_loss(nm, u, cond_noise, cur, prev, t, pipe.schedule,
+                            pipe.schedule.num_train_timesteps // n, DDIM_CFG)
+        return torch.autograd.grad(loss, u)[0]
+    u, cur = ctx_u, x[-1]
+    for i, t in enumerate(cpu_pipe.grid.ddim_timesteps[::-1].tolist()):
+        inputs = (u, cur, x[n - i - 1], ctx_c)
+        errs["gradient"].append(rel(first_gradient(gpu_pipe, *(a.to(dev) for a in inputs), t),
+                                    first_gradient(cpu_pipe, *inputs, t)))
+        u_c, next_c, _, k_c = steps[0](*inputs, t, 1e-2 * (1 - i / 100), -math.inf)
+        u_g, next_g, _, k_g = steps[1](*(a.to(dev) for a in inputs), t, 1e-2 * (1 - i / 100), -math.inf)
+        check(k_c == k_g == TINY_NTI_INNER, f"tiny NTI step {i}: {k_c} and {k_g} inner iterations")
+        errs["embedding"].append(rel(u_g, u_c))
+        errs["change"].append(rel(u_g.cpu() - u, u_c - u))
+        errs["latent"].append(rel(next_g, next_c))
+        u, cur = u_c, next_c
+    return errs
+
+
+def phase_baselines(card: str, pipe):
+    """The DDIM baselines on the generate path's bundle (its seeded teacher):
+    `ddim_invert` of a seeded 512^2 image, `ddim_generate` from its
+    inversion, the controlled pair, NPI's reconstruction and NTI with its
+    reconstruction, each with the launch counters reset just before and
+    read just after; checks, NTI's gradient through the kernels against the
+    materialised path, the tiny bundle on the card against the CPU, times
+    and one traced `ddim_generate`. Returns the launches per (kernel, Sq,
+    Sk, d) by the batch each kernel ran at."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from invertible_cd_tpu_torch.diffusion.solver import make_solver_grid
+    from invertible_cd_tpu_torch.edit import make_controller
+    from invertible_cd_tpu_torch.models.attention import AttnMeta
+    from invertible_cd_tpu_torch.models.unet2d import count_attention_layers
+    from invertible_cd_tpu_torch.ops import flash_attention as fa
+    from invertible_cd_tpu_torch.pipelines import nti
+    from invertible_cd_tpu_torch.pipelines.pipeline import InvertibleCD
+    from invertible_cd_tpu_torch.testing import tiny_configs
+    from invertible_cd_tpu_torch.utils.tokenizer import HashTokenizer
+
+    teacher = pipe.unets["teacher"]
+    cfg, n, side = teacher.cfg, pipe.grid.n_steps, pipe.latent_size[0]
+    pair = [EDIT_SOURCE, EDIT_TARGET]
+    image = np.random.default_rng(41).integers(0, 256, (8 * side, 8 * side, 3), dtype=np.uint8)
+    controller = make_controller(pair, pipe.tokenizer, n, **EDIT_CONTROLLER)
+
+    # launches per run, derived from the config, the grid and the spec
+    per_call = unet_launches_per_call(cfg, side)
+    check(sum(per_call.values()) == count_attention_layers(cfg) == 32,
+          f"{sum(per_call.values())} attention layers a call")
+    # under NTI's gradient every layer after the first cross layer runs backward
+    grad_layers = per_call - collections.Counter({first_self_layer(cfg, side): 1})
+
+    def nti_launches(forwards: int, backwards: int):
+        """B1 on every layer of `forwards` UNet calls; B3 and B4 on the
+        gradient's layers of `backwards` of them."""
+        return (collections.Counter({k: forwards * c for k, c in per_call.items()})
+                + collections.Counter({(kernel,) + key[1:]: backwards * c
+                                       for key, c in grad_layers.items()
+                                       for kernel in ("flash_bwd_dq", "flash_bwd_dkdv")}))
+    vae = collections.Counter({("flash_fwd_streamed", side * side, side * side,
+                                pipe.vae.cfg.block_out_channels[-1]): 1})
+    cfg_steps = collections.Counter({k: n * c for k, c in per_call.items()})
+    plain_run = {2: cfg_steps, 1: vae}  # CFG batch 2; the VAE at batch 1
+    pair_b1 = edit_path_launches(controller[0], n, per_call, next(iter(vae)))[1] - vae
+    want = {"ddim_invert": plain_run, "ddim_generate": plain_run, "pair": {4: pair_b1, 2: vae},
+            "npi": plain_run, "nti_recon": plain_run}
+    print(f"baselines: {n} DDIM steps of the teacher, CFG {DDIM_CFG} (invert 1.0); "
+          f"{sum(grad_layers.values())} of {sum(per_call.values())} layers under NTI's gradient")
+
+    ctx_u, ctx_c = (c.clone() for c in pipe.encode_prompt([EDIT_SOURCE]))
+    nm = pipe._noise_model(teacher)
+    step_ratio = pipe.schedule.num_train_timesteps // n
+    # warm-up: plans and handles at batch 1, 2 and 4, and the backward's at batch 1
+    warm, _ = pipe.ddim_invert(image, EDIT_SOURCE)
+    pipe.ddim_generate(pair, latent=warm[-1].expand(2, -1, -1, -1), controller=controller)
+    warm = warm.permute(0, 1, 4, 2, 3)
+    nti.make_nti_step(pipe, 2, DDIM_CFG)(ctx_u, warm[-1], warm[-2], ctx_c, 999, 1e-2, -math.inf)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the baselines: counts reset just before each, read just after ----
+    times, launches, out = {}, {}, {}
+
+    def counted(label, fn):
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        out[label] = fn()
+        torch.cuda.synchronize()
+        times[label] = time.perf_counter() - t0
+        launches[label] = collections.Counter(fa.LAUNCH_SHAPES)
+    counted("ddim_invert", lambda: pipe.ddim_invert(image, EDIT_SOURCE))
+    traj, clean = out["ddim_invert"]
+    inv, x = traj[-1], traj.permute(0, 1, 4, 2, 3)  # x: the trajectory NCHW
+    counted("ddim_generate", lambda: pipe.ddim_generate([EDIT_SOURCE], latent=inv))
+    counted("pair", lambda: pipe.ddim_generate(pair, latent=inv.expand(2, -1, -1, -1),
+                                               controller=controller))
+    npi = nti.negative_prompt_inversion(pipe, EDIT_SOURCE)
+    counted("npi", lambda: pipe.ddim_generate([EDIT_SOURCE], latent=inv, nti_uncond=npi))
+    counted("nti", lambda: nti.null_text_inversion(
+        pipe, None, EDIT_SOURCE, num_inner_steps=NTI_INNER_STEPS, epsilon=NTI_EPSILON,
+        guidance_scale=DDIM_CFG, trajectory=traj, return_inner_steps=True))
+    per_step, nti_latent, inner = out["nti"]
+    counted("nti_recon", lambda: pipe.ddim_generate([EDIT_SOURCE], latent=nti_latent,
+                                                    nti_uncond=per_step))
+    # --------------------------------------------------------------------
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    # NTI: (2 + k) UNet calls an outer step of k inner iterations, k of them
+    # differentiated (B1 writing lse on the layers that need it, then B3, B4)
+    check(len(inner) == n and all(1 <= k <= NTI_INNER_STEPS for k in inner),
+          f"NTI inner iterations {inner}")
+    total_inner = sum(inner)
+    want["nti"] = {1: nti_launches(2 * n + total_inner, total_inner)}
+    for label, by_batch in want.items():
+        expected = sum(by_batch.values(), collections.Counter())
+        totals = {name: sum(c for k, c in launches[label].items() if k[0] == name)
+                  for name in fa.KERNELS if any(k[0] == name for k in launches[label])}
+        print(f"  {label}: launches {totals}")
+        check(launches[label] == expected,
+              f"{label} launches {dict(launches[label])} != {dict(expected)}")
+    print(f"  launches derived from UNetConfig.sd15(), the {n}-step grid, the controller spec and "
+          f"NTI's inner iterations ({total_inner} in all, {min(inner)}-{max(inner)} a step; one "
+          f"host sync each) and launched: exact")
+
+    check(tuple(traj.shape) == (n + 1, 1, side, side, 4) and torch.equal(traj[0], clean),
+          f"DDIM trajectory {tuple(traj.shape)}, row 0 the clean latent")
+    for label, b in (("ddim_generate", 1), ("pair", 2), ("npi", 1), ("nti_recon", 1)):
+        images, lat = out[label]
+        check(tuple(images.shape) == (b, 8 * side, 8 * side, 3) and tuple(lat.shape) == (b, side, side, 4),
+              f"{label}: images {tuple(images.shape)}, latents {tuple(lat.shape)}")
+        check(bool(torch.isfinite(images).all()) and bool(torch.isfinite(lat).all()),
+              f"{label}: not finite")
+        check(0.0 <= images.min().item() and images.max().item() <= 1.0, f"{label}: images outside [0, 1]")
+    check(tuple(per_step.shape) == (n, 1, 77, cfg.cross_attention_dim)
+          and bool(torch.isfinite(per_step).all()), f"NTI embeddings {tuple(per_step.shape)}")
+    check(torch.equal(pipe.ddim_generate([EDIT_SOURCE], latent=inv)[0], out["ddim_generate"][0]),
+          "the same latent gave a different DDIM generate")
+    recon = {label: ((out[label][1] - clean).norm() / clean.norm()).item()
+             for label in ("ddim_generate", "npi", "nti_recon")}
+    print(f"  same latent -> identical DDIM generate: ok; reconstruction of the clean latent, "
+          f"relative L2 (not gated): DDIM at CFG {DDIM_CFG} {recon['ddim_generate']:.3e}, NPI "
+          f"{recon['npi']:.3e}, NTI {recon['nti_recon']:.3e}")
+
+    # NTI's gradient through the kernels (B1 with lse, B3, B4) against the
+    # same gradient through materialised attention, at the first outer step
+    def identity_hook(probs, meta: AttnMeta):
+        return probs
+
+    def nti_step_at(i):
+        """Outer step i's timestep and cond prediction, on the inversion's
+        latents."""
+        t = int(pipe.grid.ddim_timesteps[::-1][i])
+        with torch.no_grad():
+            return t, nm(x[n - i], t, ctx_c, None)
+
+    def nti_grad(i, t, cond_noise, hook=None):
+        u = ctx_u.to(torch.float32, copy=True).requires_grad_(True)
+        loss = nti.nti_loss(nm, u, cond_noise, x[n - i], x[n - i - 1], t, pipe.schedule, step_ratio,
+                            DDIM_CFG, hook=hook)
+        return torch.autograd.grad(loss, u)[0]
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm()).item()
+    first, mid = nti_step_at(0), nti_step_at(n // 2)
+    fa.reset_launch_counts()
+    grad_k = nti_grad(0, *first)
+    torch.cuda.synchronize()
+    grad_launches = collections.Counter(fa.LAUNCH_SHAPES)
+    grad_p = nti_grad(0, *first, hook=identity_hook)
+    torch.cuda.synchronize()
+    check(grad_launches == nti_launches(1, 1), f"NTI gradient launches {dict(grad_launches)}")
+    check(collections.Counter(fa.LAUNCH_SHAPES) == grad_launches,
+          "the materialised path launched a kernel")
+    rel = rel_l2(grad_k, grad_p)
+    rel_mid = rel_l2(nti_grad(n // 2, *mid), nti_grad(n // 2, *mid, hook=identity_hook))
+    print(f"  NTI gradient d loss / d uncond ({grad_k.numel()} entries) at t=999, kernel path "
+          f"(B1 + lse, B3, B4) vs materialised path: relative L2 {rel:.3e} (tol {UNET_REL_TOL}); "
+          f"|grad| {grad_p.norm().item():.3e}; at t={mid[0]} (not gated) {rel_mid:.3e}")
+    check(math.isfinite(rel) and rel <= UNET_REL_TOL and grad_p.norm().item() > 0,
+          f"NTI gradient off by {rel}")
+
+    # times: one teacher call at the CFG batch, one NTI inner iteration
+    x2 = x[-1].expand(2, -1, -1, -1)
+    ctx2 = torch.cat([ctx_u, ctx_c])
+    with torch.inference_mode():
+        unet_ms = cuda_ms(lambda: teacher(x2, 999, ctx2), per_loop=1)
+    iteration_ms = cuda_ms(lambda: nti_grad(0, *first), per_loop=1, loops=3, warmup=1)
+
+    # a tiny bundle on the card (bf16, kernels) against the same weights in
+    # fp32 on the CPU: every UNet call of ddim_invert, ddim_generate and the
+    # controlled pair teacher-forced, the pair's LocalBlend steps too; NTI
+    # teacher-forced per outer step (`forced_nti_errors`)
+    unet_cfg, clip_cfg, vae_cfg = tiny_configs()
+    cfgs = dict(unet_cfg=unet_cfg, clip_cfg=clip_cfg, vae_cfg=vae_cfg, latent_size=(16, 16))
+    cpu_pipe = InvertibleCD.sd15(device="cpu", dtype=torch.float32, seed=7, lora_rank=64,
+                                 tokenizer=HashTokenizer(clip_cfg.vocab_size), **cfgs)
+    params = {name: m.state_dict() for name, m in (
+        ("teacher", cpu_pipe.unets["teacher"]), ("text", cpu_pipe.text_encoder), ("vae", cpu_pipe.vae))}
+    gpu_pipe = InvertibleCD.sd15(params=params, device="cuda", dtype=torch.bfloat16,
+                                 tokenizer=cpu_pipe.tokenizer, **cfgs)
+    tiny_image = np.random.default_rng(43).integers(0, 256, (32, 32, 3), dtype=np.uint8)
+    tiny_controller = make_controller(pair, cpu_pipe.tokenizer, n, **EDIT_CONTROLLER)
+    errs = {}
+    errs["ddim_invert"], (tiny_traj, _) = forced_ddim_errors(
+        cpu_pipe, gpu_pipe, lambda: cpu_pipe.ddim_invert(tiny_image, EDIT_SOURCE))
+    tiny_inv = tiny_traj[-1]
+    errs["ddim_generate"], _ = forced_ddim_errors(
+        cpu_pipe, gpu_pipe, lambda: cpu_pipe.ddim_generate([EDIT_SOURCE], latent=tiny_inv))
+    errs["pair"], _ = forced_ddim_errors(
+        cpu_pipe, gpu_pipe, lambda: cpu_pipe.ddim_generate(
+            pair, latent=tiny_inv.expand(2, -1, -1, -1), controller=tiny_controller), tiny_controller)
+    grid = make_solver_grid(n_steps=TINY_NTI_GRID)
+    nti_errs = forced_nti_errors(*(dataclasses.replace(p, grid=grid) for p in (cpu_pipe, gpu_pipe)),
+                                 tiny_image)
+    got = gpu_pipe.ddim_generate(pair, latent=tiny_inv.expand(2, -1, -1, -1), controller=tiny_controller)
+    check(all(bool(torch.isfinite(t).all()) for t in got), "tiny DDIM pair on the card not finite")
+
+    def worst(values):
+        return f"{max(values):.1e} (of {len(values)})"
+    print(f"  tiny bundle, card bf16 vs CPU fp32, teacher-forced, relative L2 (tol {UNET_REL_TOL}): "
+          f"UNet calls' epsilon: ddim_invert {worst(errs['ddim_invert']['unet'])}, ddim_generate "
+          f"{worst(errs['ddim_generate']['unet'])}, pair {worst(errs['pair']['unet'])}; the pair's "
+          f"LocalBlend maps {worst(errs['pair']['maps'])}; NTI ({TINY_NTI_GRID} steps, "
+          f"{TINY_NTI_INNER} inner iterations each) first gradients {worst(nti_errs['gradient'])}, "
+          f"embeddings {worst(nti_errs['embedding'])}; not gated: blended latents "
+          f"{worst(errs['pair']['blend'])} ({sum(e > UNET_REL_TOL for e in errs['pair']['blend'])} "
+          f"steps above tol), NTI's next latents {worst(nti_errs['latent'])} (CFG {DDIM_CFG} "
+          f"scales the two predictions' rounding), the embeddings' change "
+          f"{worst(nti_errs['change'])} (Adam's first update is the gradient's sign)")
+    for label in ("ddim_invert", "ddim_generate", "pair"):
+        check(len(errs[label]["unet"]) == n and max(errs[label]["unet"]) <= UNET_REL_TOL,
+              f"tiny {label} UNet calls off: {errs[label]['unet']}")
+    check(len(errs["pair"]["maps"]) == n and max(errs["pair"]["maps"]) <= UNET_REL_TOL,
+          f"tiny pair LocalBlend maps off: {errs['pair']['maps']}")
+    check(len(nti_errs["embedding"]) == TINY_NTI_GRID
+          and max(nti_errs["gradient"] + nti_errs["embedding"]) <= UNET_REL_TOL,
+          f"tiny NTI off: {nti_errs}")
+
+    print(f"  ddim_invert (batch 1, {n} steps, CFG batch 2): {times['ddim_invert'] * 1e3:.1f} ms; "
+          f"ddim_generate: {times['ddim_generate'] * 1e3:.1f} ms; controlled pair (CFG batch 4): "
+          f"{times['pair'] * 1e3:.1f} ms; NPI reconstruction {times['npi'] * 1e3:.1f} ms; NTI "
+          f"({NTI_INNER_STEPS} inner iterations at most): {times['nti'] * 1e3:.1f} ms "
+          f"({times['nti'] * 1e3 / total_inner:.1f} ms an inner iteration on average, everything "
+          f"included), its reconstruction {times['nti_recon'] * 1e3:.1f} ms; peak memory "
+          f"{peak_gb:.2f} GiB ({card})")
+    print(f"  teacher UNet call at batch 2: {unet_ms:.2f} ms; one NTI inner iteration (batch-1 "
+          f"forward + backward to the embedding): {iteration_ms:.2f} ms ({card})")
+    trace_run(f"ddim_generate, {n} steps", lambda: pipe.ddim_generate([EDIT_SOURCE], latent=inv))
+    by_batch = collections.defaultdict(collections.Counter)
+    for runs in want.values():
+        for b, counter in runs.items():
+            by_batch[b] += counter
+    return by_batch
+
+
+def unet_launches_per_call(cfg, latent: int):
+    """Kernel launches per (kernel, Sq, Sk, d) of one UNet call at a latent
+    side of `latent`, derived from the config: at each level with
     cross-attention, (layers_per_block down + layers_per_block + 1 up)
-    transformers of depth transformer_depth[level], plus the mid block's at
-    the last level; each block one self layer (Sk = Sq) and one cross layer
-    (Sk = 77) at (latent / 2^level)^2 tokens, head dim channels / heads."""
+    transformers of depth transformer_depth[level], and the mid block's
+    transformer of depth transformer_depth[-1] at the last level; each block
+    one self layer (Sk = Sq) and one cross layer (Sk = 77) at (latent /
+    2^level)^2 tokens, head dim channels / heads."""
     per_call = collections.Counter()
     last = len(cfg.block_out_channels) - 1
     for level, channels in enumerate(cfg.block_out_channels):
-        if not cfg.cross_attn_blocks[level]:
-            continue
-        tokens = (latent // 2 ** level) ** 2
-        blocks = (2 * cfg.layers_per_block + 1) * cfg.transformer_depth[level]
+        blocks = (2 * cfg.layers_per_block + 1) * cfg.transformer_depth[level] \
+            if cfg.cross_attn_blocks[level] else 0
         if level == last:
             blocks += cfg.transformer_depth[-1]
+        tokens = (latent // 2 ** level) ** 2
         for sk in (tokens, 77):
-            per_call[("flash_fwd", tokens, sk, channels // cfg.num_heads[level])] += blocks
+            if blocks:
+                per_call[("flash_fwd", tokens, sk, channels // cfg.num_heads[level])] += blocks
     return per_call
+
+
+def first_self_layer(cfg, latent: int):
+    """The (kernel, Sq, Sk, d) of the UNet's first attention layer: the self
+    layer of the first transformer block at the first level with
+    cross-attention, which runs before any cross layer."""
+    level = list(cfg.cross_attn_blocks).index(True)
+    tokens = (latent // 2 ** level) ** 2
+    return ("flash_fwd", tokens, tokens, cfg.block_out_channels[level] // cfg.num_heads[level])
 
 
 def forced_unet_errors(cpu_pipe, gpu_pipe, run):
@@ -1072,7 +1469,7 @@ def phase_sdxl(card: str):
     cfg = pipe.unets["reverse"].cfg
     n_hops = pipe.grid.num_reverse_steps
     side = pipe.latent_size[0]
-    per_call = sdxl_launches_per_call(cfg, side)
+    per_call = unet_launches_per_call(cfg, side)
     check(sum(per_call.values()) == count_attention_layers(cfg) == 140,
           f"{sum(per_call.values())} attention layers per call")
     vae_key = ("flash_fwd_streamed_f32", side * side, side * side, pipe.vae.cfg.block_out_channels[-1])
@@ -1534,6 +1931,7 @@ def main(argv=None) -> int:
             return 0
         pipe, generate_launches = phase_main_path(card)
         edit_launches = phase_edit(card, pipe)
+        baseline_launches = phase_baselines(card, pipe)
         sdxl_launches = phase_sdxl(card)
         torch.cuda.empty_cache()  # the SDXL bundle is gone
         train_launches = phase_training(card, pipe)
@@ -1541,15 +1939,18 @@ def main(argv=None) -> int:
         traceback.print_exc()
         return 1
     # launches on the main paths: the generate at the row's batch, the counted
-    # invert (batch 1) and controlled pair (batch 2), SDXL's counted generate
-    # and invert (batch 1) and edited pair (batch 2) with the bf16-VAE
-    # opt-in's decodes, and three train steps (batch 2) for the rows at the
-    # generate's main batch
+    # invert (batch 1) and controlled pair (batch 2), the baselines' runs at
+    # the batch each kernel ran at (NTI's at 1, the CFG-doubled DDIM's at 2,
+    # its controlled pair's at 4, the VAE's at the prompts'), SDXL's counted
+    # generate and invert (batch 1) and edited pair (batch 2) with the
+    # bf16-VAE opt-in's decodes, and three train steps (batch 2) for the rows
+    # at the generate's main batch
     none = collections.Counter()
     for row in rows:
         key = (row["kernel"],) + tuple(row["shape"])
         row["launches"] = (generate_launches.get(row["batch"], none)[key]
                            + edit_launches.get(row["batch"], none)[key]
+                           + baseline_launches.get(row["batch"], none)[key]
                            + sdxl_launches.get(row["batch"], none)[key]
                            + (train_launches[key] if row["batch"] == BATCH else 0))
     # B5 runs on the harness path alone; its rows carry that path's launches

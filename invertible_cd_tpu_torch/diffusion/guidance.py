@@ -48,3 +48,22 @@ def guidance_scale_embedding(w, embedding_dim: int = 512, dtype=torch.float32):
     if embedding_dim % 2 == 1:
         emb = torch.nn.functional.pad(emb, (0, 1))
     return emb
+
+
+def cfg_combine(
+    noise_pred_text,
+    noise_pred_uncond,
+    t,
+    guidance_scale,
+    dynamic_guidance: bool = False,
+    tau1: float = 0.4,
+    tau2: float = 0.6,
+):
+    """Classic CFG mix, optionally with the dynamic `linear_schedule`
+    (JAX `guidance.py:63-78`)."""
+    if dynamic_guidance:
+        scale = linear_schedule(t, guidance_scale, tau1=tau1, tau2=tau2)
+    else:
+        scale = torch.as_tensor(guidance_scale, dtype=torch.float32)
+    scale = scale.to(noise_pred_text.device)
+    return noise_pred_uncond + scale * (noise_pred_text - noise_pred_uncond)

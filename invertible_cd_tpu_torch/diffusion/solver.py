@@ -1,7 +1,8 @@
 """Multi-boundary consistency solver math and the inference timestep grids.
 
 PyTorch counterpart of `invertible_cd_tpu/diffusion/solver.py`
-(`predicted_origin`, `SolverGrid`, `make_solver_grid`, and for training
+(`predicted_origin`, the DDIM steps `ddim_prev_step` / `ddim_next_step`
+of the 50-step baselines, `SolverGrid`, `make_solver_grid`, and for training
 `TrainSolver`, `make_train_solver`, `parse_endpoints`). The inference grids
 are host numpy ints; the training solver's tables are tensors on one
 device; the hop math is elementwise tensor code.
@@ -14,7 +15,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from .schedule import ddim_timestep_grid, extract
+from .schedule import NoiseSchedule, ddim_timestep_grid, extract
 
 
 def predicted_origin(
@@ -51,6 +52,67 @@ def predicted_origin(
         pred_eps = sigma_t * sample + alpha_t * model_output
         return alpha_s * pred_x0 + sigma_s * pred_eps
     raise ValueError(f"Prediction type {prediction_type} not supported.")
+
+
+# ---------------------------------------------------------------------------
+# One-hop DDIM steps (the 50-step baseline loops)
+# ---------------------------------------------------------------------------
+def ddim_prev_step(
+    model_output: torch.Tensor,
+    timestep,
+    sample: torch.Tensor,
+    schedule: NoiseSchedule,
+    step_ratio: int,
+) -> torch.Tensor:
+    """One reverse DDIM step t -> t - step_ratio (JAX `solver.py:74-92`);
+    below t = 0 the previous alpha-cumprod is `final_alpha_cumprod`.
+    `timestep`: a python int or a (B,) / scalar tensor."""
+    timestep = torch.as_tensor(timestep, device=sample.device)
+    prev_t = timestep - step_ratio
+    acp = schedule.alphas_cumprod
+    alpha_prod_t = extract(acp, timestep, sample.ndim)
+    alpha_prod_prev = torch.where(
+        _ge0(prev_t, sample.ndim),
+        extract(acp, prev_t.clamp_min(0), sample.ndim),
+        schedule.final_alpha_cumprod,
+    )
+    beta_prod_t = 1.0 - alpha_prod_t
+    pred_x0 = (sample - beta_prod_t**0.5 * model_output) / alpha_prod_t**0.5
+    direction = (1.0 - alpha_prod_prev) ** 0.5 * model_output
+    return alpha_prod_prev**0.5 * pred_x0 + direction
+
+
+def ddim_next_step(
+    model_output: torch.Tensor,
+    timestep,
+    sample: torch.Tensor,
+    schedule: NoiseSchedule,
+    step_ratio: int,
+) -> torch.Tensor:
+    """One forward (inversion) DDIM step to `timestep` from
+    min(timestep - step_ratio, T - 1) (JAX `solver.py:95-115`); below 0 the
+    current alpha-cumprod is `final_alpha_cumprod`."""
+    timestep = torch.as_tensor(timestep, device=sample.device)
+    cur_t = (timestep - step_ratio).clamp_max(schedule.num_train_timesteps - 1)
+    acp = schedule.alphas_cumprod
+    alpha_prod_t = torch.where(
+        _ge0(cur_t, sample.ndim),
+        extract(acp, cur_t.clamp_min(0), sample.ndim),
+        schedule.final_alpha_cumprod,
+    )
+    alpha_prod_next = extract(acp, timestep, sample.ndim)
+    beta_prod_t = 1.0 - alpha_prod_t
+    next_x0 = (sample - beta_prod_t**0.5 * model_output) / alpha_prod_t**0.5
+    direction = (1.0 - alpha_prod_next) ** 0.5 * model_output
+    return alpha_prod_next**0.5 * next_x0 + direction
+
+
+def _ge0(t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """t >= 0, shaped to broadcast over an `ndim`-D sample."""
+    cond = t >= 0
+    if cond.ndim == 0:
+        return cond
+    return cond.reshape(cond.shape[0], *((1,) * (ndim - 1)))
 
 
 @dataclasses.dataclass(frozen=True)

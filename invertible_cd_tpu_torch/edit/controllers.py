@@ -1,7 +1,7 @@
 """Prompt-to-prompt attention controllers: pure functions + explicit state.
 
 PyTorch counterpart of `invertible_cd_tpu/edit/controllers.py` for the
-unrolled few-step samplers:
+few-step samplers and the 50-step DDIM loop, both run step by step:
 
   * `ControllerSpec` (JAX :54) holds the static structure: controller
     kind, replace-step ranges, blend setup. The attention routing reads it
@@ -12,7 +12,12 @@ unrolled few-step samplers:
     to its device once per edit (`ControllerArrays.to`), never per hook call.
   * `ControllerRuntime` (JAX :368) wires both into the sampler's
     `hook_factory` / `step_callback` slots; attention maps recorded for
-    LocalBlend and the store are ordinary tensors.
+    LocalBlend and the store are ordinary tensors. The 50-step DDIM loop
+    keeps the store as a per-layer running sum (`take_step_store`,
+    `add_step_store`, `finalize_store`), as JAX's scan form does; the
+    scan form's traced twins of `step_callback` (`scan_step_callback`,
+    `stacked_step_maps`) have no counterpart, since the eager loop calls
+    `step_callback` itself at every step.
 
 Semantics follow the reference controllers (transcribed in
 `tests/_torch_p2p_ref.py`): AttentionStore (maps <= 32^2 tokens),
@@ -345,6 +350,26 @@ class ControllerRuntime:
 
         hook.applies = applies
         return hook
+
+    # -- the step-summed store of the 50-step DDIM loop -----------------------
+    def take_step_store(self) -> Dict[str, List[torch.Tensor]]:
+        """Clear and return the maps the hooks stored during one step, as
+        {store_key: [fp32 map per layer, in call order]} (JAX :448-465):
+        the running sum's seed at step 0 and its increment after."""
+        out = {k: [m.float() for m in v] for k, v in self.store.items() if v}
+        self.store = {}
+        return out
+
+    def add_step_store(self, sums: Dict[str, List[torch.Tensor]]) -> Dict[str, List[torch.Tensor]]:
+        """`sums` plus this step's maps (every hooked layer fires every step,
+        in the same order; JAX :467-472)."""
+        step = self.take_step_store()
+        return {k: [a + b for a, b in zip(sums[k], step[k])] for k in sums}
+
+    def finalize_store(self, sums: Dict[str, List[torch.Tensor]], num_steps: int) -> None:
+        """Store the step-averaged map of each layer (JAX :474-480); the
+        `aggregate_attention` of it equals that of the per-step store."""
+        self.store = {k: [v / num_steps for v in vs] for k, vs in sums.items()}
 
     def step_callback(self, x_t: torch.Tensor, step: int) -> torch.Tensor:
         """After hop `step` (JAX :507): SpatialReplace copies the base row

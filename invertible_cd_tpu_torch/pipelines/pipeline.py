@@ -7,14 +7,17 @@ consistency paths:
   invert():    VAE encode -> 4 forward consistency hops (the forward student)
   edit():      invert() under the source prompt, then generate() on the
                [source, target] pair with a prompt-to-prompt controller
+  ddim_generate(), ddim_invert():  the 50-step DDIM baselines with the
+               teacher (CFG; per-step null-text contexts from `nti.py`)
 
 Public functions keep the JAX package's layouts: latents (B, 64, 64, 4)
 NHWC in and out, images (B, 512, 512, 3) float32 in [0, 1] NHWC out. Inside,
 the models run NCHW. SDXL's pipeline (`pipelines/sdxl.py`) subclasses this
-one; the DDIM baselines come in a later slice.
+one.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -49,8 +52,8 @@ class InvertibleCD:
     """UNet student(s) + CLIP text encoder + VAE on one device.
 
     `unets` maps a model name ("reverse" and "forward", the students;
-    "teacher" when given) to its UNet, with any LoRA already merged into the
-    weights."""
+    "teacher", the base the DDIM baselines run) to its UNet, with any LoRA
+    already merged into the weights."""
 
     unets: Dict[str, UNet2DCondition]
     text_encoder: CLIPTextModel
@@ -82,7 +85,8 @@ class InvertibleCD:
         `build_modules`, from `params` ("text", "vae" and one or more of
         "teacher", "reverse", "forward"; diffusers / transformers keys) or,
         without it, from seeded full-width synthetic weights with seeded
-        rank-`lora_rank` LoRAs merged into the two students."""
+        rank-`lora_rank` LoRAs merged into the two students (the teacher
+        is the unmerged base)."""
         device = resolve_device(device)
         unet_cfg = unet_cfg or UNetConfig.sd15()
         vae_cfg = vae_cfg or VAEConfig.sd()
@@ -326,6 +330,77 @@ class InvertibleCD:
             [source_prompt, target_prompt], latent=latent, guidance=g, controller=controller,
         )
 
+    @torch.no_grad()
+    def ddim_generate(
+        self,
+        prompts: Sequence[str],
+        generator: Optional[torch.Generator] = None,
+        latent: Optional[torch.Tensor] = None,
+        guidance: Optional[S.GuidanceConfig] = None,
+        controller: Optional[Tuple[ControllerSpec, ControllerArrays]] = None,
+        nti_uncond=None,
+        model: str = "teacher",
+    ):
+        """The 50-step DDIM baseline generation (JAX `pipeline.py:432-461`):
+        `grid.n_steps` DDIM steps of `model` (default the teacher) under
+        CFG 7.5 without the w-embedding, then the VAE decode.
+
+        `latent` and `generator` as in `generate`; `controller` a (spec,
+        arrays) pair made with `num_steps=grid.n_steps`; `nti_uncond` the
+        (n_steps, B, 77, D) per-step uncond contexts of
+        `pipelines.nti.null_text_inversion` or `negative_prompt_inversion`.
+        Gradient-free, not inference mode, so that its results can enter an
+        optimisation.
+
+        Returns (images (B, H, W, 3) float32 in [0, 1], final latents (B,
+        h, w, 4) NHWC); with a `store_all` controller the store
+        ({store_key: [one step-averaged (B, H, Sq, Sk) map per hooked
+        layer]}) comes third."""
+        if isinstance(prompts, str):
+            prompts = [prompts]
+        g = guidance or S.GuidanceConfig(guidance_scale=7.5, w_embed_dim=0)
+        ctx_u, ctx_c, added = self._encode_all(prompts)
+        if latent is None:
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            latent = self.init_latent(generator, len(prompts))
+        if nti_uncond is not None:
+            nti_uncond = torch.as_tensor(nti_uncond, device=self.device).to(ctx_c.dtype)
+        spec, arrays = controller if controller else (None, None)
+        rt = ControllerRuntime(spec, arrays.to(self.device)) if spec is not None else None
+        lat = S.ddim_loop(
+            self._noise_model(self.unets[model], added), self._as_nchw(latent),
+            ctx_u, ctx_c, self.grid, self.schedule, g, is_forward=False,
+            per_step_uncond=nti_uncond,
+            hook_factory=rt.hook_factory if rt else None,
+            step_callback=rt.step_callback if rt else None,
+        )
+        images = self._decode_latents(lat)
+        lat = lat.permute(0, 2, 3, 1).contiguous()
+        if spec is not None and spec.store_all:
+            return images, lat, rt.store
+        return images, lat
+
+    @torch.no_grad()
+    def ddim_invert(self, image, prompt="", guidance: Optional[S.GuidanceConfig] = None):
+        """The 50-step DDIM inversion of a real image with the teacher (JAX
+        `pipeline.py:463-482`), CFG 1.0 by default. `image` and `prompt` as
+        in `invert`.
+
+        Returns (the (n_steps+1, B, h, w, 4) NHWC trajectory, t ascending:
+        row 0 the clean latent, the last row the inverted latent that NTI
+        and `ddim_generate` start from; the clean latent (B, h, w, 4))."""
+        pixels = to_model_pixels(image).to(self.device)
+        g = guidance or S.GuidanceConfig(guidance_scale=1.0, w_embed_dim=0)
+        prompts = [prompt] * pixels.shape[0] if isinstance(prompt, str) else list(prompt)
+        ctx_u, ctx_c, added = self._encode_all(prompts)
+        latent = self._encode_image(pixels)
+        traj = S.ddim_loop(
+            self._noise_model(self.unets["teacher"], added), latent, ctx_u, ctx_c,
+            self.grid, self.schedule, g, is_forward=True, return_all=True,
+        )
+        return traj, latent.permute(0, 2, 3, 1).contiguous()
+
     @torch.inference_mode()
     def decode(self, latents) -> np.ndarray:
         """(B, h, w, 4) NHWC scaled latents -> images (B, H, W, 3) float32
@@ -361,7 +436,8 @@ def build_modules(
     `models.layers.fan_in_init_`): one UNet base, the text encoders in the
     order given, the VAE, then a seeded rank-`lora_rank` LoRA for the
     "reverse" student and, drawn after it, one for the "forward" student,
-    each merged into its own copy of the base by `merge_lora`."""
+    each merged into its own copy of the base by `merge_lora`. The
+    "teacher" is a copy of the base taken before the merges (no draws)."""
     with torch.device(device if params is None else "meta"):
         texts = {name: CLIPTextModel(cfg) for name, cfg in text_cfgs.items()}
         vae = AutoencoderKL(vae_cfg)
@@ -372,6 +448,7 @@ def build_modules(
         gen = torch.Generator(device=device).manual_seed(seed)
         for module in (unets["reverse"], *texts.values(), vae):
             fan_in_init_(module, gen)
+        unets = {"teacher": copy.deepcopy(unets["reverse"]), **unets}
         base = unets["reverse"].state_dict()  # the reverse UNet's own tensors
         loras = {name: seeded_lora(base, gen, lora_rank) for name in ("reverse", "forward")}
         # the forward student first: the reverse merge writes into `base`

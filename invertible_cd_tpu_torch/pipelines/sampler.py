@@ -2,8 +2,9 @@
 
 PyTorch counterpart of `invertible_cd_tpu/pipelines/sampler.py`
 (`GuidanceConfig`, `w_embedding_for`, `predict_noise`, `cons_generation`,
-`cons_inversion`). Timesteps, boundaries and guidance values are host-side
-constants of the static grid; w-conditioned models run the cond rows only.
+`cons_inversion`, and the 50-step DDIM baseline loop `ddim_loop`).
+Timesteps, boundaries and guidance values are host-side constants of the
+static grid; w-conditioned models run the cond rows only.
 
 The `NoiseModel` callable abstracts the denoiser:
     noise_model(latent, t, context, w_embedding, hook) -> epsilon
@@ -24,7 +25,7 @@ import torch
 
 from ..diffusion.guidance import guidance_scale_embedding
 from ..diffusion.schedule import NoiseSchedule, add_noise
-from ..diffusion.solver import SolverGrid, predicted_origin
+from ..diffusion.solver import SolverGrid, ddim_next_step, ddim_prev_step, predicted_origin
 
 NoiseModel = Callable  # (latent, t, context, w_embedding, hook) -> eps
 AttnHookFactory = Callable  # (step_index) -> Optional[hook]
@@ -215,4 +216,54 @@ def cons_inversion(
         latent = _hop(eps, latent, t, s, schedule)
         if return_all:
             trajectory.append(latent)
+    return _nhwc_stack(trajectory) if return_all else latent
+
+
+def ddim_loop(
+    noise_model: NoiseModel,
+    latent: torch.Tensor,
+    context_uncond: torch.Tensor,
+    context_cond: torch.Tensor,
+    grid: SolverGrid,
+    schedule: NoiseSchedule,
+    g: GuidanceConfig,
+    is_forward: bool,
+    per_step_uncond: Optional[torch.Tensor] = None,
+    hook_factory: Optional[AttnHookFactory] = None,
+    step_callback: Optional[StepCallback] = None,
+    return_all: bool = False,
+) -> torch.Tensor:
+    """The DDIM baseline loop over the grid's `n_steps` timesteps in either
+    direction (JAX `sampler.py:267-491`): `is_forward=True` inverts (t
+    ascending), False generates (t descending). `per_step_uncond` (n, B,
+    77, D) gives step i its own uncond context (null-text embeddings).
+
+    One eager loop gives the results of JAX's three forms (unrolled, scan,
+    controller-hooked scan). A CFG model runs the doubled batch at every
+    scale, keeping the cond half at scale <= 1, as JAX's do. As in JAX's
+    hooked scan form, a `store_all` controller over more than two steps
+    keeps one step-averaged map per hooked layer instead of one per (step,
+    layer): the runtime behind `hook_factory` sums each step's maps.
+    Returns the final NCHW latent, or with `return_all=True` the NHWC
+    trajectory (n+1, B, H, W, C), row i the input of step i."""
+    timesteps = grid.ddim_timesteps if is_forward else grid.ddim_timesteps[::-1]
+    step = ddim_next_step if is_forward else ddim_prev_step
+    step_ratio = schedule.num_train_timesteps // grid.n_steps
+    rt = getattr(hook_factory, "__self__", None)
+    sum_store = rt is not None and rt.spec.store_all and len(timesteps) > 2
+    sums = None
+    trajectory = [latent]
+    for i, t in enumerate(timesteps.tolist()):
+        cu = context_uncond if per_step_uncond is None else per_step_uncond[i]
+        hook = hook_factory(i) if hook_factory is not None else None
+        eps = predict_noise(noise_model, latent, t, cu, context_cond, g, hook)
+        latent = step(eps, t, latent, schedule, step_ratio)
+        if step_callback is not None:
+            latent = step_callback(latent, i)
+        if sum_store:
+            sums = rt.take_step_store() if sums is None else rt.add_step_store(sums)
+        if return_all:
+            trajectory.append(latent)
+    if sum_store:
+        rt.finalize_store(sums, len(timesteps))
     return _nhwc_stack(trajectory) if return_all else latent

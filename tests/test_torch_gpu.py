@@ -224,6 +224,8 @@ BACKWARD_SHAPES = [
     (2, 300, 300, 4, 72),     # head dim padded 72 -> 80
     (1, 512, 77, 1, 80),      # batch x heads = 1, split
     (1, 300, 400, 1, 40),     # batch x heads = 1, key tiles
+] + [  # NTI's: the main path's eight shapes at batch 1
+    (1, sq, sk, 8, d) for sq, d in ((4096, 40), (1024, 80), (256, 160), (64, 160)) for sk in (sq, 77)
 ]
 
 
@@ -429,3 +431,76 @@ def test_hooked_unet_at_full_width_matches_the_unhooked_one(cuda):
     rel = ((hooked - plain).norm() / plain.norm()).item()
     assert torch.isfinite(hooked).all() and rel <= 5e-2, f"relative L2 {rel:.3e}"
 
+
+
+def test_tiny_ddim_and_nti_on_the_card_match_the_cpu(cuda):
+    """A seeded tiny bundle's DDIM baselines, bf16 on the card, against the
+    same weights in fp32 on the CPU, teacher-forced on the CPU's 50-step
+    DDIM inversion: at six of its steps the CFG-doubled teacher call (B1)
+    and, on a 4-step grid, NTI's first gradient with respect to the uncond
+    embedding (B1 with its logsumexp, then B3 and B4 on every layer after
+    the first cross layer), each within 5e-2 relative L2; then NTI and its
+    reconstruction run end to end on the card, finite."""
+    import dataclasses
+
+    import numpy as np
+
+    from invertible_cd_tpu_torch.diffusion.solver import make_solver_grid
+    from invertible_cd_tpu_torch.models.unet2d import count_attention_layers
+    from invertible_cd_tpu_torch.pipelines import nti
+    from invertible_cd_tpu_torch.pipelines.pipeline import InvertibleCD
+    from invertible_cd_tpu_torch.testing import tiny_configs
+    from invertible_cd_tpu_torch.utils.tokenizer import HashTokenizer
+
+    unet_cfg, clip_cfg, vae_cfg = tiny_configs()
+    cfgs = dict(unet_cfg=unet_cfg, clip_cfg=clip_cfg, vae_cfg=vae_cfg, latent_size=(16, 16))
+    cpu_pipe = InvertibleCD.sd15(device="cpu", dtype=torch.float32, seed=7, lora_rank=64,
+                                 tokenizer=HashTokenizer(clip_cfg.vocab_size), **cfgs)
+    params = {name: m.state_dict() for name, m in (
+        ("teacher", cpu_pipe.unets["teacher"]), ("text", cpu_pipe.text_encoder), ("vae", cpu_pipe.vae))}
+    card_pipe = InvertibleCD.sd15(params=params, device=cuda, dtype=torch.bfloat16,
+                                  tokenizer=cpu_pipe.tokenizer, **cfgs)
+    image = np.random.default_rng(43).integers(0, 256, (32, 32, 3), dtype=np.uint8)
+    prompt = "a photo of a corgi on the beach"
+    traj, _ = cpu_pipe.ddim_invert(image, prompt)
+    x = traj.permute(0, 1, 4, 2, 3)
+    ctx_u, ctx_c = (c.clone() for c in cpu_pipe.encode_prompt([prompt]))
+
+    def rel(got, want):
+        return ((got.float().cpu() - want).norm() / want.norm()).item()
+    nms = [p._noise_model(p.unets["teacher"]) for p in (cpu_pipe, card_pipe)]
+    ctx2 = torch.cat([ctx_u, ctx_c])
+    for i in (0, 1, 10, 25, 48, 49):
+        t = int(cpu_pipe.grid.ddim_timesteps[i])
+        latent2 = torch.cat([x[i], x[i]])
+        with torch.no_grad():
+            want = nms[0](latent2, t, ctx2, None)
+            got = nms[1](latent2.to(cuda), t, ctx2.to(cuda), None)
+        assert rel(got, want) <= 5e-2, f"step {i}: teacher call off by {rel(got, want):.3e}"
+
+    def first_gradient(pipe, nm, i, *inputs):
+        u, cur, prev, ctx = inputs
+        t = int(pipe.grid.ddim_timesteps[::-1][i])
+        with torch.no_grad():
+            cond = nm(cur, t, ctx, None)
+        u = u.to(torch.float32, copy=True).requires_grad_(True)
+        loss = nti.nti_loss(nm, u, cond, cur, prev, t, pipe.schedule, 1000 // pipe.grid.n_steps, 7.5)
+        return torch.autograd.grad(loss, u)[0]
+    grid = make_solver_grid(n_steps=4)
+    cpu4, card4 = (dataclasses.replace(p, grid=grid) for p in (cpu_pipe, card_pipe))
+    traj4, _ = cpu4.ddim_invert(image, prompt)
+    x4 = traj4.permute(0, 1, 4, 2, 3)
+    grad_layers = count_attention_layers(unet_cfg) - 1
+    for i in range(4):
+        inputs = (ctx_u, x4[4 - i], x4[3 - i], ctx_c)
+        want = first_gradient(cpu4, nms[0], i, *inputs)
+        fa.reset_launch_counts()
+        got = first_gradient(card4, nms[1], i, *(a.to(cuda) for a in inputs))
+        torch.cuda.synchronize()
+        assert fa.launches("flash_bwd_dq") == fa.launches("flash_bwd_dkdv") == grad_layers
+        assert rel(got, want) <= 5e-2, f"NTI step {i}: gradient off by {rel(got, want):.3e}"
+
+    per_step, inverted = nti.null_text_inversion(card4, image, prompt, num_inner_steps=2)
+    images, latents = card4.ddim_generate([prompt], latent=inverted, nti_uncond=per_step)
+    assert tuple(per_step.shape) == (4, 1, 77, clip_cfg.hidden_size)
+    assert all(bool(torch.isfinite(t).all()) for t in (per_step, inverted, images, latents))

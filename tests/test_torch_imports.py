@@ -28,7 +28,7 @@ def test_port_modules_are_all_found():
                  "training.losses", "training.trainer", "training.checkpoint",
                  "cli.train_icd", "ops.flash_variant", "cli.exp_softmax",
                  "edit", "edit.aligner", "edit.controllers", "pipelines.loading",
-                 "pipelines.sampler", "pipelines.sdxl"):
+                 "pipelines.sampler", "pipelines.sdxl", "pipelines.nti"):
         assert f"invertible_cd_tpu_torch.{name}" in mods
 
 
