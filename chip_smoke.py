@@ -54,6 +54,34 @@ nothing of JAX. Phases, each of which must pass:
              and every UNet call and LocalBlend step teacher-forced);
              times invert, the
              controlled generate and edit, and traces one edit;
+  4e. serve: on the same bundle, the serving layer and the CLIs users
+             call. `BatchingExecutor(batch_sizes=(1, 4), max_delay=0.01)`: a
+             lone request, then a burst of eight distinct requests from eight
+             threads (seeds at both ends of int64 among them); checks the
+             stats (one batch of 1, two of 4, none padded), finite images in
+             [0, 1], each served image bit for bit its row of a direct
+             `generate` of its batch at the same size on the executor's
+             latents (and with the batch's rows reversed), exact launches
+             (128 x B1 + 1 x B2 a batch), a cancelled request beside two
+             that are served; prints the lone request against the same
+             request served at batch 4 (not gated) and times the lone
+             request (median of 5) and the burst (requests/s, 3 bursts).
+             `cli.serve.make_server` at one batch size (4) on 127.0.0.1:
+             four concurrent POST /generate over a socket, each PNG equal to
+             the executor's image for its seed, exact launches, GET /healthz,
+             400 for a malformed body, the round trip. The generate CLI in a
+             subprocess (`python -m invertible_cd_tpu_torch.cli.generate
+             --model sd15`, two prompts; its own seeded bundle): exit 0, two
+             512^2 JPEGs and the manifest, the process's and its generate's
+             time. The edit CLI through `main(argv, _pipe=bundle)` on a seeded
+             512^2 JPEG: cons, `--baseline npi`, `--baseline nti
+             --nti_inner_steps 2 --uncond_cache`, and the NTI run again, which
+             must read its cache (no B3/B4, the same edited file); exact
+             launches derived from the spec, the grid and NTI's inner
+             iterations (B3's count over the 31 layers under the gradient);
+             times each run. The executor and the server are shut down, their
+             threads joined, before 4d; one JSON line holds the phase's
+             times, stats and launches with the card's name and power limit;
   4d. baselines: on the same bundle's seeded teacher (the unmerged base),
              the 50-step DDIM baselines: `ddim_invert` of a seeded 512^2
              image (CFG 1.0, run on the doubled batch as JAX does),
@@ -83,8 +111,10 @@ nothing of JAX. Phases, each of which must pass:
              per (kernel, Sq, Sk, d) derived from `UNetConfig.sdxl()` and the
              hop count (140 x B1 a UNet call, B2's fp32 build once per VAE
              encode or decode), the bf16-VAE opt-in's decodes at batch 1 and
-             2 through B2's bf16 build, one full-width UNet call's kernel
-             path against its materialised path, and the tiny XL bundle on
+             2 through B2's bf16 build, one request through
+             `BatchingExecutor(batch_size=1)` equal to `generate` on its
+             latent bit for bit, with its launches, one full-width UNet
+             call's kernel path against its materialised path, and the tiny XL bundle on
              the card against the same weights in fp32 on the CPU (every UNet
              call teacher-forced; the card's tiny VAE takes the bf16 opt-in,
              its d = 32 head going to B1); times generate, invert and edit,
@@ -117,10 +147,14 @@ nothing of JAX. Phases, each of which must pass:
      at its batch, plus, for the batch-4 rows, the three counted train
      steps (batch 2), for the batch-1 rows the counted `invert`, and for
      the batch-2 rows the controlled generate of the counted `edit`; plus
+     phase 4e's counted requests (batch 1: the lone request; batch 4: the
+     burst and the HTTP requests) and edit CLI runs, at the batch each kernel
+     ran at (as the baselines' below; the CLI's `invert` at 1, its pair at 2);
      the baselines' (phase 4d) at the batch each kernel ran at: NTI's B1,
      B3 and B4 at batch 1, the DDIM paths' B1 at batch 2 (the controlled
      pair's at 4), B2 at the prompts' batch; the SDXL rows those of phase
-     4c (batch 1: generate, invert and the bf16 opt-in's decode; batch 2:
+     4c (batch 1: generate, invert, the served request and the bf16 opt-in's
+     decode; batch 2:
      the edited pair and its opt-in decode); B5's rows carry the harness's.
 
 `--kernels-only` runs phases 1-3 and the harness (6) and prints the kernel
@@ -149,6 +183,7 @@ import collections
 import json
 import math
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -1015,6 +1050,385 @@ def phase_edit(card: str, pipe):
     return {1: invert_launches, 2: pair_launches}
 
 
+# the serving phase (4e): the executor's batch sizes and coalescing window, a
+# lone request, and a burst of eight distinct requests, one a thread (seeds at
+# both ends of int64 among them); the generate CLI's two prompts
+SERVE_BATCH_SIZES = (1, 4)
+SERVE_MAX_DELAY = 0.01
+LONE = ("a photo of a corgi on the beach", 7)
+BURST = [
+    ("an astronaut riding a horse on the moon, detailed", 101),
+    ("a watercolor painting of a lighthouse at dawn", -(2**63)),
+    ("a bowl of ramen, studio lighting", 2**63 - 1),
+    ("a red fox in the snow", 3),
+    ("a city street at night, neon lights", 2**40 + 5),
+    ("a sailing boat on a calm lake", -12345),
+    ("a portrait of an old man, oil painting", 77),
+    ("a cup of coffee on a wooden table", 2**31),
+]
+SERVE_LATENCY_RUNS = 5  # lone requests timed one after another (median)
+SERVE_BURST_RUNS = 3    # bursts timed (the first one counted)
+GENERATE_CLI_PROMPTS = ["a photo of a corgi on the beach", "a red fox"]
+
+
+def burst_requests(ex, requests):
+    """Submit `requests` from one thread each, released together. Returns
+    (the images by request, the order in which they were queued, seconds
+    from the release to the last image)."""
+    import threading
+
+    lock, order, futs = threading.Lock(), [], [None] * len(requests)
+    release = threading.Barrier(len(requests) + 1)
+
+    def client(i):
+        release.wait()
+        with lock:  # the queue's order, recorded
+            futs[i] = ex.submit(*requests[i])
+            order.append(i)
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(requests))]
+    for t in threads:
+        t.start()
+    release.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(60)
+    images = [f.result(timeout=600) for f in futs]
+    return images, order, time.perf_counter() - t0
+
+
+def check_images(images, shape, label):
+    import numpy as np
+
+    for img in images:
+        check(img.shape == shape and img.dtype == np.float32 and bool(np.isfinite(img).all())
+              and 0.0 <= img.min() and img.max() <= 1.0,
+              f"{label}: image {img.shape} {img.dtype} not finite or outside [0, 1]")
+
+
+def phase_serve(card: str, pipe):
+    """The serving paths on the generate path's bundle: the executor (a lone
+    request, a burst from eight threads, a cancelled request), the HTTP
+    server over a real socket, the generate CLI in a subprocess as users
+    start it (its own seeded bundle), and the edit CLI's cons, NPI and NTI
+    modes (NTI twice, the second run from its cache). Launch counts are reset
+    just before each counted run and read just after. Returns the launches per
+    (kernel, Sq, Sk, d) by the batch each kernel ran at."""
+    import io
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import invertible_cd_tpu_torch
+    from invertible_cd_tpu_torch.cli import edit as edit_cli
+    from invertible_cd_tpu_torch.cli import serve as serve_cli
+    from invertible_cd_tpu_torch.edit import make_controller
+    from invertible_cd_tpu_torch.ops import flash_attention as fa
+    from invertible_cd_tpu_torch.pipelines.pipeline import to_uint8
+    from invertible_cd_tpu_torch.serving import BatchingExecutor
+    from invertible_cd_tpu_torch.utils.images import encode_png
+
+    cfg, side = pipe.unets["reverse"].cfg, pipe.latent_size[0]
+    n_hops, n = pipe.grid.num_reverse_steps, pipe.grid.n_steps
+    pix = side * 2 ** (len(pipe.vae.cfg.block_out_channels) - 1)
+    shape = (pix, pix, 3)
+    per_call = unet_launches_per_call(cfg, side)
+    vae_key = ("flash_fwd_streamed", side * side, side * side, pipe.vae.cfg.block_out_channels[-1])
+    vae = collections.Counter({vae_key: 1})
+    per_batch = collections.Counter({k: n_hops * c for k, c in per_call.items()}) + vae
+
+    def times(counter, k):
+        return collections.Counter({key: k * c for key, c in counter.items()})
+
+    def totals(counter):
+        return {name: sum(c for key, c in counter.items() if key[0] == name)
+                for name in fa.KERNELS if any(key[0] == name for key in counter)}
+    by_batch = collections.defaultdict(collections.Counter)
+    report = {"phase": "4e serve", "card": card}
+
+    def direct(ex, requests):
+        """`pipe.generate` on the requests at their batch's size, on the
+        executor's latents: the rows the executor must have served."""
+        images, _ = pipe.generate([p for p, _ in requests], latent=ex._latents([s for _, s in requests]),
+                                  guidance=ex.guidance)
+        return images.cpu().numpy()
+
+    # ---- 1. the executor ----
+    print(f"serve: BatchingExecutor(batch_sizes={SERVE_BATCH_SIZES}, max_delay={SERVE_MAX_DELAY}) on "
+          f"the generate path's bundle; {per_batch.total()} launches a batch "
+          f"({totals(per_batch)}) ({card})")
+    ex = BatchingExecutor(pipe, batch_sizes=SERVE_BATCH_SIZES, max_delay=SERVE_MAX_DELAY)
+    try:
+        # ---- the lone request and the burst: counts reset just before each, read just after ----
+        fa.reset_launch_counts()
+        lone = ex.submit(*LONE).result(timeout=600)
+        lone_launches = collections.Counter(fa.LAUNCH_SHAPES)
+        fa.reset_launch_counts()
+        burst, order, burst_s = burst_requests(ex, BURST)
+        burst_launches = collections.Counter(fa.LAUNCH_SHAPES)
+        # ------------------------------------------------------------------------------------
+        stats = ex.stats()
+        print(f"  stats after the lone request and the burst of {len(BURST)}: {stats}; queue order "
+              f"{order}")
+        check(stats == {"requests": 1 + len(BURST), "batches": 3, "padded_slots": 0, "expired": 0,
+                        "batches_b1": 1, "batches_b4": 2},
+              f"the lone request at batch 1 and the burst as two batches of 4: {stats}")
+        check(lone_launches == per_batch, f"lone request launches {dict(lone_launches)}")
+        check(burst_launches == times(per_batch, 2), f"burst launches {dict(burst_launches)}")
+        by_batch[1] += lone_launches
+        by_batch[4] += burst_launches
+        check_images([lone] + burst, shape, "served")
+
+        # each served image is, bit for bit, its row of a direct generate of its
+        # batch (the same requests in the same rows); not gated: the same rows
+        # in reverse order
+        check(np.array_equal(lone, direct(ex, [LONE])[0]), "the lone request differs from generate")
+        moved = []
+        for j in range(2):
+            idx = order[4 * j:4 * j + 4]
+            rows = direct(ex, [BURST[i] for i in idx])
+            check(all(np.array_equal(burst[i], row) for i, row in zip(idx, rows)),
+                  f"burst batch {j} differs from generate at batch 4")
+            flipped = direct(ex, [BURST[i] for i in idx[::-1]])
+            moved += [float(np.abs(burst[i] - row).max()) for i, row in zip(idx[::-1], flipped)]
+        report["rows_reversed_max_abs_diff"] = max(moved)
+        print(f"  served images = rows of generate at the same batch size on the same latents in the "
+              f"same rows, bit for bit (lone at 1, both burst batches at 4); the batches' rows "
+              f"reversed: max abs difference {max(moved):.3e}, {sum(m > 0 for m in moved)} of "
+              f"{len(moved)} rows differ (not gated)")
+
+        # a cancelled request does not poison its batch (cancelled within the
+        # coalescing window, so the batch is the other two, padded); the lone
+        # request again, inside a batch of 4 (not gated against batch 1)
+        keep = ex.submit(*LONE)
+        cancelled = ex.submit("a request its client gave up on", seed=5)
+        check(cancelled.cancel(), "a queued request could not be cancelled")
+        other = ex.submit(*BURST[0])
+        served = [keep.result(timeout=600), other.result(timeout=600)]
+        rows = direct(ex, [LONE] + [BURST[0]] * 3)
+        check(all(np.array_equal(a, b) for a, b in zip(served, rows)),
+              "the requests beside a cancelled one differ from generate of their batch")
+        after = ex.stats()
+        check(after["batches_b4"] == 3 and after["requests"] == stats["requests"] + 3
+              and after["padded_slots"] == 2, f"the batch with the cancelled request: {after}")
+        report["cross_size_max_abs_diff"] = float(np.abs(served[0] - lone).max())
+        print(f"  cancelled request: its batch served the other two, bit for bit; the lone request "
+              f"served at batch 4 vs at batch 1: max abs difference "
+              f"{report['cross_size_max_abs_diff']:.3e} (not gated)")
+
+        # times (host clock, each ending in the futures' results)
+        latency = []
+        for _ in range(SERVE_LATENCY_RUNS):
+            t0 = time.perf_counter()
+            ex.submit(*LONE).result(timeout=600)
+            latency.append(time.perf_counter() - t0)
+        rates = [len(BURST) / burst_s]
+        for _ in range(SERVE_BURST_RUNS - 1):
+            rates.append(len(BURST) / burst_requests(ex, BURST)[2])
+        stats = ex.stats()
+    finally:
+        ex.shutdown(timeout=60)
+    check(not ex._worker.is_alive() and not ex._completer.is_alive(), "the executor's threads live on")
+    report["lone_latency_ms"] = {"median": statistics.median(latency) * 1e3,
+                                 "runs": [t * 1e3 for t in latency]}
+    report["burst_requests_per_s"] = {"median": statistics.median(rates), "runs": rates}
+    report["stats"] = stats
+    print(f"  lone request latency (batch 1): median {report['lone_latency_ms']['median']:.1f} ms of "
+          f"{SERVE_LATENCY_RUNS}; burst of {len(BURST)} (two batches of 4): "
+          + " / ".join(f"{r:.2f}" for r in rates) + f" requests/s ({card})")
+
+    # ---- 2. HTTP over a real socket: the four requests coalesce into one batch ----
+    # (one size, 4, and a window long enough for all four to arrive: the batch
+    # is full, and dispatched, as the fourth one is queued)
+    args = serve_cli.parse_args(["--port", "0", "--batch_size", "4", "--max_delay_ms", "2000"])
+    server, sex = serve_cli.make_server(args, pipe=pipe)
+    queued, submit, queue_lock = [], sex.submit, threading.Lock()
+
+    def recording_submit(*a, **kw):  # the queue's order, recorded
+        with queue_lock:
+            fut = submit(*a, **kw)
+            queued.append((a[0], kw.get("seed")))
+        return fut
+    sex.submit = recording_submit
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    requests = BURST[:4]
+    replies, rtt = [None] * len(requests), [None] * len(requests)
+
+    def post(i):
+        body = json.dumps({"prompt": requests[i][0], "seed": requests[i][1]}).encode()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(url + "/generate", data=body, method="POST"),
+                                    timeout=600) as r:
+            replies[i] = (r.status, r.headers["Content-Type"], r.read())
+        rtt[i] = time.perf_counter() - t0
+    try:
+        # ---- the HTTP requests: counts reset just before, read just after ----
+        fa.reset_launch_counts()
+        clients = [threading.Thread(target=post, args=(i,)) for i in range(len(requests))]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(600)
+        http_launches = collections.Counter(fa.LAUNCH_SHAPES)
+        # -----------------------------------------------------------------------
+        http_stats = sex.stats()
+        check(all(r is not None and r[0] == 200 and r[1] == "image/png" for r in replies),
+              f"HTTP replies {[r and r[:2] for r in replies]}")
+        check(http_stats == {"requests": 4, "batches": 1, "padded_slots": 0, "expired": 0,
+                             "batches_b4": 1} and http_launches == per_batch,
+              f"HTTP launches {dict(http_launches)} for {http_stats}")
+        by_batch[4] += http_launches
+        decoded = [np.asarray(Image.open(io.BytesIO(r[2]))) for r in replies]
+        rows = direct(sex, queued)  # the executor's images: its batch, in its rows
+        check(sorted(queued) == sorted(requests) and all(
+            d.shape == shape and np.array_equal(d, to_uint8(rows[queued.index(req)]))
+            for d, req in zip(decoded, requests)),
+            "an HTTP reply differs from the executor's image for its seed")
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        check(health["status"] == "ok" and health["requests"] == len(requests), f"healthz {health}")
+        # the server's host work on a reply: to_uint8 and the PNG encode of one image
+        png_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            encode_png(to_uint8(rows[0]))
+            png_s.append(time.perf_counter() - t0)
+        try:
+            urllib.request.urlopen(urllib.request.Request(url + "/generate", data=b"{not json",
+                                                          method="POST"), timeout=60)
+            bad = 200
+        except urllib.error.HTTPError as e:
+            bad = e.code
+        check(bad == 400, f"a malformed body got {bad}")
+    finally:
+        server.shutdown()
+        sex.shutdown(timeout=60)
+        server.server_close()
+        thread.join(60)
+    check(not thread.is_alive() and not sex._worker.is_alive(), "the server's threads live on")
+    report["http_round_trip_ms"] = {"median": statistics.median(rtt) * 1e3, "runs": [t * 1e3 for t in rtt]}
+    report["png_encode_ms"] = statistics.median(png_s) * 1e3
+    report["http_stats"] = http_stats
+    print(f"  HTTP: {len(requests)} concurrent POST /generate in one batch of 4, each PNG = the "
+          f"executor's image for its seed; /healthz {health['status']}; malformed body "
+          f"-> 400; round trip median {report['http_round_trip_ms']['median']:.1f} ms; to_uint8 + "
+          f"PNG encode of one reply {report['png_encode_ms']:.1f} ms (host) ({card})")
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(invertible_cd_tpu_torch.__file__)))
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 3. the generate CLI as users start it: its own process and seeded bundle ----
+        out = os.path.join(tmp, "generate")
+        cmd = [sys.executable, "-m", "invertible_cd_tpu_torch.cli.generate", "--model", "sd15"]
+        for prompt in GENERATE_CLI_PROMPTS:
+            cmd += ["--prompt", prompt]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd + ["--out", out], cwd=root, capture_output=True, text=True,
+                              timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the generate CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        with open(os.path.join(out, "manifest.json")) as f:
+            manifest = json.load(f)
+        check(manifest["prompts"] == GENERATE_CLI_PROMPTS and len(manifest["files"]) == 2,
+              f"manifest {manifest}")
+        files = [np.asarray(Image.open(path)) for path in manifest["files"]]
+        check(all(f.shape == shape and f.dtype == np.uint8 for f in files), "generate CLI images")
+        generate_ms = float(proc.stdout.split(" generated 2 in ")[1].split(" ms")[0])
+        # not gated: the same seeded weights and generator in this process
+        g = pipe.default_guidance(guidance_scale=19.0, dynamic_guidance=True, tau1=0.8, tau2=0.8)
+        here, _ = pipe.generate(GENERATE_CLI_PROMPTS, guidance=g,
+                                generator=torch.Generator(device="cuda").manual_seed(150))
+        def jpeg(img):  # as PIL writes it to a .jpg file
+            buf = io.BytesIO()
+            Image.fromarray(img).save(buf, format="JPEG")
+            return buf.getvalue()
+        same = True
+        for path, img in zip(manifest["files"], to_uint8(here)):
+            with open(path, "rb") as f:
+                same = same and f.read() == jpeg(img)
+        report["generate_cli"] = {"wall_s": cli_s, "generate_ms": generate_ms,
+                                  "same_as_this_process": same}
+        print(f"  generate CLI (python -m invertible_cd_tpu_torch.cli.generate --model sd15, 2 "
+              f"prompts): exit 0, {len(files)} images of {shape[:2]}, manifest; process {cli_s:.1f} s, "
+              f"its generate {generate_ms:.1f} ms; its JPEGs decode as this process's generate with "
+              f"the same seed and weights: {same} (not gated) ({card})")
+
+        # ---- 4. the edit CLI on one seeded image file, through main(_pipe=the bundle) ----
+        image_path = os.path.join(tmp, "in.jpg")
+        Image.fromarray(np.random.default_rng(51).integers(0, 256, shape, dtype=np.uint8)).save(image_path)
+        cache = os.path.join(tmp, "uncond.pkl")
+        nti_flags = ["--baseline", "nti", "--nti_inner_steps", "2", "--uncond_cache", cache]
+        runs = [("cons", []), ("npi", ["--baseline", "npi"]), ("nti", nti_flags),
+                ("nti from its cache", nti_flags)]
+        spec4 = make_controller([EDIT_SOURCE, EDIT_TARGET], pipe.tokenizer, n_hops, cross_replace_steps=0.6,
+                                self_replace_steps=0.4, blend_words=[["corgi"], ["cat"]])[0]
+        spec50 = make_controller([EDIT_SOURCE, EDIT_TARGET], pipe.tokenizer, n, cross_replace_steps=0.6,
+                                 self_replace_steps=0.4, blend_words=[["corgi"], ["cat"]])[0]
+        invert, pair = edit_path_launches(spec4, n_hops, per_call, vae_key)
+        ddim_invert = {2: times(per_call, n), 1: vae}  # CFG batch 2; the VAE encode at batch 1
+        ddim_pair = {4: edit_path_launches(spec50, n, per_call, vae_key)[1] - vae, 2: vae}
+        grad_layers = per_call - collections.Counter({first_self_layer(cfg, side): 1})
+        edit_s, edited, edit_launches = {}, {}, {}
+        for label, extra in runs:
+            out = os.path.join(tmp, label.replace(" ", "_"))
+            argv = ["--model", "sd15", "--image", image_path, "--source", EDIT_SOURCE,
+                    "--target", EDIT_TARGET, "--out", out] + extra
+            # ---- one edit CLI run: counts reset just before, read just after ----
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            edit_cli.main(argv, _pipe=pipe)
+            torch.cuda.synchronize()
+            edit_s[label] = time.perf_counter() - t0
+            edit_launches[label] = collections.Counter(fa.LAUNCH_SHAPES)
+            # ---------------------------------------------------------------------
+            with open(os.path.join(out, "results.json")) as f:
+                results = json.load(f)["results"]
+            check(len(results) == 1 and results[0]["source"] == EDIT_SOURCE
+                  and results[0]["target"] == EDIT_TARGET, f"{label}: results.json {results}")
+            with open(results[0]["file"], "rb") as f:
+                edited[label] = f.read()
+            for path in (results[0]["file"], results[0]["file"].replace("_edited", "_rec")):
+                check(np.asarray(Image.open(path)).shape == shape, f"{label}: {path}")
+        k = totals(edit_launches["nti"]).get("flash_bwd_dq", 0) // sum(grad_layers.values())
+        check(n <= k <= 2 * n, f"NTI ran {k} inner iterations in {n} steps of at most 2")
+        want = {"cons": {1: invert, 2: pair},
+                "npi": {b: ddim_invert.get(b, collections.Counter()) + ddim_pair.get(b, collections.Counter())
+                        for b in (1, 2, 4)}}
+        want["nti from its cache"] = want["npi"]
+        want["nti"] = dict(want["npi"])
+        want["nti"][1] = want["npi"][1] + nti_path_launches(per_call, grad_layers, 2 * n + k, k)
+        for label, by in want.items():
+            expected = sum(by.values(), collections.Counter())
+            check(edit_launches[label] == expected,
+                  f"edit CLI {label}: launches {dict(edit_launches[label])} != {dict(expected)}")
+            for b, counter in by.items():
+                by_batch[b] += counter
+        check(totals(edit_launches["nti from its cache"]).get("flash_bwd_dq", 0) == 0
+              and totals(edit_launches["nti from its cache"]).get("flash_bwd_dkdv", 0) == 0,
+              "the cached NTI run launched a backward kernel")
+        check(edited["nti from its cache"] == edited["nti"], "the cached NTI run edited differently")
+        with open(cache, "rb") as f:
+            stored = pickle.load(f)
+        check(list(stored) == [EDIT_SOURCE] and stored[EDIT_SOURCE].shape == (n, 1, 77, cfg.cross_attention_dim)
+              and stored[EDIT_SOURCE].dtype == np.float32, "the NTI cache file")
+    report["edit_cli_s"] = edit_s
+    report["nti_inner_iterations"] = k
+    report["launches"] = {label: totals(c) for label, c in edit_launches.items()}
+    report["launches"].update(lone=totals(lone_launches), burst=totals(burst_launches),
+                              http=totals(http_launches))
+    print("  edit CLI (main, the generate path's bundle): " + "; ".join(
+        f"{label} {edit_s[label]:.2f} s, launches {totals(edit_launches[label])}" for label, _ in runs)
+        + f"; NTI ran {k} inner iterations, its rerun read the cache: no B3/B4, the same edited "
+          f"JPEG; launches derived from the spec, the grid and k: exact ({card})")
+    print(json.dumps(report))
+    return by_batch
+
+
 # the DDIM baselines (phase 4d): NTI at the reference's defaults
 DDIM_CFG = 7.5
 NTI_INNER_STEPS = 10
@@ -1169,12 +1583,7 @@ def phase_baselines(card: str, pipe):
     grad_layers = per_call - collections.Counter({first_self_layer(cfg, side): 1})
 
     def nti_launches(forwards: int, backwards: int):
-        """B1 on every layer of `forwards` UNet calls; B3 and B4 on the
-        gradient's layers of `backwards` of them."""
-        return (collections.Counter({k: forwards * c for k, c in per_call.items()})
-                + collections.Counter({(kernel,) + key[1:]: backwards * c
-                                       for key, c in grad_layers.items()
-                                       for kernel in ("flash_bwd_dq", "flash_bwd_dkdv")}))
+        return nti_path_launches(per_call, grad_layers, forwards, backwards)
     vae = collections.Counter({("flash_fwd_streamed", side * side, side * side,
                                 pipe.vae.cfg.block_out_channels[-1]): 1})
     cfg_steps = collections.Counter({k: n * c for k, c in per_call.items()})
@@ -1372,6 +1781,16 @@ def phase_baselines(card: str, pipe):
     return by_batch
 
 
+def nti_path_launches(per_call, grad_layers, forwards: int, backwards: int):
+    """B1 on every layer of `forwards` UNet calls (`per_call`, see
+    `unet_launches_per_call`); B3 and B4 on the gradient's layers
+    (`grad_layers`) of `backwards` of them."""
+    return (collections.Counter({k: forwards * c for k, c in per_call.items()})
+            + collections.Counter({(kernel,) + key[1:]: backwards * c
+                                   for key, c in grad_layers.items()
+                                   for kernel in ("flash_bwd_dq", "flash_bwd_dkdv")}))
+
+
 def unet_launches_per_call(cfg, latent: int):
     """Kernel launches per (kernel, Sq, Sk, d) of one UNet call at a latent
     side of `latent`, derived from the config: at each level with
@@ -1545,6 +1964,26 @@ def phase_sdxl(card: str):
           f"generate mean {images.mean().item():.4f} std {images.std().item():.4f}; the edit's "
           f"row 1 differs from row 0 by {moved:.3f} (relative L2)")
 
+    # one request through the executor at batch 1: the image equals generate's
+    # on the same latent, bit for bit
+    from invertible_cd_tpu_torch.serving import BatchingExecutor
+
+    with BatchingExecutor(pipe, batch_size=1, max_delay=0.0) as ex:
+        ex.submit(EDIT_TARGET, seed=4).result(timeout=600)  # warm-up: the worker thread's handles
+        # ---- the served request: counts reset just before, read just after ----
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        served = ex.submit(EDIT_SOURCE, seed=5).result(timeout=600)
+        times["served"] = time.perf_counter() - t0
+        counted["served"] = collections.Counter(fa.LAUNCH_SHAPES)
+        # -------------------------------------------------------------------
+        direct = pipe.generate([EDIT_SOURCE], latent=ex._latents([5]), guidance=ex.guidance)[0]
+    check(counted["served"] == want_generate, f"served launches {dict(counted['served'])}")
+    check(served.shape == (8 * side, 8 * side, 3) and np.array_equal(served, direct[0].cpu().numpy()),
+          f"the served SDXL image {served.shape} differs from generate at batch 1")
+    print(f"  BatchingExecutor(batch_size=1): one request, {8 * side}^2, = generate on its latent bit "
+          f"for bit; {times['served'] * 1e3:.1f} ms submit to image ({card})")
+
     # the bf16-VAE opt-in (`vae_dtype=torch.bfloat16`): the same VAE weights in
     # bf16 decode the generate's latent (batch 1) and the edited pair (batch 2)
     # through B2's bf16 build
@@ -1633,7 +2072,8 @@ def phase_sdxl(card: str):
     print(f"  UNet call {unet_ms:.2f} ms; fp32 VAE decode {decode_ms:.2f} ms, encode {encode_ms:.2f} ms; "
           f"text encoders ViT-L {clip_ms:.2f} ms, bigG {clip2_ms:.2f} ms ({card})")
     trace_run("SDXL generate, 1024^2", generate)
-    return {1: counted["generate"] + counted["invert"] + opt_in[1], 2: pair_launches + opt_in[2]}
+    return {1: counted["generate"] + counted["invert"] + counted["served"] + opt_in[1],
+            2: pair_launches + opt_in[2]}
 
 
 def trace_run(label: str, fn) -> None:
@@ -1931,6 +2371,7 @@ def main(argv=None) -> int:
             return 0
         pipe, generate_launches = phase_main_path(card)
         edit_launches = phase_edit(card, pipe)
+        serve_launches = phase_serve(card, pipe)
         baseline_launches = phase_baselines(card, pipe)
         sdxl_launches = phase_sdxl(card)
         torch.cuda.empty_cache()  # the SDXL bundle is gone
@@ -1939,7 +2380,9 @@ def main(argv=None) -> int:
         traceback.print_exc()
         return 1
     # launches on the main paths: the generate at the row's batch, the counted
-    # invert (batch 1) and controlled pair (batch 2), the baselines' runs at
+    # invert (batch 1) and controlled pair (batch 2), the serving phase's
+    # counted requests and edit CLI runs at the batch each kernel ran at (the
+    # executor's at 1 and 4, HTTP's at 4), the baselines' runs at
     # the batch each kernel ran at (NTI's at 1, the CFG-doubled DDIM's at 2,
     # its controlled pair's at 4, the VAE's at the prompts'), SDXL's counted
     # generate and invert (batch 1) and edited pair (batch 2) with the
@@ -1950,6 +2393,7 @@ def main(argv=None) -> int:
         key = (row["kernel"],) + tuple(row["shape"])
         row["launches"] = (generate_launches.get(row["batch"], none)[key]
                            + edit_launches.get(row["batch"], none)[key]
+                           + serve_launches.get(row["batch"], none)[key]
                            + baseline_launches.get(row["batch"], none)[key]
                            + sdxl_launches.get(row["batch"], none)[key]
                            + (train_launches[key] if row["batch"] == BATCH else 0))

@@ -14,13 +14,12 @@ package, only `--synthetic_data` is available: seeded full-width weights
 from __future__ import annotations
 
 import argparse
-import json
 import os
-import sys
 import time
 
 import torch
 
+from . import apply_config_file
 from ..diffusion.schedule import make_schedule
 from ..diffusion.solver import make_train_solver
 from ..models.layers import cast_compute_weights, fan_in_init_
@@ -29,18 +28,6 @@ from ..pipelines.pipeline import resolve_device
 from ..training import LossConfig, TrainConfig, init_train_state, make_train_step
 from ..training.checkpoint import latest_step, restore_checkpoint, save_checkpoint
 from ..utils.logging import MetricLogger
-
-
-def apply_config_file(p: argparse.ArgumentParser, argv):
-    """--config file.json sets parser defaults (CLI flags still override);
-    keys the parser does not know are ignored."""
-    argv = list(sys.argv[1:] if argv is None else argv)
-    if "--config" in argv:
-        with open(argv[argv.index("--config") + 1]) as f:
-            cfg = json.load(f)
-        known = {a.dest for a in p._actions}
-        p.set_defaults(**{k: v for k, v in cfg.items() if not k.startswith("_") and k in known})
-    return argv
 
 
 def parse_args(argv=None):

@@ -8,7 +8,7 @@ from state dicts (for instance the JAX tiny bundles' params passed through
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -26,18 +26,20 @@ def tiny_configs() -> Tuple[UNetConfig, CLIPTextConfig, VAEConfig]:
 
 
 def tiny_bundle(
-    state_dicts: Dict[str, Dict[str, torch.Tensor]],
+    state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]],
     latent_size: Tuple[int, int] = (16, 16),
     dtype=torch.float32,
     device="cpu",
 ) -> InvertibleCD:
     """A miniature InvertibleCD from state dicts keyed "text", "vae" and
-    any of "teacher", "reverse", "forward". Pixels are 32x32 (the tiny VAE
-    downsamples 2x); the tokenizer is the hash tokenizer over the tiny
-    CLIP vocabulary."""
+    any of "teacher", "reverse", "forward", or, for None, from seeded
+    weights (seed 0, rank-4 LoRAs; `InvertibleCD.sd15`). Pixels are 32x32
+    (the tiny VAE downsamples 2x); the tokenizer is the hash tokenizer over
+    the tiny CLIP vocabulary."""
     unet_cfg, clip_cfg, vae_cfg = tiny_configs()
     return InvertibleCD.sd15(
         params=state_dicts,
+        lora_rank=4,
         tokenizer=HashTokenizer(vocab_size=clip_cfg.vocab_size),
         dtype=dtype,
         device=device,
@@ -73,19 +75,20 @@ def tiny_configs_xl() -> Tuple[UNetConfig, CLIPTextConfig, CLIPTextConfig, VAECo
 
 
 def tiny_bundle_xl(
-    state_dicts: Dict[str, Dict[str, torch.Tensor]],
+    state_dicts: Optional[Dict[str, Dict[str, torch.Tensor]]],
     latent_size: Tuple[int, int] = (16, 16),
     dtype=torch.float32,
     device="cpu",
 ) -> InvertibleCDXL:
     """A miniature InvertibleCDXL from state dicts keyed "text", "text_2",
-    "vae" and any of "teacher", "reverse", "forward", with the JAX tiny
-    bundle's settings: the VAE in `dtype` too, SD1.5's 4-hop grid, time ids
-    at a 32-pixel resolution, the hash tokenizer for both encoders."""
+    "vae" and any of "teacher", "reverse", "forward", or, for None, from
+    seeded weights (seed 0, rank-4 LoRAs), with the JAX tiny bundle's
+    settings: the VAE in `dtype` too, SD1.5's 4-hop grid, time ids at a
+    32-pixel resolution, the hash tokenizer for both encoders."""
     unet_cfg, clip_cfg, clip2_cfg, vae_cfg = tiny_configs_xl()
     tok = HashTokenizer(vocab_size=clip_cfg.vocab_size)
     return InvertibleCDXL.sdxl(
-        params=state_dicts, tokenizer=tok, tokenizer_2=tok, dtype=dtype, vae_dtype=dtype,
+        params=state_dicts, lora_rank=4, tokenizer=tok, tokenizer_2=tok, dtype=dtype, vae_dtype=dtype,
         device=device, unet_cfg=unet_cfg, clip_cfg=clip_cfg, clip2_cfg=clip2_cfg,
         vae_cfg=vae_cfg, latent_size=latent_size, default_resolution=32,
         grid=make_solver_grid(reverse_timesteps=[259, 519, 779, 999],

@@ -504,3 +504,31 @@ def test_tiny_ddim_and_nti_on_the_card_match_the_cpu(cuda):
     images, latents = card4.ddim_generate([prompt], latent=inverted, nti_uncond=per_step)
     assert tuple(per_step.shape) == (4, 1, 77, clip_cfg.hidden_size)
     assert all(bool(torch.isfinite(t).all()) for t in (per_step, inverted, images, latents))
+
+
+def test_tiny_bundle_served_on_the_card_matches_a_direct_generate(cuda):
+    """The seeded tiny bundle in bf16 on the card behind the executor: a
+    burst of three requests runs as one padded batch of 4 and a lone one at
+    batch 1, each image bit for bit row i of a direct `generate` at the
+    same size on the executor's latents (B1 in every attention layer); the
+    launches are counted per batch."""
+    from invertible_cd_tpu_torch.serving import BatchingExecutor
+    from invertible_cd_tpu_torch.testing import tiny_bundle
+
+    pipe = tiny_bundle(None, dtype=torch.bfloat16, device=cuda)
+    prompts, seeds = ["a cat", "a dog", "a fox"], [1, -(2**63), 2**63 - 1]
+    with BatchingExecutor(pipe, batch_sizes=(1, 4), max_delay=0.5) as ex:
+        futs = [ex.submit(p, seed=s) for p, s in zip(prompts, seeds)]
+        burst = [f.result(timeout=300) for f in futs]
+        lone = ex.generate("a cow", seed=9)
+        stats = ex.stats()
+        fa.reset_launch_counts()
+        want4, _ = pipe.generate(prompts + prompts[-1:], latent=ex._latents(seeds + seeds[-1:]),
+                                 guidance=ex.guidance)
+        per_batch = fa.launches("flash_fwd")
+        want1, _ = pipe.generate(["a cow"], latent=ex._latents([9]), guidance=ex.guidance)
+    assert stats["batches_b4"] == 1 and stats["batches_b1"] == 1 and stats["padded_slots"] == 1
+    assert per_batch > 0
+    for got, row in zip(burst, want4.cpu().numpy()):
+        assert (got == row).all()
+    assert (lone == want1[0].cpu().numpy()).all()

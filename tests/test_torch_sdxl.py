@@ -56,6 +56,17 @@ CONTROLLER = dict(num_steps=2, cross_replace_steps=0.6, self_replace_steps=0.4,
 RNG = np.random.default_rng(0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's tiny models (see
+    `test_torch_baselines.py`): under the suite's parallel workers more
+    threads oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _randn(*shape):
     return RNG.normal(size=shape).astype(np.float32)
 
