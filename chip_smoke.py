@@ -23,7 +23,8 @@ nothing of JAX. Phases, each of which must pass:
              with a hash of B1's o and lse bits on these fixed-seed inputs
              (two builds of B1 compare in one `--kernels-only` call);
              the backward kernels B3 and B4 with dO ~ N(0, 1) at the train
-             step's batch and at NTI's (batch 1), against the
+             step's batch, at NTI's (batch 1) and at SDXL training's four
+             d = 64 shapes (phase 5b's batch; B3/B4's DP 64 route), against the
              plain explicit backward and against autograd through the plain
              forward (max abs error <= 2e-2 * max |reference| for each of
              dq, dk, dv), bit-identical on a repeat, timed beside the plain
@@ -130,6 +131,22 @@ nothing of JAX. Phases, each of which must pass:
              ms per step, samples/s, peak memory, one traced step; and the
              adapter gradient of `reverse_cd_loss` through the kernels
              against the same gradient through materialised attention;
+  5b. sdxl training (after 5, the SD1.5 bundle freed): full-depth
+             `UNetConfig.sdxl()` at 1024^2, batch XL_TRAIN_BATCH.
+             `cli.train_icd.main --model sdxl --lazy_lora --remat --data_root`
+             for three steps on a seeded folder of 1024^2 JPEGs with a
+             train.csv (the fp32 VAE encode through B2's fp32 build, ViT-L and
+             bigG): exact launches, finite metrics under all eight names, a
+             checkpoint, both kohya exports read back by `load_inference_lora`
+             equal to the checkpoint's adapters; then `make_train_step` (lazy,
+             remat) on synthetic batches with `added_cond`: exact launches of
+             B1, B3 and B4 per (Sq, Sk, d) (14 x 140 B1 and 4 x 140 B3 and B4
+             a step, `xl_step_launches`), base (= teacher) unchanged, step ms,
+             samples/s, peak memory, one traced step; one step of the merged
+             path against the lazy one from one state and draws (metrics
+             within UNET_REL_TOL, gradients within LAZY_GRAD_TOL) with both
+             peaks; and the adapter gradient of `reverse_cd_loss` through B1
+             (lse), B3 and B4 at d = 64 against the materialised path;
   6. harness (run between phases 3 and 4): `cli.exp_softmax.main` runs
              kernel B5's five softmax variants at the tool's headline shape
              (G=128, S=4096, D=64) and the port's (G=32, S=4096, D=40),
@@ -155,7 +172,8 @@ nothing of JAX. Phases, each of which must pass:
      pair's at 4), B2 at the prompts' batch; the SDXL rows those of phase
      4c (batch 1: generate, invert, the served request and the bf16 opt-in's
      decode; batch 2:
-     the edited pair and its opt-in decode); B5's rows carry the harness's.
+     the edited pair and its opt-in decode), plus phase 5b's counted CLI and
+     direct steps at its batch; B5's rows carry the harness's.
 
 `--kernels-only` runs phases 1-3 and the harness (6) and prints the kernel
 rows; `--package-root DIR` imports the package (and builds its kernels) from
@@ -222,6 +240,15 @@ GRAD_TOL = 2e-2
 # below a base-2/natural-log or scale mistake (|lse| is 5 to 40 here).
 LSE_TOL = 1e-3
 GRAD_REL_TOL = 5e-2  # relative L2 over all adapters, kernel path vs materialised path
+# Lazy against merged LoRA, one SDXL step from one state and draws: every
+# metric within UNET_REL_TOL (relative), and the adapter gradients (Adam's
+# first moments) within LAZY_GRAD_TOL relative L2. The merged path rounds
+# every W + dW to bf16 (2^-9 relative), the lazy one keeps W and the
+# low-rank path apart, and the huber loss's sign-like gradient carries
+# that rounding into the adapter gradients. Both are the same function: in
+# fp32 the two steps agree to ~1e-6 (tests/test_torch_training_sdxl.py); an
+# adapter dropped, doubled or mis-scaled moves the gradient by O(1).
+LAZY_GRAD_TOL = 0.15
 TRAIN_BATCH = 2
 TRAIN_STEPS = 3
 METRIC_NAMES = (
@@ -299,11 +326,19 @@ SHAPES = [
 ] + [  # the DDIM baselines' CFG batch 2 leaves the cross layers unhooked
     ("flash_fwd", 2, sq, 77, 8, d) for sq, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))
 ]
+# the SDXL training phase (5b): its batch (the reference's is 8,
+# configs/train_sdxl_lora.json) and steps
+XL_TRAIN_BATCH = 2
+XL_TRAIN_STEPS = 3
+XL_RESOLUTION = 1024
 # (batch, Sq, Sk, heads, head dim) of B3 and B4: the train step's eight shapes
-# (at the generate's batch) and NTI's (batch 1)
+# (at the generate's batch) and NTI's (batch 1); then SDXL's training shapes
+# at 1024^2 (d = 64: 10 heads at 64^2 tokens, 20 at 32^2) at phase 5b's batch
 BACKWARD_SHAPES = [
     (b, sq, sk, 8, d) for b in (BATCH, 1)
     for sq, d in ((4096, 40), (1024, 80), (256, 160), (64, 160)) for sk in (sq, 77)
+] + [
+    (XL_TRAIN_BATCH, sq, sk, h, 64) for sq, h in ((4096, 10), (1024, 20)) for sk in (sq, 77)
 ]
 # attention layers of one SD1.5 UNet call by token count (self; as many cross
 # layers at Sk = 77): 2 down + 3 up at each of 4096/1024/256, 1 mid at 64
@@ -545,7 +580,7 @@ def phase_backward_kernels(card: str):
     gen = torch.Generator(device="cuda").manual_seed(4321)
     rows = []
     failures = []
-    print(f"backward kernels vs plain at batch {BATCH} and 1 ({card}):")
+    print(f"backward kernels vs plain at batch {BATCH} and 1, SDXL's at {XL_TRAIN_BATCH} ({card}):")
     for batch, sq, sk, h, d in BACKWARD_SHAPES:
         def rnd(s, scale=1.0):
             return (scale * torch.randn((batch, s, h, d), generator=gen, device="cuda")).to(
@@ -2336,6 +2371,283 @@ def phase_training(card: str, pipe):
     return shape_launches
 
 
+def xl_step_launches(per_call, steps: int, remat: bool):
+    """Kernel launches per (kernel, Sq, Sk, d) of `steps` train steps:
+    B1 on every layer of 11 UNet forwards a step (reverse_cd 3: student,
+    teacher, the student's no-grad target; reverse_preserve 2: the frozen
+    forward hop and the one rollout call, which its own checkpoint computes
+    again in backward; forward_cd 3; forward_preserve 2: one frozen reverse
+    hop and the student), plus, with remat, the three differentiated student
+    calls that the loss does not checkpoint itself computed again in
+    backward (a checkpoint inside the rollout's adds no recompute); B3 and B4
+    on every layer of the 4 differentiated student calls."""
+    forwards, backwards = 11 + (3 if remat else 0), 4
+    return nti_path_launches(per_call, per_call, steps * forwards, steps * backwards)
+
+
+def seeded_image_folder(root: str, n: int, side: int) -> None:
+    """`n` seeded side^2 JPEGs (smooth colour fields with noise) and a
+    `train.csv` of captions under `root`."""
+    import csv
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(41)
+    rows = []
+    for i in range(n):
+        low = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
+        field = np.asarray(Image.fromarray(low).resize((side, side), Image.BICUBIC), np.int16)
+        pixels = np.clip(field + rng.integers(-12, 13, field.shape), 0, 255).astype(np.uint8)
+        Image.fromarray(pixels).save(os.path.join(root, f"{i:03d}.jpg"), quality=90)
+        rows.append({"file_name": f"{i:03d}.jpg", "caption": PROMPTS[i % len(PROMPTS)]})
+    with open(os.path.join(root, "train.csv"), "w", newline="") as f:
+        writer = csv.DictWriter(f, ["file_name", "caption"])
+        writer.writeheader()
+        writer.writerows(rows)
+
+
+def phase_xl_training(card: str):
+    """Full-depth SDXL training at 1024^2 (phase 5b): the CLI's --data_root
+    path with --lazy_lora --remat for XL_TRAIN_STEPS steps; then the same
+    step through `make_train_step` on synthetic batches with added
+    conditioning (exact launches, base and teacher unchanged, times, peak
+    memory, one traced step); one step of the merged path against the lazy
+    one from the same state and draws, with both peaks; and the adapter
+    gradient of `reverse_cd_loss` through B1 (lse), B3 and B4 at d = 64
+    against the materialised path. Returns the launches per (kernel, Sq, Sk,
+    d) of the counted CLI steps and direct steps, all at XL_TRAIN_BATCH."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from invertible_cd_tpu_torch.cli import train_icd
+    from invertible_cd_tpu_torch.diffusion.schedule import make_schedule
+    from invertible_cd_tpu_torch.diffusion.solver import make_train_solver
+    from invertible_cd_tpu_torch.models.attention import AttnMeta
+    from invertible_cd_tpu_torch.models.lora import call_with_lora, lora_modules, seeded_lora
+    from invertible_cd_tpu_torch.models.unet2d import count_attention_layers
+    from invertible_cd_tpu_torch.ops import flash_attention as fa
+    from invertible_cd_tpu_torch.training import (
+        ICDTrainState, init_train_state, make_train_step, reverse_cd_loss)
+    from invertible_cd_tpu_torch.training.checkpoint import load_inference_lora
+    from invertible_cd_tpu_torch.training.trainer import init_optimizer
+
+    resolution, b = XL_RESOLUTION, XL_TRAIN_BATCH
+    side = resolution // 8
+    common = ["--model", "sdxl", "--lazy_lora", "--remat", "--resolution", str(resolution),
+              "--batch_size", str(b), "--log_every", "1", "--seed", "0"]
+    cfg = train_icd.unet_config("sdxl")
+    per_call = unet_launches_per_call(cfg, side)
+    check(sum(per_call.values()) == count_attention_layers(cfg) == 140,
+          f"{sum(per_call.values())} attention layers per SDXL call")
+    want_steps = xl_step_launches(per_call, XL_TRAIN_STEPS, remat=True)
+    vae_key = ("flash_fwd_streamed_f32", side * side, side * side, 512)
+
+    # ---- the entry point a user calls: --data_root, the VAE and both encoders ----
+    tmp = tempfile.mkdtemp(prefix="icd_xl_train_")
+    try:
+        free_gb = shutil.disk_usage(tmp).free / 2**30
+        print(f"sdxl training: batch {b} (the reference's is 8, configs/train_sdxl_lora.json), "
+              f"{XL_TRAIN_STEPS} steps; {free_gb:.1f} GiB free under {tmp}")
+        check(free_gb > 12, f"{free_gb:.1f} GiB free: the checkpoint and exports need ~7")
+        data = os.path.join(tmp, "data")
+        out = os.path.join(tmp, "run")
+        os.makedirs(data)
+        seeded_image_folder(data, XL_TRAIN_STEPS * b, resolution)
+        torch.cuda.reset_peak_memory_stats()
+        # ---- the CLI's steps: counts reset just before, read just after ----
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        last = train_icd.main(common + [
+            "--data_root", data, "--max_steps", str(XL_TRAIN_STEPS), "--checkpointing_steps",
+            str(XL_TRAIN_STEPS), "--checkpoints_total_limit", "1", "--output_dir", out])
+        torch.cuda.synchronize()
+        cli_launches = collections.Counter(fa.LAUNCH_SHAPES)
+        # --------------------------------------------------------------------
+        cli_s = time.perf_counter() - t0
+        cli_peak = torch.cuda.max_memory_allocated() / 2**30
+        want_cli = want_steps + collections.Counter({vae_key: XL_TRAIN_STEPS * -(-b // 4)})
+        print(f"  cli.train_icd.main --model sdxl --lazy_lora --remat --data_root: {XL_TRAIN_STEPS} "
+              f"steps at batch {b} in {cli_s:.1f} s (weights, encoders, encodes, checkpoint and "
+              f"exports included), peak {cli_peak:.2f} GiB ({card})")
+        print(f"  launches: {dict(cli_launches)}")
+        check(cli_launches == want_cli, f"CLI launches {dict(cli_launches)} != {dict(want_cli)}")
+        check(all(name in last and math.isfinite(last[name]) for name in METRIC_NAMES),
+              f"CLI metrics missing or not finite: {last}")
+        saved = torch.load(os.path.join(out, "checkpoints", str(XL_TRAIN_STEPS), "state.pt"),
+                           map_location="cpu", weights_only=True)
+        for name, student in (("unet_lora", "lora_reverse"), ("forward_unet_lora", "lora_forward")):
+            path = os.path.join(out, f"export_{XL_TRAIN_STEPS}", name, "lora_weights.safetensors")
+            adapters, alphas = load_inference_lora(path)
+            check(adapters.keys() == saved[student].keys() and set(alphas.values()) == {8.0}
+                  and all(torch.equal(adapters[k][n], saved[student][k][n])
+                          for k in adapters for n in ("down", "up")),
+                  f"{path} does not read back as the checkpoint's {student}")
+        sizes = {n: round(os.path.getsize(os.path.join(dirpath, n)) / 2**30, 2)
+                 for dirpath, _, names in os.walk(out) for n in names
+                 if n.endswith(("pt", "safetensors"))}
+        print(f"  metrics finite under all eight names; checkpoint and both exports written "
+              f"({sizes} GiB) and the exports read back equal to the checkpoint's adapters")
+        del saved, adapters
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- the same step through make_train_step, on synthetic batches with added_cond ----
+    args = train_icd.parse_args(common + ["--synthetic_data", "--output_dir", "unused"])
+    unet, cfg, base, _ = train_icd.build_models(args, torch.device("cuda"))
+    schedule = make_schedule(device="cuda")
+    solver = make_train_solver(schedule.alphas_cumprod, num_endpoints=4, num_forward_endpoints=4,
+                               endpoints=args.endpoints, forward_endpoints=args.forward_endpoints,
+                               device="cuda")
+    tcfg = train_icd.train_config(args, cfg)
+    check(tcfg.lazy_lora and tcfg.remat, "the CLI's flags did not reach the config")
+    before = {k: v.cpu() for k, v in base.items()}  # base = teacher: the UNet's own tensors
+    batches = train_icd.batch_iterator(args, cfg, side, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    state = init_train_state(gen, base, tcfg)
+    n_adapters = len(state.lora_reverse)
+    n_lora = sum(t.numel() for ab in state.lora_reverse.values() for t in ab.values())
+    step_fn = make_train_step(unet, base, base, solver, schedule, tcfg)
+    state, _ = step_fn(state, next(batches), gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts reset just before, read just after ----
+    fa.reset_launch_counts()
+    step_ms = []
+    for _ in range(XL_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, next(batches), gen)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    step_launches = collections.Counter(fa.LAUNCH_SHAPES)
+    # --------------------------------------------------------------------
+    lazy_peak = torch.cuda.max_memory_allocated() / 2**30
+    metrics = {k: float(v) for k, v in metrics.items()}
+    check(sorted(metrics) == sorted(METRIC_NAMES) and all(map(math.isfinite, metrics.values())),
+          f"metrics {metrics}")
+    totals = {name: sum(n for key, n in step_launches.items() if key[0] == name) // XL_TRAIN_STEPS
+              for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")}
+    print(f"  make_train_step (lazy, remat): launches per step {totals}, by shape "
+          f"{dict(step_launches)}")
+    check(step_launches == want_steps, f"launches {dict(step_launches)} != {dict(want_steps)}")
+    check(totals == {"flash_fwd": 14 * 140, "flash_bwd_dq": 4 * 140, "flash_bwd_dkdv": 4 * 140},
+          f"launches per step {totals}")
+    check(all(torch.equal(v.cpu(), before[k]) for k, v in base.items()),
+          "a base (= teacher) weight changed")
+    del before
+    mean_ms = statistics.mean(step_ms)
+    print(f"  sdxl train step (lazy, remat), batch {b}, 1024^2, {n_adapters} adapters of rank "
+          f"{tcfg.lora_rank} per student ({n_lora / 1e6:.1f} M parameters): "
+          + " / ".join(f"{ms:.1f}" for ms in step_ms)
+          + f" ms; {b * 1e3 / mean_ms:.3f} samples/s; peak {lazy_peak:.2f} GiB ({card})")
+    state_box = [state]
+
+    def traced_step():
+        state_box[0], _ = step_fn(state_box[0], next(batches), gen)
+    trace_run(f"sdxl batch {b} train step, lazy + remat", traced_step)
+    del state_box, state, step_fn
+    torch.cuda.empty_cache()
+
+    # ---- lazy against merged: one step from the same state and draws ----
+    lora_r, lora_f = seeded_lora(base, gen, tcfg.lora_rank), seeded_lora(base, gen, tcfg.lora_rank)
+    for ab in (*lora_r.values(), *lora_f.values()):
+        ab["up"].mul_(0.1)  # seeded adapters a tenth of the fan-in scale: a visible delta
+    batch = next(batches)
+    draw = torch.Generator(device="cuda").manual_seed(13)
+    draws = {"noise": torch.randn((b, side, side, 4), generator=draw, device="cuda"),
+             "w": torch.tensor([7.0, 11.0][:b], device="cuda"),
+             "reverse_index": torch.tensor([5, 12][:b], device="cuda"),
+             "forward_index": torch.tensor([5, 12][:b], device="cuda"),
+             "forward_preserve_index": torch.tensor([1, 2][:b], device="cuda"),
+             "reverse_preserve_index": torch.tensor([1, 2][:b], device="cuda")}
+    results = {}
+    for mode in ("merged", "lazy"):
+        mcfg = dataclasses.replace(tcfg, lazy_lora=mode == "lazy")
+        fn = make_train_step(unet, base, base, solver, schedule, mcfg)
+        st = ICDTrainState(0, lora_r, lora_f, init_optimizer(lora_r, mcfg),
+                           init_optimizer(lora_f, mcfg))
+        fn(st, batch, None, draws)  # warm-up: the allocator's pools for this path
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        new, m = fn(st, batch, None, draws)
+        torch.cuda.synchronize()
+        results[mode] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                             peak=torch.cuda.max_memory_allocated() / 2**30,
+                             metrics={k: float(v) for k, v in m.items()},
+                             mu=torch.cat([t.flatten().cpu() for o in (new.opt_reverse, new.opt_forward)
+                                           for ab in o["mu"].values() for t in ab.values()]),
+                             move=torch.cat([(new_ab[n] - old_ab[n]).flatten().cpu()
+                                             for lo, ln in ((lora_r, new.lora_reverse),
+                                                            (lora_f, new.lora_forward))
+                                             for key, old_ab in lo.items()
+                                             for new_ab in (ln[key],) for n in ("down", "up")]))
+        del fn, st, new, m
+        torch.cuda.empty_cache()
+    mm, lz = results["merged"], results["lazy"]
+    metric_err = {k: abs(lz["metrics"][k] - mm["metrics"][k]) / max(abs(mm["metrics"][k]), 1e-12)
+                  for k in mm["metrics"]}
+    grad_rel = ((lz["mu"] - mm["mu"]).norm() / mm["mu"].norm()).item()
+    same_sign = (torch.sign(lz["move"]) == torch.sign(mm["move"])).float().mean().item()
+    print(f"  lazy vs merged, one step (seeded adapters, same draws), batch {b}: metric relative "
+          f"differences {({k: f'{v:.2e}' for k, v in sorted(metric_err.items())})} (tol "
+          f"{UNET_REL_TOL}); gradients (Adam's first moment) relative L2 {grad_rel:.3e} (tol "
+          f"{LAZY_GRAD_TOL}); adapter moves of the same sign {same_sign:.4f}")
+    print(f"  peak memory, one step at batch {b} after one warm-up step: merged {mm['peak']:.2f} GiB, "
+          f"lazy {lz['peak']:.2f} GiB; step ms merged {mm['ms']:.1f}, lazy {lz['ms']:.1f} ({card})")
+    check(all(v <= UNET_REL_TOL for v in metric_err.values()), f"lazy vs merged metrics {metric_err}")
+    check(math.isfinite(grad_rel) and grad_rel <= LAZY_GRAD_TOL, f"lazy vs merged gradients {grad_rel}")
+    del results, mm, lz
+    torch.cuda.empty_cache()
+
+    # ---- kernel path against materialised path under grad: reverse_cd_loss, batch 1, d = 64 ----
+    leaves = [t.requires_grad_(True) for ab in lora_r.values() for t in ab.values()]
+    scale = tcfg.lora_alpha / tcfg.lora_rank
+    targets = lora_modules(unet, lora_r)
+    latents = batch["latents"][:1].permute(0, 3, 1, 2)
+    context = batch["context"][:1]
+    added = {k: v[:1] for k, v in batch["added_cond"].items()}
+    noise = draws["noise"][:1].permute(0, 3, 1, 2)
+    w = torch.tensor([7.0], device="cuda")
+
+    def identity_hook(probs, meta: AttnMeta):
+        return probs
+
+    def adapter_grad(hook=None):
+        def student(params, x, t, w_emb):
+            return call_with_lora(unet, base, lora_r, scale, x, t, context, w_cond=w_emb,
+                                  added_cond=added, attn_hook=hook, targets=targets)
+
+        def teacher_apply(params, x, t, w_emb):
+            return unet(x, t, context, w_cond=w_emb, added_cond=added)
+        loss, _ = reverse_cd_loss(student, None, teacher_apply, None, latents, noise, w, None, solver,
+                                  schedule, tcfg.loss, index=torch.tensor([5], device="cuda"))
+        return loss.item(), torch.cat([g.flatten() for g in torch.autograd.grad(loss, leaves)])
+
+    fa.reset_launch_counts()
+    loss_k, grad_k = adapter_grad()
+    counted = {name: fa.launches(name) for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")}
+    loss_p, grad_p = adapter_grad(hook=identity_hook)
+    check(counted == {"flash_fwd": 3 * 140, "flash_bwd_dq": 140, "flash_bwd_dkdv": 140},
+          f"reverse_cd_loss launches {counted}")
+    check(fa.launches("flash_fwd") == counted["flash_fwd"] + 140
+          and fa.launches("flash_bwd_dq") == 140 and fa.launches("flash_bwd_dkdv") == 140,
+          "the materialised path launched a backward kernel")
+    rel = ((grad_k - grad_p).norm() / grad_p.norm()).item()
+    print(f"  reverse_cd_loss adapter gradient (lazy, {grad_k.numel() / 1e6:.1f} M entries) at t=119, "
+          f"kernel path (B1 lse, B3, B4 at d = 64) vs materialised path: relative L2 {rel:.3e} "
+          f"(tol {GRAD_REL_TOL}); loss {loss_k:.6f} vs {loss_p:.6f}; |grad| {grad_p.norm().item():.3e}")
+    check(math.isfinite(rel) and rel <= GRAD_REL_TOL and grad_p.norm().item() > 0,
+          f"kernel-path gradient off by {rel}")
+    del grad_k, grad_p, leaves, lora_r, lora_f, unet, base
+    torch.cuda.empty_cache()
+    return cli_launches + step_launches
+
+
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     p.add_argument("--kernels-only", action="store_true",
@@ -2376,6 +2688,9 @@ def main(argv=None) -> int:
         sdxl_launches = phase_sdxl(card)
         torch.cuda.empty_cache()  # the SDXL bundle is gone
         train_launches = phase_training(card, pipe)
+        del pipe
+        torch.cuda.empty_cache()  # the SD1.5 bundle is gone
+        xl_train_launches = phase_xl_training(card)
     except Exception:  # report every phase failure and exit non-zero
         traceback.print_exc()
         return 1
@@ -2386,8 +2701,9 @@ def main(argv=None) -> int:
     # the batch each kernel ran at (NTI's at 1, the CFG-doubled DDIM's at 2,
     # its controlled pair's at 4, the VAE's at the prompts'), SDXL's counted
     # generate and invert (batch 1) and edited pair (batch 2) with the
-    # bf16-VAE opt-in's decodes, and three train steps (batch 2) for the rows
-    # at the generate's main batch
+    # bf16-VAE opt-in's decodes, three train steps (batch 2) for the rows
+    # at the generate's main batch, and the SDXL training phase's counted CLI
+    # and direct steps for the rows at its batch
     none = collections.Counter()
     for row in rows:
         key = (row["kernel"],) + tuple(row["shape"])
@@ -2396,7 +2712,8 @@ def main(argv=None) -> int:
                            + serve_launches.get(row["batch"], none)[key]
                            + baseline_launches.get(row["batch"], none)[key]
                            + sdxl_launches.get(row["batch"], none)[key]
-                           + (train_launches[key] if row["batch"] == BATCH else 0))
+                           + (train_launches[key] if row["batch"] == BATCH else 0)
+                           + (xl_train_launches[key] if row["batch"] == XL_TRAIN_BATCH else 0))
     # B5 runs on the harness path alone; its rows carry that path's launches
     rows += harness_rows
     missing = [r["name"] for r in rows if r["launches"] == 0]

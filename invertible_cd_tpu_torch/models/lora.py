@@ -11,14 +11,19 @@ in torch (kohya) layout:
 
 Merging gives W' = W + (alpha / r) * up∘down; it is differentiable in
 `down` and `up`, which is how training reaches the adapters
-(`merged_state_dict` + `call_with_state`).
+(`merged_state_dict` + `call_with_state`). `call_with_lora` is the lazy
+counterpart of `lora_interceptor` / `apply_with_lora`: it adds each
+adapter's low-rank path to its layer's output during the call, so no merged
+weight (and, under a gradient, no full-size weight gradient) exists.
 """
 from __future__ import annotations
 
+import functools
 import re
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.func import functional_call
 
 # Modules that receive adapters, in state-dict naming: attention q/k/v/out,
@@ -134,3 +139,69 @@ def call_with_state(module: torch.nn.Module, state: Dict[str, torch.Tensor], *ar
     place of the module's own parameters (no copy; gradients flow to whatever
     `state` was computed from)."""
     return functional_call(module, state, args, kwargs)
+
+
+# ---------------------------------------------------------------------------
+# Lazy application: adapters ride each layer call; merged weights (and their
+# full-size gradients) are never materialised
+# ---------------------------------------------------------------------------
+def lora_modules(module: torch.nn.Module, keys) -> Dict[str, torch.nn.Module]:
+    """State-dict key of each adapted weight -> the `nn.Linear` or
+    `nn.Conv2d` that owns it. A key with no such module is an error: the
+    lazy path never skips an adapter."""
+    out = {}
+    for key in keys:
+        name = key[: -len(".weight")] if key.endswith(".weight") else None
+        try:
+            mod = module.get_submodule(name) if name else None
+        except AttributeError:
+            mod = None
+        if not isinstance(mod, (torch.nn.Linear, torch.nn.Conv2d)):
+            raise ValueError(f"LoRA key {key!r} names no Linear or Conv2d weight of the module")
+        if isinstance(mod, torch.nn.Conv2d) and (mod.groups != 1 or mod.padding_mode != "zeros"):
+            raise ValueError(f"LoRA key {key!r}: grouped or non-zero-padded convolution")
+        out[key] = mod
+    return out
+
+
+def lora_path(mod: torch.nn.Module, x: torch.Tensor, down: torch.Tensor, up: torch.Tensor,
+              scale: float) -> torch.Tensor:
+    """scale * the adapter's low-rank path on the layer input `x`, in
+    `x.dtype` (both factors cast to it, as JAX casts them):
+      Linear: (x @ down^T) @ up^T;
+      Conv2d: `down` as a convolution at the layer's own stride, padding and
+              dilation, then the 1x1 contraction by `up` (NCHW).
+    Exactly linear in the weight, so the layer's output plus this equals the
+    layer with the merged weight W + scale * up∘down."""
+    down, up = down.to(x.dtype), up.to(x.dtype)
+    if isinstance(mod, torch.nn.Linear):
+        return scale * F.linear(F.linear(x, down), up)
+    h = F.conv2d(x, down, None, mod.stride, mod.padding, mod.dilation)
+    return scale * F.conv2d(h, up[:, :, None, None])
+
+
+def _add_lora_path(ab, scale, mod, inputs, output):
+    return output + lora_path(mod, inputs[0], ab["down"], ab["up"], scale).to(output.dtype)
+
+
+def call_with_lora(module: torch.nn.Module, state: Dict[str, torch.Tensor],
+                   lora: Dict[str, Dict[str, torch.Tensor]], scale: float, *args,
+                   targets: Optional[Dict[str, torch.nn.Module]] = None, **kwargs):
+    """`call_with_state(module, state, ...)` with each adapter's low-rank
+    path (`lora_path`) added to its layer's output: equal to the call on
+    `merge_lora(state, lora)` and differentiable in the adapters. The hooks
+    that add the paths are installed for this call only, so a function
+    that calls this is whole under `torch.utils.checkpoint`: its recompute
+    during backward installs them again. `targets` (`lora_modules` of the
+    adapters' keys) may be given to skip the lookup."""
+    if targets is None:
+        targets = lora_modules(module, lora)
+    handles = []
+    try:
+        for key, mod in targets.items():
+            handles.append(mod.register_forward_hook(
+                functools.partial(_add_lora_path, lora[key], scale)))
+        return functional_call(module, state, args, kwargs)
+    finally:
+        for h in handles:
+            h.remove()

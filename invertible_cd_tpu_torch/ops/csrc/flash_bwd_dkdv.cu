@@ -22,14 +22,14 @@
 // path. The earlier design (4 warps x 16 keys, mma.sync, every query tile
 // staged synchronously behind three barriers, delta recomputed from the O
 // tile by every key block) took 2.32 ms there. The Hopper design, at padded
-// head dims 48 and 80:
+// head dims 48, 64 (SDXL's d = 64) and 80:
 //   * one block owns a key tile of 128 keys, 64 per consumer warpgroup; the
 //     two warpgroups share each staged Q and dO tile, which halves what the
 //     blocks read through L2; K and V stay in shared memory for the whole
 //     query loop;
 //   * S^T = K Q^T and dP^T = V dO^T are wgmma.m64n64k16 with K and V as the
 //     A operand and the Q and dO tiles as B, all K-major;
-//   * dV += P^T dO and dK += dS^T Q are wgmma m64n48/n80k16 with P^T and
+//   * dV += P^T dO and dK += dS^T Q are wgmma m64n48/n64/n80k16 with P^T and
 //     dS^T straight from the accumulator registers as the A operand (as B1's
 //     P) and dO and Q read MN-major from the same tiles the first two
 //     products read K-major: no tile is staged twice and none transposed;
@@ -64,7 +64,7 @@
 
 namespace icd {
 
-// ---- Hopper route, padded head dims 48 and 80 ----
+// ---- Hopper route, padded head dims 48, 64 and 80 ----
 constexpr int kB4Warpgroups = 2;             // consumer warpgroups a block
 constexpr int kB4Keys = 64 * kB4Warpgroups;  // keys a block
 constexpr int kB4Rows = 64;                  // query rows a tile
@@ -561,6 +561,7 @@ extern "C" int icd_flash_bwd_dkdv(const void* q, const void* k, const void* v, c
                                   float scale, void* stream) {
   using namespace icd;
   if (d <= 48) return launch_b4<48>(q, k, v, o, dout, lse, dk, dv, work, batch, heads, sq, sk, d, scale, stream);
+  if (d <= 64) return launch_b4<64>(q, k, v, o, dout, lse, dk, dv, work, batch, heads, sq, sk, d, scale, stream);
   if (d <= 80) return launch_b4<80>(q, k, v, o, dout, lse, dk, dv, work, batch, heads, sq, sk, d, scale, stream);
   if (d <= 160) return launch_b4_mma<160>(q, k, v, o, dout, lse, dk, dv, batch, heads, sq, sk, d, scale, stream);
   if (d <= 256) return launch_b4_mma<256>(q, k, v, o, dout, lse, dk, dv, batch, heads, sq, sk, d, scale, stream);

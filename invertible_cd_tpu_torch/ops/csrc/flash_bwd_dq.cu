@@ -19,12 +19,12 @@
 // launch overhead rules. The earlier design (4 warps x 16 query rows,
 // mma.sync, K and V staged synchronously behind two barriers a tile, 64-row
 // blocks reading K and V Sq/64 times) took 1.06 ms there. The Hopper design,
-// at padded head dims 48 and 80, is B1's (flash_fwd.cu):
+// at padded head dims 48, 64 and 80, is B1's (flash_fwd.cu):
 //   * one block = 128 query rows of one (batch, head), two warpgroups of 64
 //     rows; the Q and dO tiles stay in shared memory for the whole key loop;
 //   * S = Q K^T and dP = dO V^T are wgmma.m64n64k16 over a 64-key tile, all
 //     operands K-major in shared memory;
-//   * dQ += dS K is wgmma m64n48/n80k16 with dS straight from the
+//   * dQ += dS K is wgmma m64n48/n64/n80k16 with dS straight from the
 //     accumulator registers as the A operand and K read MN-major from the
 //     tile the first product read K-major (as B1 reads V): no transposed copy;
 //   * K and V arrive through a ring of 3 stages filled with cp.async by all
@@ -36,8 +36,12 @@
 //     written out: B4 computes its own, so either kernel runs without the
 //     other.
 // A thread takes 116 registers at DP = 48, so two blocks share an SM as in
-// B1, and 148 at DP = 80, one block an SM. Nothing was tried beyond B1's
-// own alternatives (flash_fwd.cu), which this design inherits.
+// B1, and 148 at DP = 80, one block an SM. DP = 64 is SDXL's head dim (640
+// channels over 10 heads, 1280 over 20); its rows are 128 bytes, and the
+// layout (8x8 core matrices, no swizzle: LBO 128 bytes, SBO DP * 16) and the
+// descriptors are written in DP, so only the dispatch and the occupancy
+// below are its own. Nothing was tried beyond B1's own alternatives
+// (flash_fwd.cu), which this design inherits.
 // Keys past Sk get P = 0 on the ragged last tile (their K and V rows are
 // zero). Query rows past Sq have zero Q and dO rows; their dQ is never
 // stored.
@@ -50,14 +54,14 @@
 
 namespace icd {
 
-// ---- Hopper route, padded head dims 48 and 80 ----
+// ---- Hopper route, padded head dims 48, 64 and 80 ----
 constexpr int kB3Rows = 128;   // query rows per block: two warpgroups of 64
 constexpr int kB3Keys = 64;    // keys per tile
 constexpr int kB3Stages = 3;   // K/V tiles in the ring, loaded two ahead
 
 template <int DP>
 __host__ __device__ constexpr int b3_min_blocks() {
-  return DP <= 48 ? 2 : 1;
+  return DP <= 64 ? 2 : 1;
 }
 
 template <int DP>
@@ -391,6 +395,7 @@ extern "C" int icd_flash_bwd_dq(const void* q, const void* k, const void* v, con
                                 int heads, int sq, int sk, int d, float scale, void* stream) {
   using namespace icd;
   if (d <= 48) return launch_b3<48>(q, k, v, o, dout, lse, dq, batch, heads, sq, sk, d, scale, stream);
+  if (d <= 64) return launch_b3<64>(q, k, v, o, dout, lse, dq, batch, heads, sq, sk, d, scale, stream);
   if (d <= 80) return launch_b3<80>(q, k, v, o, dout, lse, dq, batch, heads, sq, sk, d, scale, stream);
   if (d <= 160) return launch_b3_mma<160>(q, k, v, o, dout, lse, dq, batch, heads, sq, sk, d, scale, stream);
   if (d <= 256) return launch_b3_mma<256>(q, k, v, o, dout, lse, dq, batch, heads, sq, sk, d, scale, stream);

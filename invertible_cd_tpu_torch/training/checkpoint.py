@@ -4,8 +4,10 @@ PyTorch counterpart of `save_checkpoint`, `latest_step` and
 `restore_checkpoint` in `invertible_cd_tpu/training/checkpoint.py`: every
 save writes both students' LoRA, both optimizer states and the step as one
 file `<ckpt_dir>/<step>/state.pt` (`torch.save` of plain dicts of tensors,
-ints and bools), and rotation keeps the newest `keep` checkpoints. The
-kohya-format export for inference waits for the kohya loader.
+ints and bools), and rotation keeps the newest `keep` checkpoints.
+`export_inference` / `load_inference_lora` write and read both students'
+adapters in kohya's safetensors format, the reference's inference artifact
+(written by the `safetensors` package, read by `models.convert`'s reader).
 """
 from __future__ import annotations
 
@@ -13,10 +15,11 @@ import dataclasses
 import os
 import re
 import shutil
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
+from ..models.convert import convert_lora_from_kohya, export_lora_to_kohya, load_torch_file
 from .trainer import ICDTrainState
 
 _FILE = "state.pt"
@@ -84,3 +87,28 @@ def restore_checkpoint(
     tree = torch.load(path, map_location=device, weights_only=True)
     _check_like("", tree, _as_dict(template))
     return ICDTrainState(**tree)
+
+
+def export_inference(out_dir: str, state: ICDTrainState, lora_alpha: float = 8.0) -> Dict[str, str]:
+    """Write both students' adapters as kohya-format LoRA safetensors:
+    `<out_dir>/unet_lora/lora_weights.safetensors` (reverse) and
+    `<out_dir>/forward_unet_lora/lora_weights.safetensors` (forward), the
+    JAX package's layout and keys. Returns name -> path."""
+    from safetensors.torch import save_file
+
+    paths = {}
+    for name, lora in (("unet_lora", state.lora_reverse), ("forward_unet_lora", state.lora_forward)):
+        d = os.path.join(out_dir, name)
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, "lora_weights.safetensors")
+        # the file holds each tensor's storage: a view must be made contiguous
+        flat = {k: v.contiguous() for k, v in export_lora_to_kohya(lora, alpha=lora_alpha).items()}
+        save_file(flat, path)
+        paths[name] = path
+    return paths
+
+
+def load_inference_lora(path: str):
+    """A kohya LoRA safetensors file back into (adapters, {key: alpha}), CPU
+    tensors (`models.convert.convert_lora_from_kohya`)."""
+    return convert_lora_from_kohya(load_torch_file(path))

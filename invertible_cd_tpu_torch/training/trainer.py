@@ -2,7 +2,14 @@
 
 PyTorch counterpart of `invertible_cd_tpu/training/trainer.py`. A step
   * merges each student's LoRA into the frozen base weights (fp32) and casts
-    the result to the UNet's compute dtype once per student,
+    the result to the UNet's compute dtype once per student, or, with
+    `lazy_lora`, adds each adapter's low-rank path to its layer's output
+    during every student call (`models.lora.call_with_lora`) on the base
+    weights in the compute dtype, so no merged copy and no full-size weight
+    gradient exists,
+  * passes SDXL's added conditioning (`batch["added_cond"]`) to every UNet
+    call, with the pooled text embeds zeroed for the unconditional teacher
+    call,
   * evaluates reverse/forward CD + both preserve losses,
   * takes gradients w.r.t. the two adapter dicts only,
   * applies two AdamW updates with global-norm clipping.
@@ -15,8 +22,9 @@ follows `optax.chain(clip_by_global_norm, adamw)` wrapped in
 `g if norm < max_norm else (g / norm) * max_norm`, bias correction by
 `1 - beta**count`, `eps` outside the root, decoupled weight decay.
 
-Waiting for later slices: a data-parallel mesh, lazy per-layer adapter
-application, SDXL's added conditioning.
+Waiting for a later slice: a data-parallel or sharded mesh. JAX's
+`split=True` (two compiled programs) has no counterpart: an eager step has
+no program to split.
 """
 from __future__ import annotations
 
@@ -28,7 +36,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..diffusion.schedule import NoiseSchedule
 from ..diffusion.solver import TrainSolver
-from ..models.lora import call_with_state, compute_dtypes, init_lora, merged_state_dict
+from ..models.lora import (
+    call_with_lora, call_with_state, compute_dtypes, init_lora, lora_modules, merged_state_dict)
 from . import losses as L
 
 Lora = Dict[str, Dict[str, torch.Tensor]]
@@ -57,6 +66,11 @@ class TrainConfig:
     use_reverse_preserve: bool = True
     # Rematerialise every student UNet call during backprop.
     remat: bool = False
+    # Apply the adapters lazily per layer (models.lora.call_with_lora)
+    # instead of merging them into a copy of the weights in every step; the
+    # same function up to rounding, without a merged copy per student or the
+    # merge's full-size weight gradients.
+    lazy_lora: bool = False
     # Store Adam's first moment in bf16.
     bf16_moments: bool = False
     # Skip an optimizer update whose gradients contain any non-finite value
@@ -210,6 +224,10 @@ def make_train_step(
     tensors, the compute dtype of every weight (`cast_compute_weights`);
     `base` is the frozen state dict the adapters merge into (fp32, or bf16
     to halve its memory) and `teacher` the teacher's; both stay unchanged.
+    Both are cast to the compute dtype once, here; a tensor already in it is
+    used as it is, and with `lazy_lora` a tensor that is both base and
+    teacher is cast once, so passing the UNet's own state dict for both
+    holds no copy.
 
     Returned signature:
       step_fn(state, batch, generator=None, draws=None) -> (new_state, metrics)
@@ -217,7 +235,9 @@ def make_train_step(
       latents: (B, h, w, 4) clean VAE latents (already scaled),
       context: (B, 77, D) prompt embeddings,
       uncond_context: (B, 77, D) (used only when not embed_guidance),
-      noise: (B, h, w, 4), optional.
+      noise: (B, h, w, 4), optional,
+      added_cond: SDXL's {"text_embeds": (B, P), "time_ids": (B, 6)},
+        required by a UNet config with `addition_embed_dim`.
     `generator` (on the batch's device) draws the noise, the guidance scales
     and the four losses' timestep indices; `draws` may give any of them
     instead, under the keys "noise", "w", "reverse_index", "forward_index",
@@ -226,12 +246,30 @@ def make_train_step(
     counters).
     """
     dtypes = compute_dtypes(unet)
-    teacher = {key: t.detach().to(dtypes[key]) for key, t in teacher.items()}
-    base = {key: t.detach() for key, t in base.items()}
+    casts: Dict[tuple, torch.Tensor] = {}
 
-    def apply_of(weights: Dict[str, torch.Tensor], context: torch.Tensor, remat: bool = False):
+    def compute_copy(key: str, t: torch.Tensor) -> torch.Tensor:
+        ident = (t.data_ptr(), t.dtype, tuple(t.shape), dtypes[key])
+        if ident not in casts:
+            casts[ident] = t.detach().to(dtypes[key])
+        return casts[ident]
+
+    teacher = {key: compute_copy(key, t) for key, t in teacher.items()}
+    if cfg.lazy_lora:
+        base = {key: compute_copy(key, t) for key, t in base.items()}
+    else:
+        base = {key: t.detach() for key, t in base.items()}
+    scale = cfg.lora_alpha / cfg.lora_rank
+
+    def apply_of(weights: Dict[str, torch.Tensor], context: torch.Tensor, added: Optional[Dict],
+                 lora: Optional[Lora] = None, targets=None, remat: bool = False):
+        """The denoiser on `weights` (+ `lora`'s low-rank paths, lazily)."""
         def apply(x, t, w_emb):
-            return call_with_state(unet, weights, x, t, context, w_cond=w_emb)
+            if lora is None:
+                return call_with_state(unet, weights, x, t, context, w_cond=w_emb,
+                                       added_cond=added)
+            return call_with_lora(unet, weights, lora, scale, x, t, context, w_cond=w_emb,
+                                  added_cond=added, targets=targets)
         if not remat:
             return apply
         return lambda x, t, w_emb: checkpoint(
@@ -241,12 +279,23 @@ def make_train_step(
         return merged_state_dict(
             base, lora, alpha=cfg.lora_alpha, rank=cfg.lora_rank, dtypes=dtypes)
 
+    def in_compute_dtype(lora: Lora) -> Lora:
+        return {key: {n: t.to(dtypes[key]) for n, t in ab.items()} for key, ab in lora.items()}
+
+    def detached(lora: Lora) -> Lora:
+        return {key: {n: t.detach() for n, t in ab.items()} for key, ab in lora.items()}
+
     def step_fn(state: ICDTrainState, batch: Dict, generator=None, draws: Optional[Dict] = None):
         draws = draws or {}
         latents = batch["latents"].permute(0, 3, 1, 2)  # the UNet runs NCHW
         device = latents.device
         context = batch["context"]
         uncond_context = batch.get("uncond_context", context)
+        added = batch.get("added_cond")
+        # the unconditional teacher call sees zeroed pooled embeds
+        # (reference train_icd_xl_lora.py:900-903)
+        added_u = None if added is None else dict(
+            added, text_embeds=torch.zeros_like(added["text_embeds"]))
         b = latents.shape[0]
         noise = draws.get("noise", batch.get("noise"))
         if noise is None:
@@ -261,15 +310,27 @@ def make_train_step(
                        [t.detach().requires_grad_(True) for t in _flat(state.lora_reverse)])
         lora_f = _like(state.lora_forward,
                        [t.detach().requires_grad_(True) for t in _flat(state.lora_forward)])
-        # Each student is merged once; the frozen counterpart the other
-        # objective sees is the same pre-step tensors, detached.
-        merged_r, merged_f = merged(lora_r), merged(lora_f)
-        student_r = apply_of(merged_r, context, cfg.remat)
-        student_f = apply_of(merged_f, context, cfg.remat)
-        frozen_r = apply_of({k: t.detach() for k, t in merged_r.items()}, context)
-        frozen_f = apply_of({k: t.detach() for k, t in merged_f.items()}, context)
-        teacher_apply = apply_of(teacher, context)
-        uncond_apply = apply_of(teacher, uncond_context)
+        if cfg.lazy_lora:
+            # the adapters ride the base weights' calls, cast to their
+            # layers' compute dtype once a step (JAX casts them in every
+            # call); the frozen counterpart the other objective sees is the
+            # same pre-step adapters, detached
+            targets = lora_modules(unet, lora_r)
+            lora_rc, lora_fc = in_compute_dtype(lora_r), in_compute_dtype(lora_f)
+            student_r = apply_of(base, context, added, lora_rc, targets, cfg.remat)
+            student_f = apply_of(base, context, added, lora_fc, targets, cfg.remat)
+            frozen_r = apply_of(base, context, added, detached(lora_rc), targets)
+            frozen_f = apply_of(base, context, added, detached(lora_fc), targets)
+        else:
+            # Each student is merged once; the frozen counterpart the other
+            # objective sees is the same pre-step tensors, detached.
+            merged_r, merged_f = merged(lora_r), merged(lora_f)
+            student_r = apply_of(merged_r, context, added, remat=cfg.remat)
+            student_f = apply_of(merged_f, context, added, remat=cfg.remat)
+            frozen_r = apply_of({k: t.detach() for k, t in merged_r.items()}, context, added)
+            frozen_f = apply_of({k: t.detach() for k, t in merged_f.items()}, context, added)
+        teacher_apply = apply_of(teacher, context, added)
+        uncond_apply = apply_of(teacher, uncond_context, added_u)
 
         def as_loss_apply(apply):
             return lambda params, x, t, w_emb: apply(x, t, w_emb)

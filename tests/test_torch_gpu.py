@@ -226,6 +226,11 @@ BACKWARD_SHAPES = [
     (1, 300, 400, 1, 40),     # batch x heads = 1, key tiles
 ] + [  # NTI's: the main path's eight shapes at batch 1
     (1, sq, sk, 8, d) for sq, d in ((4096, 40), (1024, 80), (256, 160), (64, 160)) for sk in (sq, 77)
+] + [  # SDXL training's, head dim 64 (B3 and B4's DP 64 route), at batch 2
+    (2, sq, sk, h, 64) for sq, h in ((4096, 10), (1024, 20)) for sk in (sq, 77)
+] + [
+    (1, 130, 200, 2, 64),     # DP 64 ragged on both sides
+    (2, 100, 77, 3, 56),      # head dim padded 56 -> 64, split
 ]
 
 
@@ -532,3 +537,70 @@ def test_tiny_bundle_served_on_the_card_matches_a_direct_generate(cuda):
     for got, row in zip(burst, want4.cpu().numpy()):
         assert (got == row).all()
     assert (lone == want1[0].cpu().numpy()).all()
+
+
+def test_lazy_lora_step_on_the_card_matches_the_merged_step(cuda):
+    """One train step of a small SDXL-like UNet (linear projections, added
+    conditioning, head dim 64 at level 1, so B1, B3 and B4 take their DP 64
+    routes), bf16 on the card, lazy against merged LoRA from one state and
+    draws: metrics within 5e-2 relative and the adapter gradients (Adam's
+    first moments) within 0.15 relative L2, `chip_smoke.py`'s limits (the
+    merged path rounds every W + dW to bf16, the lazy one W and the
+    low-rank path apart); both launch B3 and B4, as many times each."""
+    import dataclasses
+
+    from invertible_cd_tpu_torch.diffusion.schedule import make_schedule
+    from invertible_cd_tpu_torch.diffusion.solver import make_train_solver
+    from invertible_cd_tpu_torch.models.layers import cast_compute_weights, fan_in_init_
+    from invertible_cd_tpu_torch.models.lora import seeded_lora
+    from invertible_cd_tpu_torch.models.unet2d import UNet2DCondition, UNetConfig
+    from invertible_cd_tpu_torch.training import ICDTrainState, LossConfig, TrainConfig, make_train_step
+    from invertible_cd_tpu_torch.training.trainer import init_optimizer
+
+    cfg = UNetConfig(block_out_channels=(128, 256), cross_attn_blocks=(False, True),
+                     layers_per_block=1, num_heads=(2, 4), transformer_depth=(1, 2),
+                     cross_attention_dim=64, use_linear_projection=True, time_cond_proj_dim=8,
+                     addition_embed_dim=16 + 6 * 8, addition_time_embed_dim=8)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    with torch.device(cuda):
+        unet = UNet2DCondition(cfg)
+    fan_in_init_(unet, gen)
+    unet = cast_compute_weights(unet, torch.bfloat16).eval().requires_grad_(False)
+    base = unet.state_dict()
+    lora_r, lora_f = seeded_lora(base, gen, 8), seeded_lora(base, gen, 8)
+    for ab in (*lora_r.values(), *lora_f.values()):
+        ab["up"].mul_(0.1)
+    b = 2
+    batch = {"latents": torch.randn((b, 32, 32, 4), generator=gen, device=cuda),
+             "context": 0.1 * torch.randn((b, 77, 64), generator=gen, device=cuda),
+             "added_cond": {"text_embeds": 0.1 * torch.randn((b, 16), generator=gen, device=cuda),
+                            "time_ids": torch.tensor([[256.0, 256, 0, 0, 256, 256]] * b, device=cuda)}}
+    draws = {"noise": torch.randn((b, 32, 32, 4), generator=gen, device=cuda),
+             "w": torch.tensor([7.0, 11.0], device=cuda),
+             "reverse_index": torch.tensor([5, 12], device=cuda),
+             "forward_index": torch.tensor([5, 12], device=cuda),
+             "forward_preserve_index": torch.tensor([1, 2], device=cuda),
+             "reverse_preserve_index": torch.tensor([1, 2], device=cuda)}
+    schedule = make_schedule(device=cuda)
+    solver = make_train_solver(schedule.alphas_cumprod, num_endpoints=4, num_forward_endpoints=4,
+                               endpoints="0,249,499,699", forward_endpoints="249,499,699,999",
+                               device=cuda)
+    tcfg = TrainConfig(lora_rank=8, remat=True, loss=LossConfig(w_embed_dim=8))
+    out = {}
+    for lazy in (False, True):
+        mcfg = dataclasses.replace(tcfg, lazy_lora=lazy)
+        fn = make_train_step(unet, base, base, solver, schedule, mcfg)
+        state = ICDTrainState(0, lora_r, lora_f, init_optimizer(lora_r, mcfg), init_optimizer(lora_f, mcfg))
+        fa.reset_launch_counts()
+        new, metrics = fn(state, batch, None, draws)
+        torch.cuda.synchronize()
+        launches = {n: fa.launches(n) for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")}
+        mu = torch.cat([t.flatten() for o in (new.opt_reverse, new.opt_forward)
+                        for ab in o["mu"].values() for t in ab.values()])
+        out[lazy] = ({k: float(v) for k, v in metrics.items()}, mu, launches)
+    (m_merged, mu_merged, l_merged), (m_lazy, mu_lazy, l_lazy) = out[False], out[True]
+    assert l_lazy == l_merged and l_lazy["flash_bwd_dq"] == l_lazy["flash_bwd_dkdv"] > 0
+    for name, a in m_merged.items():
+        assert abs(m_lazy[name] - a) <= 5e-2 * abs(a), (name, a, m_lazy[name])
+    rel = ((mu_lazy - mu_merged).norm() / mu_merged.norm()).item()
+    assert rel <= 0.15, f"adapter gradients: relative L2 {rel:.3e}"

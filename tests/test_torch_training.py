@@ -8,6 +8,7 @@ adapters, the same numpy batch and noise, and the guidance scales and
 timestep indices that the JAX step draws from `jax.random.split(rng, 6)`.
 Tolerances are stated at each comparison.
 """
+import dataclasses
 import json
 import os
 
@@ -371,6 +372,52 @@ def test_remat_on_equals_off_and_generator_draws(both_steps, port_world, jax_wor
             for s in (3, 3, 4)]
     assert float(runs[0]["reverse_total_loss"]) == float(runs[1]["reverse_total_loss"])
     assert float(runs[0]["reverse_total_loss"]) != float(runs[2]["reverse_total_loss"])
+
+
+def test_lazy_step_matches_merged_step(both_steps, port_world, jax_world):
+    """The lazy path (`lazy_lora`) from the same state, batch and draws as
+    the merged step of `both_steps`, with JAX's own tolerance for the pair
+    (`tests/test_training.py::test_lazy_step_matches_merged_step`): every
+    metric within 5e-4 + 5e-4 |a| of the port's merged step and of JAX's,
+    the updated adapters within 5e-5. No JAX program is compiled here."""
+    pw = port_world
+    tcfg = dataclasses.replace(pw["tcfg"], lazy_lora=True)
+    step_fn = make_train_step(pw["unet"], pw["base"], pw["base"], pw["solver"], pw["schedule"], tcfg)
+    new, metrics = step_fn(_port_state(jax_world, tcfg), _torch_batch(both_steps["batch"]), None,
+                           both_steps["draws"])
+    for name in METRICS:
+        b = float(metrics[name])
+        for a in (float(both_steps["metrics"][name]), both_steps["want"]["metrics"][name]):
+            assert abs(a - b) < 5e-4 + 5e-4 * abs(a), (name, a, b)
+    for student in ("lora_reverse", "lora_forward"):
+        merged = _flat(getattr(both_steps["new"], student))
+        for name, t in _flat(getattr(new, student)).items():
+            assert float((t - merged[name]).abs().max()) < 5e-5, (student, name)
+
+
+def test_lazy_remat_equals_lazy_and_reaches_every_adapter(both_steps, port_world, jax_world):
+    """remat recomputes each checkpointed student call, and its adapters'
+    hooks with it: the same fp32 operations again (metrics rtol 1e-6,
+    adapters atol 1e-9). Every adapter of both students gets a gradient,
+    the convolutions' (3x3, 1x1 and the stride-2 downsampler's) included."""
+    pw = port_world
+    runs = {}
+    for remat in (False, True):
+        tcfg = dataclasses.replace(pw["tcfg"], lazy_lora=True, remat=remat)
+        step_fn = make_train_step(pw["unet"], pw["base"], pw["base"], pw["solver"], pw["schedule"], tcfg)
+        runs[remat] = step_fn(_port_state(jax_world, tcfg), _torch_batch(both_steps["batch"]), None,
+                              both_steps["draws"])
+    (plain, m_plain), (remat, m_remat) = runs[False], runs[True]
+    for name in METRICS:
+        np.testing.assert_allclose(float(m_remat[name]), float(m_plain[name]), rtol=1e-6, err_msg=name)
+    for student in ("lora_reverse", "lora_forward"):
+        for a, b in zip(_flat(getattr(remat, student)).values(), _flat(getattr(plain, student)).values()):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-9)
+    convs = [k for k, ab in remat.lora_reverse.items() if ab["down"].dim() == 4]
+    assert "down_blocks.0.downsamplers.0.conv.weight" in convs and len(convs) > 5
+    for opt in (remat.opt_reverse, remat.opt_forward):
+        no_grad = [k for k, ab in opt["mu"].items() if not (ab["down"].any() and ab["up"].any())]
+        assert not no_grad, no_grad
 
 
 # ---------------------------------------------------------------------------
