@@ -136,9 +136,13 @@ nothing of JAX. Phases, each of which must pass:
              `cli.train_icd.main --model sdxl --lazy_lora --remat --data_root`
              for three steps on a seeded folder of 1024^2 JPEGs with a
              train.csv (the fp32 VAE encode through B2's fp32 build, ViT-L and
-             bigG): exact launches, finite metrics under all eight names, a
-             checkpoint, both kohya exports read back by `load_inference_lora`
-             equal to the checkpoint's adapters; then `make_train_step` (lazy,
+             bigG), with the eval after step 3 on the same images as the val
+             set (XL_EVAL_CLI_FLAGS: the inversion eval, one validation panel
+             and two triptychs at the batch, with SDXL's added conditioning):
+             exact launches, finite metrics under all eight names and the
+             eval's three, its panels, a checkpoint, both kohya exports read
+             back by `load_inference_lora` equal to the checkpoint's
+             adapters; then `make_train_step` (lazy,
              remat) on synthetic batches with `added_cond`: exact launches of
              B1, B3 and B4 per (Sq, Sk, d) (14 x 140 B1 and 4 x 140 B3 and B4
              a step, `xl_step_launches`), base (= teacher) unchanged, step ms,
@@ -147,6 +151,36 @@ nothing of JAX. Phases, each of which must pass:
              within UNET_REL_TOL, gradients within LAZY_GRAD_TOL) with both
              peaks; and the adapter gradient of `reverse_cd_loss` through B1
              (lse), B3 and B4 at d = 64 against the materialised path;
+  5c. eval (after 5, on the generate path's bundle, before 5b frees it):
+             the metric suite at full width with seeded weights in fp32,
+             written as files in the published checkpoints' formats and read
+             back by `evaluators_from_weights` (FID-Inception, CLIP ViT-L/14
+             vision and its text tower projecting to 768, DINOv2 ViT-B/14,
+             VGG16 + LPIPS heads, ImageReward = BLIP ViT-L/16 + BERT-base with
+             a small vocab file): each scorer on 2 seeded images on the card
+             against the same files on the CPU (relative L2 <= SCORER_TOL;
+             the card's run with TF32 allowed by the caller, which the
+             scorers turn off themselves), the
+             FID of 8 seeded images against themselves, `fid_of_student` with
+             up = 0 adapters against the teacher's images from the same bundle
+             (|FID| < FID_TOL both), `eval_inversion` of 4 seeded latents with
+             the bundle's students (finite latent MSE and recon-FID), no launch
+             of the port's kernels from `calc_all` / `calc_inversion`;
+             `cli.train_icd.main` bare (three steps at batch 2, no eval) and
+             then with every eval flag on at step 3 (the FID sweep of 8
+             prompts, the inversion eval of 4, one validation panel at batch
+             2, two triptychs), its metrics.jsonl keys and panels (PNG files,
+             or TensorBoard events where `torch.utils.tensorboard` imports);
+             the generate CLI in a subprocess and the
+             edit CLI through `main(_pipe=...)`, both with `--calc_metrics`
+             and every scorer flag: every metric finite. Exact launches per
+             (kernel, Sq, Sk, d) and batch for each counted run, derived from
+             the config and the grid (a generate 4 x 32 B1 + 1 B2; a round
+             trip 8 x 32 B1); times (Inception features of 8 images, each
+             scorer per image, `calc_all` per pair, `fid_of_student` over 8
+             prompts, the eval-enabled CLI against its three bare steps run
+             just before it, and the time of each eval hook inside it) and
+             peak memory with the scorers resident;
   6. harness (run between phases 3 and 4): `cli.exp_softmax.main` runs
              kernel B5's five softmax variants at the tool's headline shape
              (G=128, S=4096, D=64) and the port's (G=32, S=4096, D=40),
@@ -173,7 +207,10 @@ nothing of JAX. Phases, each of which must pass:
      4c (batch 1: generate, invert, the served request and the bf16 opt-in's
      decode; batch 2:
      the edited pair and its opt-in decode), plus phase 5b's counted CLI and
-     direct steps at its batch; B5's rows carry the harness's.
+     direct steps at its batch; plus phase 5c's counted eval runs at the
+     batch each kernel ran at (its FID sweeps at 8, the batch-8 rows' only
+     launches; the train CLI's steps with phase 5's, on the batch-4 rows);
+     B5's rows carry the harness's.
 
 `--kernels-only` runs phases 1-3 and the harness (6) and prints the kernel
 rows; `--package-root DIR` imports the package (and builds its kernels) from
@@ -198,6 +235,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import math
 import os
@@ -325,11 +363,18 @@ SHAPES = [
     for b in (1, 2)
 ] + [  # the DDIM baselines' CFG batch 2 leaves the cross layers unhooked
     ("flash_fwd", 2, sq, 77, 8, d) for sq, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))
-]
+] + [  # the eval's FID sweeps (phase 5c) generate at batch 8
+    ("flash_fwd", 8, sq, sk, 8, d) for sq, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))
+    for sk in (sq, 77)
+] + [("flash_fwd_streamed", 8, 4096, 4096, 1, 512)]
 # the SDXL training phase (5b): its batch (the reference's is 8,
 # configs/train_sdxl_lora.json) and steps
 XL_TRAIN_BATCH = 2
 XL_TRAIN_STEPS = 3
+XL_EVAL_CLI_FLAGS = [  # phase 5b's eval, at its last step, at its batch; no FID files
+    "--validation_steps", str(XL_TRAIN_STEPS), "--validation_prompts_max", "1",
+    "--validation_batch", str(XL_TRAIN_BATCH), "--inversion_validation_samples", str(XL_TRAIN_BATCH),
+    "--inversion_eval_steps", str(XL_TRAIN_STEPS), "--inversion_eval_samples", str(XL_TRAIN_BATCH)]
 XL_RESOLUTION = 1024
 # (batch, Sq, Sk, heads, head dim) of B3 and B4: the train step's eight shapes
 # (at the generate's batch) and NTI's (batch 1); then SDXL's training shapes
@@ -2371,6 +2416,410 @@ def phase_training(card: str, pipe):
     return shape_launches
 
 
+# ---- phase 5c: eval and metrics ----
+SCORER_SEED = 5
+SCORER_TOL = 1e-3  # relative L2, each scorer's output on the card vs the CPU, fp32 both
+EVAL_HOOKS = ("fid", "inversion", "validation", "inversion_panels")  # train_icd.Eval's
+FID_TOL = 1e-2  # |FID| of a set against itself, and of the up = 0 student against the teacher
+EVAL_IMAGES = 8  # the FID sets: seeded images, and the prompts of one FID sweep (its batch: 8)
+EVAL_LATENTS = 4  # eval_inversion's seeded latents (one chunk)
+FID_PROMPTS = "benchmarks/generation_coco_standin.csv"
+EVAL_CLI_FLAGS = [  # the eval of the train CLI, all at its last step
+    "--validation_steps", str(TRAIN_STEPS), "--validation_prompts_max", "1",
+    "--validation_batch", "2", "--inversion_validation_samples", "2",
+    "--inversion_eval_steps", str(TRAIN_STEPS), "--inversion_eval_samples", "4",
+    "--evaluation_steps", str(TRAIN_STEPS), "--fid_num_samples", str(EVAL_IMAGES),
+    "--fid_prompts", FID_PROMPTS]
+SCORER_FLAGS = ("inception_weights", "clip_vision_weights", "clip_text_scorer_weights",
+                "dino_weights", "vgg_weights", "lpips_heads_weights", "image_reward_weights",
+                "bert_vocab")
+
+
+def scorer_outputs(ev, fid, images01, images_u8, prompts):
+    """Each scorer's output on the same inputs, as fp32 CPU tensors: the
+    FID-Inception features, the unit CLIP image and text features, the unit
+    DINOv2 features, LPIPS per pair (images vs their flip) and ImageReward
+    per image."""
+    import numpy as np
+    import torch
+
+    from invertible_cd_tpu_torch.metrics.resize import resize
+
+    flipped = np.ascontiguousarray(images01[:, :, ::-1])
+    with torch.inference_mode():
+        dev = next(ev.lpips.parameters()).device
+        a, b = (resize(torch.from_numpy(x).to(dev).permute(0, 3, 1, 2), (224, 224), "bilinear")
+                for x in (images01, flipped))
+        lpips = ev.lpips(a * 2 - 1, b * 2 - 1)
+    out = {"inception": torch.from_numpy(fid.features(images_u8)),
+           "clip_image": ev.clip_image_features(images01), "clip_text": ev.clip_text_features(prompts),
+           "dino": ev.dino_features(images01), "lpips": lpips,
+           "image_reward": torch.from_numpy(ev.image_reward_fn(images01, prompts))}
+    return {k: v.float().cpu() for k, v in out.items()}
+
+
+@contextlib.contextmanager
+def timed_eval_hooks():
+    """Sum the wall time of each call of `train_icd.Eval`'s hooks
+    (EVAL_HOOKS; the device synchronised on both sides) into the dict
+    yielded, by hook, while the block runs."""
+    import torch
+
+    from invertible_cd_tpu_torch.cli import train_icd
+
+    times, saved = collections.Counter(), {name: getattr(train_icd.Eval, name) for name in EVAL_HOOKS}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                times[name] += time.perf_counter() - t0
+        return call
+
+    for name, fn in saved.items():
+        setattr(train_icd.Eval, name, timed(name, fn))
+    try:
+        yield times
+    finally:
+        for name, fn in saved.items():
+            setattr(train_icd.Eval, name, fn)
+
+
+def tensorboard_sink() -> bool:
+    """Whether `utils.logging.MetricLogger` sends its panels to TensorBoard
+    here (it does whenever `torch.utils.tensorboard` imports) rather than
+    to PNG files."""
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def check_panels(log_dir: str, names, step: int) -> str:
+    """The train CLI's eval panels under `log_dir`: PNG files named by tag
+    and step, or, on the TensorBoard sink, an event file."""
+    if tensorboard_sink():
+        events = [f for f in os.listdir(log_dir) if f.startswith("events.out.tfevents")]
+        check(events and all(os.path.getsize(os.path.join(log_dir, f)) for f in events),
+              f"no TensorBoard events under {log_dir}")
+        return f"TensorBoard events {events}"
+    samples = sorted(os.listdir(os.path.join(log_dir, "samples")))
+    check(len(samples) == len(names) and all(
+        f.startswith(n) and f.endswith(f"_{step}.png") for f, n in zip(samples, sorted(names))),
+        f"panels {samples}, expected {sorted(names)} at step {step}")
+    return f"PNG panels {samples}"
+
+
+def phase_eval(card: str, pipe):
+    """Phase 5c: the metric suite and the training eval at full width, on the
+    generate path's SD1.5 bundle. Launch counts are reset just before each
+    counted run and read just after; returns the launches per (kernel, Sq,
+    Sk, d) by the batch each kernel ran at, and the train CLI's step
+    launches (batch TRAIN_BATCH) apart."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from invertible_cd_tpu_torch import testing
+    from invertible_cd_tpu_torch.cli import edit as edit_cli
+    from invertible_cd_tpu_torch.cli import train_icd
+    from invertible_cd_tpu_torch.data import load_benchmark
+    from invertible_cd_tpu_torch.edit import make_controller
+    from invertible_cd_tpu_torch.metrics import FIDScorer
+    from invertible_cd_tpu_torch.metrics.scores import evaluators_from_weights
+    from invertible_cd_tpu_torch.models.convert import convert_inception_weights, load_torch_file
+    from invertible_cd_tpu_torch.models.lora import init_lora
+    from invertible_cd_tpu_torch.ops import flash_attention as fa
+    from invertible_cd_tpu_torch.training.eval import (
+        eval_inversion, fid_of_student, forward_sample, reverse_sample, sample_for_fid)
+
+    cfg, side = pipe.unets["reverse"].cfg, pipe.latent_size[0]
+    n_hops = pipe.grid.num_reverse_steps
+    pix = side * 2 ** (len(pipe.vae.cfg.block_out_channels) - 1)
+    per_call = unet_launches_per_call(cfg, side)
+    vae = collections.Counter({("flash_fwd_streamed", side * side, side * side,
+                                pipe.vae.cfg.block_out_channels[-1]): 1})
+
+    def calls(k, decodes=0):  # k UNet calls and `decodes` VAE decodes
+        return collections.Counter({key: k * c for key, c in per_call.items()}) + collections.Counter(
+            {key: decodes * c for key, c in vae.items()})
+
+    def counted():
+        return collections.Counter(fa.LAUNCH_SHAPES)
+
+    def totals(counter):
+        return {name: sum(c for key, c in counter.items() if key[0] == name)
+                for name in fa.KERNELS if any(key[0] == name for key in counter)}
+
+    def rel_l2(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    by_batch = collections.defaultdict(collections.Counter)
+    report = {"phase": "5c eval", "card": card}
+    rng = np.random.default_rng(61)
+    images_u8 = rng.integers(0, 256, (EVAL_IMAGES, pix, pix, 3), dtype=np.uint8)
+    images01 = images_u8.astype(np.float32) / 255.0
+    prompts = load_benchmark(FID_PROMPTS, kind="generation", max_count=EVAL_IMAGES)
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- 1. full-width scorers from seeded files in the published formats ----
+        t0 = time.perf_counter()
+        paths = testing.write_scorer_files(tmp, tiny=False, seed=SCORER_SEED, device="cuda")
+        files_s = time.perf_counter() - t0
+        flags = [f"--{flag}={paths[flag]}" for flag in SCORER_FLAGS]
+        loaders = dict(clip_vision_path=paths["clip_vision_weights"],
+                       clip_text_path=paths["clip_text_scorer_weights"],
+                       dino_path=paths["dino_weights"], vgg_path=paths["vgg_weights"],
+                       lpips_heads_path=paths["lpips_heads_weights"],
+                       image_reward_path=paths["image_reward_weights"],
+                       bert_vocab_path=paths["bert_vocab"])
+        inception = convert_inception_weights(load_torch_file(paths["inception_weights"]))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ev = evaluators_from_weights(**loaders, device="cuda")
+        fid = FIDScorer.from_state_dict(inception, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        ev_cpu = evaluators_from_weights(**loaders, device="cpu")
+        fid_cpu = FIDScorer.from_state_dict(inception, device="cpu")
+        n_params = {name: sum(p.numel() for p in m.parameters()) for name, m in (
+            ("inception", fid.model), ("clip_vision", ev.clip_vision), ("clip_text", ev.clip_text),
+            ("dino", ev.dino), ("lpips", ev.lpips))}
+        print(f"eval: full-width scorers with seeded weights ({n_params}; ImageReward = BLIP "
+              f"ViT-L/16 + BERT-base): published-format files written in {files_s:.1f} s, read "
+              f"onto the card in {load_s:.1f} s ({card})")
+
+        # ---- 2. each scorer on the card against the same weights on the CPU, 2 images ----
+        # with TF32 allowed for convolutions (PyTorch's default, which the
+        # CLIs keep) and matmuls: the scorers turn both off themselves
+        # (`metrics.precision.fp32_products`)
+        saved_tf32 = torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+        torch.backends.cudnn.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        try:
+            gpu = scorer_outputs(ev, fid, images01[:2], images_u8[:2], prompts[:2])
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved_tf32[0]
+            torch.set_float32_matmul_precision(saved_tf32[1])
+        cpu = scorer_outputs(ev_cpu, fid_cpu, images01[:2], images_u8[:2], prompts[:2])
+        errs = {k: rel_l2(gpu[k], cpu[k]) for k in gpu}
+        print("  card (TF32 allowed by the caller) vs CPU, fp32 both (relative L2, tol "
+              + f"{SCORER_TOL}): " + ", ".join(
+                  f"{k} {e:.2e} (|cpu| {cpu[k].norm().item():.3e})" for k, e in errs.items()))
+        check(all(math.isfinite(e) and e <= SCORER_TOL for e in errs.values()),
+              f"a scorer disagrees card vs CPU: {errs}")
+        report["scorer_rel_l2"] = errs
+        del ev_cpu, fid_cpu
+        ms = {}
+        with torch.inference_mode():
+            ms["inception_features_8_images"] = cuda_ms(lambda: fid.features(images_u8), per_loop=1)
+            x2 = images01[:2]
+            for name, fn in (("clip_image", lambda: ev.clip_image_features(x2)),
+                             ("clip_text", lambda: ev.clip_text_features(prompts[:2])),
+                             ("dino", lambda: ev.dino_features(x2)),
+                             ("lpips", lambda: ev.lpips_distance(x2, x2[:, ::-1])),
+                             ("image_reward", lambda: ev.image_reward_fn(x2, prompts[:2]))):
+                ms[f"{name}_per_image"] = cuda_ms(fn, per_loop=1) / 2
+
+        # ---- 3. FID: a set against itself ----
+        self_fid = fid.fid(list(images_u8), reference_images=list(images_u8))
+        print(f"  FID of {EVAL_IMAGES} seeded images against themselves: {self_fid:.3e} "
+              f"(tol {FID_TOL})")
+        check(abs(self_fid) < FID_TOL, f"self-FID {self_fid}")
+
+        # ---- 4. fid_of_student with up = 0 adapters against the teacher's images ----
+        zero = init_lora(pipe.unets["teacher"].state_dict(),
+                         torch.Generator(device="cuda").manual_seed(62), rank=64)
+        check(all(not ab["up"].any() for ab in zero.values()), "an up of the zero adapters is not 0")
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        reference = sample_for_fid(
+            lambda batch, g: pipe.generate(list(batch), generator=g, model="teacher")[0],
+            prompts, EVAL_IMAGES, seed=0, device="cuda")
+        ref_launches = counted()
+        fa.reset_launch_counts()
+        t1 = time.perf_counter()
+        student_fid = fid_of_student(pipe, zero, fid, prompts, batch_size=EVAL_IMAGES,
+                                     reference_images=reference)
+        torch.cuda.synchronize()
+        ms["fid_of_student_8_prompts"] = (time.perf_counter() - t1) * 1e3
+        student_launches = counted()
+        print(f"  fid_of_student (up = 0 adapters on the teacher, {EVAL_IMAGES} prompts at batch "
+              f"{EVAL_IMAGES}) against the teacher's images: FID {student_fid:.3e} (tol {FID_TOL}); "
+              f"the reference sweep {(t1 - t0) * 1e3:.0f} ms")
+        check(abs(student_fid) < FID_TOL, f"fid_of_student(up=0) {student_fid}")
+        check(pipe.unets["reverse"].__class__.__name__ == "UNet2DCondition",
+              "fid_of_student did not restore the reverse UNet")
+        for label, got in (("reference sweep", ref_launches), ("fid_of_student", student_launches)):
+            check(got == calls(n_hops, 1), f"{label}: launches {dict(got)} != {dict(calls(n_hops, 1))}")
+            by_batch[EVAL_IMAGES] += got
+
+        # ---- 5. eval_inversion on seeded latents, the bundle's students ----
+        g = torch.Generator(device="cuda").manual_seed(63)
+        latents = torch.randn((EVAL_LATENTS, side, side, 4), generator=g, device="cuda")
+        context = pipe.encode_prompt(prompts[:EVAL_LATENTS])[1]
+        g0 = pipe.default_guidance(guidance_scale=0.0)
+
+        def invert_fn(chunk, gen, ctx):
+            noise = torch.randn(chunk.shape, generator=gen, device="cuda")
+            return forward_sample(pipe._noise_model(pipe.unets["forward"]), chunk, noise, ctx, ctx,
+                                  pipe.grid, pipe.schedule, pipe.w_embed_dim)
+
+        def reconstruct_fn(noisy, gen, ctx):
+            return reverse_sample(pipe._noise_model(pipe.unets["reverse"]), noisy, ctx, ctx,
+                                  pipe.grid, pipe.schedule, g0)
+
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            inv = eval_inversion(invert_fn, reconstruct_fn, latents, batch_size=EVAL_LATENTS,
+                                 decode_fn=lambda z: pipe._decode_latents(z.permute(0, 3, 1, 2)),
+                                 scorer=fid, reference_images=reference, val_context=context)
+        ms["eval_inversion_4_latents"] = (time.perf_counter() - t0) * 1e3
+        inv_launches = counted()
+        print(f"  eval_inversion of {EVAL_LATENTS} seeded latents: {inv}")
+        check(set(inv) == {"inversion_latent_mse", "inversion_fid"}
+              and all(math.isfinite(v) for v in inv.values()), f"eval_inversion {inv}")
+        want = calls(2 * n_hops, 1)
+        check(inv_launches == want, f"eval_inversion launches {dict(inv_launches)} != {dict(want)}")
+        by_batch[EVAL_LATENTS] += inv_launches
+
+        # ---- 6. the scorers launch no kernel of the port ----
+        edited01 = np.ascontiguousarray(images01[:1, ::-1])
+        fa.reset_launch_counts()
+        bundle = ev.calc_all(images01[:1], edited01, [EDIT_SOURCE], [EDIT_TARGET])
+        inversion = ev.calc_inversion(images01[:1], edited01)
+        scorer_launches = counted()
+        print(f"  calc_all {bundle}; calc_inversion {inversion}; launches {dict(scorer_launches)}")
+        check(not scorer_launches, f"the scorers launched {dict(scorer_launches)}")
+        check(all(v is not None and math.isfinite(v) for v in (*bundle.values(), *inversion.values())),
+              "a metric of calc_all / calc_inversion is missing or not finite")
+        ms["calc_all_per_pair"] = cuda_ms(
+            lambda: ev.calc_all(images01[:1], edited01, [EDIT_SOURCE], [EDIT_TARGET]), per_loop=1)
+        report["peak_gib_scorers_resident"] = torch.cuda.max_memory_allocated() / 2**30
+        del ev, fid
+        torch.cuda.empty_cache()
+
+        # ---- 7. the train CLI with every eval on, at full SD1.5 width, and bare ----
+        feats = np.random.default_rng(64).normal(size=(64, 2048))
+        stats = os.path.join(tmp, "fid_stats.npz")
+        np.savez(stats, mu=feats.mean(0), sigma=np.cov(feats, rowvar=False))
+        bare = ["--model", "sd15", "--synthetic_data", "--batch_size", str(TRAIN_BATCH),
+                "--max_steps", str(TRAIN_STEPS), "--log_every", "1", "--validation_steps", "0"]
+        step_launches = collections.Counter()
+        for tokens, layers in LAYERS_PER_CALL.items():
+            d = HEAD_DIM[tokens]
+            for sk in (tokens, 77):
+                step_launches[("flash_fwd", tokens, sk, d)] = 11 * layers * TRAIN_STEPS
+                step_launches[("flash_bwd_dq", tokens, sk, d)] = 4 * layers * TRAIN_STEPS
+                step_launches[("flash_bwd_dkdv", tokens, sk, d)] = 4 * layers * TRAIN_STEPS
+        # the bare three steps in the same warm process, just before: the
+        # eval's cost is the difference, and the hooks' own times
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        train_icd.main(bare + ["--output_dir", os.path.join(tmp, "bare")])
+        torch.cuda.synchronize()
+        bare_s = time.perf_counter() - t0
+        bare_launches = counted()
+        check(bare_launches == step_launches,
+              f"bare train CLI launches {dict(bare_launches)} != {dict(step_launches)}")
+        out_dir = os.path.join(tmp, "train")
+        argv = bare[:-2] + ["--output_dir", out_dir, "--fid_stats", stats,
+                            "--inception_weights", paths["inception_weights"], *EVAL_CLI_FLAGS]
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        with timed_eval_hooks() as hook_s:
+            train_icd.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        cli_launches = counted()
+        with open(os.path.join(out_dir, "logs", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        logged = {k: v for row in rows if row["step"] == TRAIN_STEPS for k, v in row.items()}
+        names = ("eval/fid", "eval/inversion_latent_mse", "eval/inversion_fid",
+                 "validation_image_std", "inversion_panel_latent_mse")
+        print(f"  train CLI with the eval flags ({' '.join(EVAL_CLI_FLAGS)}): {cli_s:.1f} s against "
+              f"{bare_s:.1f} s for its three bare steps just before; the eval hooks "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in hook_s.items())
+              + f" (sum {sum(hook_s.values()):.2f} s); " + ", ".join(f"{k} {logged.get(k)}" for k in names))
+        check(all(k in logged and math.isfinite(logged[k]) for k in names),
+              f"metrics.jsonl at step {TRAIN_STEPS}: {logged}")
+        print("  " + check_panels(os.path.join(out_dir, "logs"), (
+            "inversion_sample_0", "inversion_sample_1", "validation_"), TRAIN_STEPS))
+        # the eval after step 3: the FID sweep (one generate at batch 8), the
+        # inversion eval (round trip + decode at batch 4), the validation panel
+        # (a generate at batch 2) and the triptychs (round trip + 3 decodes, batch 2)
+        eval_by_batch = {EVAL_IMAGES: calls(n_hops, 1), 4: calls(2 * n_hops, 1),
+                         2: calls(n_hops, 1) + calls(2 * n_hops, 3)}
+        want = step_launches + sum(eval_by_batch.values(), collections.Counter())
+        check(cli_launches == want, f"train CLI launches {dict(cli_launches)} != {dict(want)}")
+        for b, c in eval_by_batch.items():
+            by_batch[b] += c
+        step_launches += bare_launches
+        report["train_cli"] = {"wall_s": cli_s, "bare_wall_s": bare_s,
+                               "eval_hook_s": dict(hook_s),
+                               "metrics": {k: logged[k] for k in names},
+                               "launches": totals(cli_launches)}
+
+        # ---- 8. the generate CLI (subprocess) and the edit CLI with --calc_metrics ----
+        gen_out = os.path.join(tmp, "generate")
+        cmd = [sys.executable, "-m", "invertible_cd_tpu_torch.cli.generate", "--model", "sd15",
+               "--prompt", GENERATE_CLI_PROMPTS[0], "--prompt", GENERATE_CLI_PROMPTS[1],
+               "--out", gen_out, "--calc_metrics", *flags, f"--fid_stats={stats}"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+        gen_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"generate CLI exit {proc.returncode}: {proc.stderr[-3000:]}")
+        with open(os.path.join(gen_out, "metrics.json")) as f:
+            gen_metrics = json.load(f)
+        print(f"  generate CLI --calc_metrics (subprocess, its own seeded bundle): {gen_s:.1f} s, "
+              f"metrics.json {gen_metrics}")
+        check(set(gen_metrics) == {"clip_score", "image_reward", "n_images", "fid"}
+              and all(isinstance(v, (int, float)) and math.isfinite(v) for v in gen_metrics.values()),
+              f"generate CLI metrics.json {gen_metrics}")
+        image_path = os.path.join(tmp, "in.jpg")
+        Image.fromarray(images_u8[0]).save(image_path)
+        edit_out = os.path.join(tmp, "edit")
+        spec = make_controller([EDIT_SOURCE, EDIT_TARGET], pipe.tokenizer, n_hops,
+                               cross_replace_steps=0.6, self_replace_steps=0.4,
+                               blend_words=[["corgi"], ["cat"]])[0]
+        invert, pair = edit_path_launches(spec, n_hops, per_call, next(iter(vae)))
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        edit_cli.main(["--model", "sd15", "--image", image_path, "--source", EDIT_SOURCE,
+                       "--target", EDIT_TARGET, "--out", edit_out, "--calc_metrics", *flags],
+                      _pipe=pipe)
+        torch.cuda.synchronize()
+        edit_s = time.perf_counter() - t0
+        edit_launches = counted()
+        with open(os.path.join(edit_out, "results.json")) as f:
+            edit_metrics = json.load(f)["metrics"]
+        print(f"  edit CLI --calc_metrics (main, the bundle): {edit_s:.1f} s, metrics {edit_metrics}")
+        check(set(edit_metrics) == {"preservation_clip_image_image", "preservation_dinov2",
+                                    "editing_clip_image_text", "editing_image_reward"}
+              and all(v is not None and math.isfinite(v) for v in edit_metrics.values()),
+              f"edit CLI metrics {edit_metrics}")
+        check(edit_launches == invert + pair,
+              f"edit CLI launches {dict(edit_launches)} != {dict(invert + pair)}")
+        by_batch[1] += invert
+        by_batch[2] += pair
+    report["generate_cli"] = {"wall_s": gen_s, "metrics": gen_metrics}
+    report["edit_cli"] = {"wall_s": edit_s, "metrics": edit_metrics}
+    report["ms"] = ms
+    report["launches_by_batch"] = {b: totals(c) for b, c in by_batch.items()}
+    print("  times (ms; per image where so named): " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+          + f"; peak memory with the scorers resident {report['peak_gib_scorers_resident']:.2f} GiB "
+            f"({card})")
+    print(json.dumps(report))
+    return by_batch, step_launches
+
+
 def xl_step_launches(per_call, steps: int, remat: bool):
     """Kernel launches per (kernel, Sq, Sk, d) of `steps` train steps:
     B1 on every layer of 11 UNet forwards a step (reverse_cd 3: student,
@@ -2457,26 +2906,49 @@ def phase_xl_training(card: str):
         out = os.path.join(tmp, "run")
         os.makedirs(data)
         seeded_image_folder(data, XL_TRAIN_STEPS * b, resolution)
+        shutil.copy(os.path.join(data, "train.csv"), os.path.join(data, "val.csv"))
         torch.cuda.reset_peak_memory_stats()
         # ---- the CLI's steps: counts reset just before, read just after ----
         fa.reset_launch_counts()
         t0 = time.perf_counter()
-        last = train_icd.main(common + [
-            "--data_root", data, "--max_steps", str(XL_TRAIN_STEPS), "--checkpointing_steps",
-            str(XL_TRAIN_STEPS), "--checkpoints_total_limit", "1", "--output_dir", out])
+        with timed_eval_hooks() as hook_s:
+            last = train_icd.main(common + [
+                "--data_root", data, "--max_steps", str(XL_TRAIN_STEPS), "--checkpointing_steps",
+                str(XL_TRAIN_STEPS), "--checkpoints_total_limit", "1", "--output_dir", out,
+                *XL_EVAL_CLI_FLAGS])
         torch.cuda.synchronize()
         cli_launches = collections.Counter(fa.LAUNCH_SHAPES)
         # --------------------------------------------------------------------
         cli_s = time.perf_counter() - t0
         cli_peak = torch.cuda.max_memory_allocated() / 2**30
-        want_cli = want_steps + collections.Counter({vae_key: XL_TRAIN_STEPS * -(-b // 4)})
-        print(f"  cli.train_icd.main --model sdxl --lazy_lora --remat --data_root: {XL_TRAIN_STEPS} "
-              f"steps at batch {b} in {cli_s:.1f} s (weights, encoders, encodes, checkpoint and "
-              f"exports included), peak {cli_peak:.2f} GiB ({card})")
+        # the eval after the last step, all at batch b: the val set's encode,
+        # the inversion eval's round trip (no decode without the FID files),
+        # the validation panel (a generate and its decode) and the triptychs
+        # (a round trip and 3 decodes), on the training endpoints' grid
+        n_hops = len(train_icd.parse_args(common + ["--output_dir", "x"]).endpoints.split(","))
+        want_eval = collections.Counter({k: 5 * n_hops * c for k, c in per_call.items()})
+        want_eval[vae_key] += 5
+        want_cli = (want_steps + want_eval
+                    + collections.Counter({vae_key: XL_TRAIN_STEPS * -(-b // 4)}))
+        print(f"  cli.train_icd.main --model sdxl --lazy_lora --remat --data_root "
+              f"{' '.join(XL_EVAL_CLI_FLAGS)}: {XL_TRAIN_STEPS} steps at batch {b} in {cli_s:.1f} s "
+              f"(weights, encoders, encodes, the eval, checkpoint and exports included; the eval "
+              f"hooks " + ", ".join(f"{k} {v:.2f} s" for k, v in hook_s.items())
+              + f"), peak {cli_peak:.2f} GiB ({card})")
         print(f"  launches: {dict(cli_launches)}")
         check(cli_launches == want_cli, f"CLI launches {dict(cli_launches)} != {dict(want_cli)}")
         check(all(name in last and math.isfinite(last[name]) for name in METRIC_NAMES),
               f"CLI metrics missing or not finite: {last}")
+        with open(os.path.join(out, "logs", "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        logged = {k: v for row in rows if row["step"] == XL_TRAIN_STEPS for k, v in row.items()}
+        names = ("eval/inversion_latent_mse", "validation_image_std", "inversion_panel_latent_mse")
+        print("  the eval at step " + f"{XL_TRAIN_STEPS}: " + ", ".join(
+            f"{k} {logged.get(k)}" for k in names) + "; " + check_panels(
+            os.path.join(out, "logs"), ("inversion_sample_0", "inversion_sample_1", "validation_"),
+            XL_TRAIN_STEPS))
+        check(all(k in logged and math.isfinite(logged[k]) for k in names),
+              f"metrics.jsonl at step {XL_TRAIN_STEPS}: {logged}")
         saved = torch.load(os.path.join(out, "checkpoints", str(XL_TRAIN_STEPS), "state.pt"),
                            map_location="cpu", weights_only=True)
         for name, student in (("unet_lora", "lora_reverse"), ("forward_unet_lora", "lora_forward")):
@@ -2688,6 +3160,7 @@ def main(argv=None) -> int:
         sdxl_launches = phase_sdxl(card)
         torch.cuda.empty_cache()  # the SDXL bundle is gone
         train_launches = phase_training(card, pipe)
+        eval_launches, eval_train_launches = phase_eval(card, pipe)
         del pipe
         torch.cuda.empty_cache()  # the SD1.5 bundle is gone
         xl_train_launches = phase_xl_training(card)
@@ -2712,7 +3185,9 @@ def main(argv=None) -> int:
                            + serve_launches.get(row["batch"], none)[key]
                            + baseline_launches.get(row["batch"], none)[key]
                            + sdxl_launches.get(row["batch"], none)[key]
-                           + (train_launches[key] if row["batch"] == BATCH else 0)
+                           + eval_launches.get(row["batch"], none)[key]
+                           + (train_launches[key] + eval_train_launches[key]
+                              if row["batch"] == BATCH else 0)
                            + (xl_train_launches[key] if row["batch"] == XL_TRAIN_BATCH else 0))
     # B5 runs on the harness path alone; its rows carry that path's launches
     rows += harness_rows

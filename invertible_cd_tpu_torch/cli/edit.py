@@ -20,8 +20,15 @@ SDXL edits without a controller (the amplify protocol,
 
 The device, dtype and weights are those of `cli.generate.build_pipeline`.
 `results.json` has no `compiled_executables` census: the port runs eagerly
-and compiles no programs. Not ported yet: `--quantize`, host striding over
-several processes, and `--calc_metrics` with the scorer weights flags.
+and compiles no programs. `--calc_metrics` scores each edit with the scorer
+weights flags of `cli.generate` (`Evaluators.calc_all`: CLIP image-image and
+DINOv2 between the original and the edited image, CLIP image-text and
+ImageReward of the edited image against the target prompt) and writes the
+means to `results.json` under "metrics" (None for a scorer whose weights are
+not given). A model config's keys are flags too (`generate.add_model_args`,
+checked against the bundle; `--tau1`, reported where it differs from
+`--tau`). Not ported yet: `--quantize` and host striding over several
+processes.
 """
 from __future__ import annotations
 
@@ -36,7 +43,9 @@ import numpy as np
 import torch
 
 from . import apply_config_file
-from .generate import _generator, add_grid_args, add_weights_args, build_pipeline, save_image
+from .generate import (
+    METRICS_NOTE, _generator, add_grid_args, add_model_args, add_scorer_args, add_weights_args,
+    build_evaluators, build_pipeline, mean_or_none, save_image)
 from ..data import load_benchmark
 from ..edit import make_controller
 from ..pipelines import nti as nti_mod
@@ -81,6 +90,10 @@ def parse_args(argv=None):
     p.add_argument("--guidance_scale", type=float, default=None,
                    help="default 19.0 (cons editing) / 8.0 (DDIM baselines)")
     p.add_argument("--tau", type=float, default=0.8, help="dynamic-guidance tau1")
+    p.add_argument("--tau1", type=float, default=None,
+                   help="a model config's tau1 (the generate CLI's); this CLI's tau1 is --tau, "
+                        "as in the JAX package's edit CLI: a --tau1 that differs is reported, "
+                        "not applied")
     p.add_argument("--tau2", type=float, default=None,
                    help="dynamic-guidance tau2; defaults to --tau. tau1 < tau2 ramps the "
                         "guidance weight linearly between them")
@@ -106,6 +119,9 @@ def parse_args(argv=None):
                         "blend/equalizer on the swapped pair (amplify defaults to 3)")
     add_grid_args(p)
     add_weights_args(p)
+    add_model_args(p)
+    p.add_argument("--calc_metrics", action="store_true")
+    add_scorer_args(p)
     p.add_argument("--crop_left", type=int, default=0,
                    help="load_512 edge-crop offsets before the center square crop")
     p.add_argument("--crop_right", type=int, default=0)
@@ -251,6 +267,8 @@ def main(argv=None, _pipe=None):
     if args.guidance_scale is None:
         # reference defaults: 19 for cons editing, 8.0 for the DDIM baselines
         args.guidance_scale = 8.0 if args.baseline != "none" else 19.0
+    if args.tau1 is not None and args.tau1 != args.tau:
+        print(f"--tau1 {args.tau1} is a generation setting: editing keeps --tau {args.tau}")
     os.makedirs(args.out, exist_ok=True)
     pipe = _pipe if _pipe is not None else build_pipeline(args)
     pix = pipe.latent_size[0] * 2 ** (len(pipe.vae.cfg.block_out_channels) - 1)
@@ -269,7 +287,8 @@ def main(argv=None, _pipe=None):
             print(f"--is_replacement: kept {len(kept)}/{len(rows)} one-word-replacement rows")
         rows = kept
 
-    results = []
+    evals = build_evaluators(args, pipe.device) if args.calc_metrics else None
+    results, per_row_metrics = [], []
     for i, (path, source, target, blend) in enumerate(rows):
         img = load_512(path, left=args.crop_left, right=args.crop_right, top=args.crop_top,
                        bottom=args.crop_bottom, size=pix)
@@ -278,9 +297,20 @@ def main(argv=None, _pipe=None):
         save_image(edited, out_path)
         save_image(rec, out_path.replace("_edited", "_rec"))
         results.append({"file": out_path, "source": source, "target": target})
+        if evals is not None:
+            # the reference's editing bundle (`edit.py:465-486`, metrics.calc_all)
+            per_row_metrics.append(evals.calc_all(
+                np.asarray(img, np.float32)[None] / 255.0,
+                np.asarray(edited, np.float32)[None] / 255.0, [source], [target]))
         print(f"[{i + 1}/{len(rows)}] {source!r} -> {target!r}")
+    summary = {"results": results}
+    if per_row_metrics:
+        summary["metrics"] = {k: mean_or_none(per_row_metrics, k) for k in per_row_metrics[0]}
+        if any(v is None for v in summary["metrics"].values()):
+            summary["metrics_note"] = METRICS_NOTE
+        print("metrics:", summary["metrics"])
     with open(os.path.join(args.out, "results.json"), "w") as f:
-        json.dump({"results": results}, f, indent=2)
+        json.dump(summary, f, indent=2)
     print(f"wrote {len(results)} edits to {args.out}")
 
 

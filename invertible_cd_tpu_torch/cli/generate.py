@@ -18,9 +18,20 @@ weights (seed 0); with them, the files must give the text encoder(s), the
 VAE and the UNet (`pipelines.loading.load_bundle_params`). A batch runs at
 its own size (the last one of a sweep is not padded): its rows share one
 start latent drawn from `--seed + i` (i: the index of its first prompt), so
-a row does not depend on the batch around it. Not ported yet: `--quantize`,
-host striding over several processes, and `--calc_metrics` with the scorer
-weights flags.
+a row does not depend on the batch around it.
+
+`--calc_metrics` scores with the scorer weights flags (`metrics.scores.
+evaluators_from_weights`, on the same device, fp32): per batch the CLIP
+image-text score and ImageReward of the images against their prompts, and
+the FID of all images against `--fid_stats` with `--inception_weights`,
+written to `metrics.json` under the JAX CLI's keys (None for a scorer whose
+weights are not given); in the invert/reconstruct mode the inversion bundle
+(DINOv2, PSNR, LPIPS) and recon-FID go to `reconstruction_metrics.json`.
+A config file's `resolution`, `w_embed_dim`, `start_timestep`, `lora_rank`
+and `lora_alpha` are flags too (`add_model_args`): they describe the model,
+and each one given is checked against the bundle (`check_model_args`), which
+they do not change. Not ported yet: `--quantize` and host striding over
+several processes.
 """
 from __future__ import annotations
 
@@ -73,8 +84,102 @@ def parse_args(argv=None):
                    help="CFG scale during inversion")
     p.add_argument("--num_ddim_steps", type=int, default=50, help="DDIM grid size")
     add_weights_args(p)
+    add_model_args(p)
+    p.add_argument("--calc_metrics", action="store_true")
+    add_scorer_args(p)
     argv = apply_config_file(p, argv)
     return p.parse_args(argv)
+
+
+def add_model_args(p):
+    """The model keys of `configs/sd15_*.json` / `sdxl_*.json` (JAX's parsers
+    drop them): facts of the bundle, not settings. Each one given is held
+    against the bundle `build_pipeline` made (`check_model_args`)."""
+    p.add_argument("--resolution", type=int, default=None,
+                   help="the bundle's image side in pixels (512 SD1.5, 1024 SDXL, 32 tiny)")
+    p.add_argument("--w_embed_dim", type=int, default=None,
+                   help="the UNet's guidance-embedding width")
+    p.add_argument("--start_timestep", type=int, default=None,
+                   help="the timestep the forward chain starts from (the grid's: 19)")
+    p.add_argument("--lora_rank", type=int, default=None,
+                   help="the adapters' rank; checked against the seeded adapters' (a kohya "
+                        "file carries its own)")
+    p.add_argument("--lora_alpha", type=float, default=None,
+                   help="the adapters' alpha; checked as --lora_rank is")
+
+
+# (rank, alpha) of the seeded adapters: `pipeline.build_modules` at the
+# constructors' `lora_rank` (`InvertibleCD.sd15`/`InvertibleCDXL.sdxl` 64,
+# `testing.tiny_bundle` 4) and `models.lora.merge_lora`'s alpha
+SEEDED_LORA = {"sd15": (64, 8.0), "sdxl": (64, 8.0), "tiny": (4, 8.0)}
+
+
+def check_model_args(args, pipe) -> None:
+    """Stop unless each model key given (`add_model_args`) is the bundle's."""
+    pix = pipe.latent_size[0] * 2 ** (len(pipe.vae.cfg.block_out_channels) - 1)
+    have = {"resolution": pix, "w_embed_dim": pipe.w_embed_dim,
+            "start_timestep": int(pipe.grid.start_timestep)}
+    if not (getattr(args, "reverse_lora", None) or getattr(args, "forward_lora", None)):
+        have["lora_rank"], have["lora_alpha"] = SEEDED_LORA[args.model]
+    for key, value in have.items():
+        want = getattr(args, key, None)
+        if want is not None and want != value:
+            raise SystemExit(f"--{key} {want}: the {args.model} bundle's is {value}")
+
+
+def add_scorer_args(p):
+    """Scorer checkpoint flags (the torch artifacts the reference downloads
+    through transformers / torch-hub / piq / image_reward,
+    `utils/metrics.py:139-321`). A missing file leaves its metric None."""
+    p.add_argument("--clip_vision_weights", default=None,
+                   help="transformers CLIPVisionModel(WithProjection) state dict")
+    p.add_argument("--clip_text_scorer_weights", default=None,
+                   help="transformers CLIPTextModelWithProjection state dict")
+    p.add_argument("--dino_weights", default=None, help="torch-hub dinov2_vitb14")
+    p.add_argument("--vgg_weights", default=None, help="torchvision vgg16 features")
+    p.add_argument("--lpips_heads_weights", default=None, help="LPIPS lin heads")
+    p.add_argument("--image_reward_weights", default=None, help="ImageReward.pt")
+    p.add_argument("--bert_vocab", default=None, help="BERT vocab.txt (ImageReward)")
+    p.add_argument("--fid_stats", default=None,
+                   help="reference-set FID stats npz with mu/sigma (the reference's "
+                        "--path_to_fid_reference)")
+    p.add_argument("--inception_weights", default=None,
+                   help="pt_inception-2015-12-05 state dict (the FID variant)")
+
+
+def build_evaluators(args, device):
+    """The scorers of the flags on `device` (`evaluators_from_weights`; with
+    `--model tiny`, checkpoints of the tiny scorer architectures)."""
+    from ..metrics.scores import evaluators_from_weights
+
+    return evaluators_from_weights(
+        clip_vision_path=args.clip_vision_weights, clip_text_path=args.clip_text_scorer_weights,
+        dino_path=args.dino_weights, vgg_path=args.vgg_weights,
+        lpips_heads_path=args.lpips_heads_weights, image_reward_path=args.image_reward_weights,
+        bert_vocab_path=args.bert_vocab, device=device, tiny=args.model == "tiny")
+
+
+def build_fid_scorer(args, device):
+    """The FID scorer of --inception_weights when --calc_metrics,
+    --fid_stats and --inception_weights are given, else None."""
+    if not (args.calc_metrics and args.fid_stats and args.inception_weights):
+        return None
+    from ..metrics import FIDScorer
+    from ..models.convert import convert_inception_weights, load_torch_file
+
+    return FIDScorer.from_state_dict(
+        convert_inception_weights(load_torch_file(args.inception_weights)), device=device)
+
+
+METRICS_NOTE = ("null metrics = scorer weights not provided; pass --clip_vision_weights/"
+                "--clip_text_scorer_weights/--dino_weights/--vgg_weights/--lpips_heads_weights/"
+                "--image_reward_weights/--bert_vocab to score with the reference protocol")
+
+
+def mean_or_none(rows, key):
+    """The mean of `key` over rows, or None if any row's is None."""
+    vals = [r[key] for r in rows]
+    return None if any(v is None for v in vals) else float(np.mean(vals))
 
 
 def add_grid_args(p):
@@ -115,11 +220,12 @@ def build_pipeline(args):
         # bf16 on the card: the tiny VAE's d = 32 head takes kernel B1, which is bf16 only
         pipe = tiny_bundle(None, dtype=dtype, device=device)
         pipe.grid = grid
-        return pipe
-    params = _load_weights(args) or None
-    if args.model == "sdxl":
-        return InvertibleCDXL.sdxl(params=params, grid=grid, dtype=dtype, device=device)
-    return InvertibleCD.sd15(params=params, grid=grid, dtype=dtype, device=device)
+    else:
+        params = _load_weights(args) or None
+        build = InvertibleCDXL.sdxl if args.model == "sdxl" else InvertibleCD.sd15
+        pipe = build(params=params, grid=grid, dtype=dtype, device=device)
+    check_model_args(args, pipe)
+    return pipe
 
 
 def _load_weights(args) -> dict:
@@ -159,7 +265,9 @@ def reconstruct_images(pipe, args, g):
     caption (forward CD at --inv_guidance_scale, its noise from `--seed + i`,
     or the 50-step DDIM inversion with --no-cons_inversion), regenerate
     from the inverted latent with the generation settings, and save
-    real_images/ + generated_images/ pairs and reconstruction_metrics.json."""
+    real_images/ + generated_images/ pairs and reconstruction_metrics.json
+    (with --calc_metrics: the inversion bundle's DINOv2, PSNR and LPIPS
+    averaged over batches, and `recon_fid` against --fid_stats)."""
     rows = load_benchmark(args.benchmark, kind="generation", max_count=args.max_cnt,
                           with_files=True)
     pix = pipe.latent_size[0] * 2 ** (len(pipe.vae.cfg.block_out_channels) - 1)
@@ -167,7 +275,9 @@ def reconstruct_images(pipe, args, g):
     rec_dir = os.path.join(args.out, "generated_images")
     os.makedirs(real_dir, exist_ok=True)
     os.makedirs(rec_dir, exist_ok=True)
-    n_done = 0
+    evals = build_evaluators(args, pipe.device) if args.calc_metrics else None
+    fid_scorer = build_fid_scorer(args, pipe.device)
+    bundles, fid_images, n_done = [], [], 0
     for i in range(0, len(rows), args.batch_size):
         batch = rows[i:i + args.batch_size]
         caps = [caption for _, caption in batch]
@@ -181,12 +291,23 @@ def reconstruct_images(pipe, args, g):
             inv_g = S.GuidanceConfig(guidance_scale=args.inv_guidance_scale or 1.0, w_embed_dim=0)
             traj, _ = pipe.ddim_invert(reals, caps, guidance=inv_g)
             imgs, _ = pipe.ddim_generate(caps, latent=traj[-1])
-        for j, (real, rec) in enumerate(zip(reals, to_uint8(imgs))):
+        recs = to_uint8(imgs)
+        for j, (real, rec) in enumerate(zip(reals, recs)):
             save_image(real, os.path.join(real_dir, f"{i + j:06d}.jpg"))
             save_image(rec, os.path.join(rec_dir, f"{i + j:06d}.jpg"))
+        if fid_scorer is not None:
+            fid_images.extend(list(recs))
+        if evals is not None:
+            bundles.append(evals.calc_inversion(reals.astype(np.float32) / 255.0,
+                                                recs.astype(np.float32) / 255.0))
         n_done += len(batch)
         print(f"[{n_done}/{len(rows)}] reconstructed")
     summary = {"n_images": n_done}
+    if bundles:
+        summary.update({k: mean_or_none(bundles, k) for k in bundles[0]})
+    if fid_images:
+        summary["recon_fid"] = float(fid_scorer.fid(fid_images,
+                                                    reference_stats_path=args.fid_stats))
     with open(os.path.join(args.out, "reconstruction_metrics.json"), "w") as f:
         json.dump(summary, f, indent=2)
     print("reconstruction:", summary)
@@ -209,6 +330,9 @@ def main(argv=None, _pipe=None):
                      "columns)")
         return reconstruct_images(pipe, args, g)
 
+    evals = build_evaluators(args, pipe.device) if args.calc_metrics else None
+    fid_scorer = build_fid_scorer(args, pipe.device)
+    clip_scores, ir_scores, fid_images = [], [], []  # uint8 frames for FID stay on the host
     saved = []
     for i in range(0, len(prompts), args.batch_size):
         batch = prompts[i:i + args.batch_size]
@@ -224,7 +348,29 @@ def main(argv=None, _pipe=None):
             path = os.path.join(args.out, f"{i + j:06d}.jpg")
             save_image(img, path)
             saved.append(path)
+        if fid_scorer is not None:
+            fid_images.extend(list(images))
+        if evals is not None:
+            # the reference's generation eval: CLIP image-text score and
+            # ImageReward over the prompts (`generate.py:404-425`), per batch
+            s = evals.clip_image_text(imgs, batch)
+            if s is not None:
+                clip_scores.extend([s] * len(batch))
+            r = evals.image_reward(imgs, batch)
+            if r is not None:
+                ir_scores.extend([r] * len(batch))
     print(f"saved {len(saved)} images to {args.out}")
+    if args.calc_metrics:
+        metrics = {"clip_score": float(np.mean(clip_scores)) if clip_scores else None,
+                   "image_reward": float(np.mean(ir_scores)) if ir_scores else None,
+                   "n_images": len(saved)}
+        if metrics["clip_score"] is None or metrics["image_reward"] is None:
+            metrics["metrics_note"] = METRICS_NOTE
+        if fid_images:
+            metrics["fid"] = float(fid_scorer.fid(fid_images, reference_stats_path=args.fid_stats))
+        with open(os.path.join(args.out, "metrics.json"), "w") as f:
+            json.dump(metrics, f, indent=2)
+        print("metrics:", metrics)
     with open(os.path.join(args.out, "manifest.json"), "w") as f:
         json.dump({"prompts": prompts, "files": saved}, f, indent=2)
 

@@ -6,15 +6,16 @@ The port's own copy of `invertible_cd_tpu/data/dataset.py` (reference
 `InfiniteSampler` (a rank-strided, shuffled, infinite index stream with
 window swaps) and `make_train_iterator`, which yields numpy NHWC float32
 batches in [-1, 1] with captions, decoding in a thread pool so that it
-overlaps the device's steps. The rank and the replica count are arguments;
-the caller supplies them (one process: 0 and 1).
+overlaps the device's steps, in the sampler's order. The rank and the
+replica count are arguments; the caller supplies them (one process: 0 and
+1).
 """
 from __future__ import annotations
 
+import collections
 import csv
 import os
-import queue
-import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -117,39 +118,31 @@ class InfiniteSampler:
 
 def make_train_iterator(dataset: ImageCaptionDataset, batch_size: int, rank: int = 0,
                         num_replicas: int = 1, seed: int = 0, num_workers: int = 4,
-                        prefetch: int = 2) -> Iterator[Tuple[np.ndarray, List[str]]]:
-    """Infinite (images (B, H, W, 3) float32 in [-1, 1], captions) batches.
-    With `num_workers` > 0, decoding runs in that many daemon threads (a
-    feeder, the workers and a collator), `prefetch` batches ahead; the
-    batches then hold the sampler's indices in the order the workers finish
-    them."""
+                        prefetch: int = 2, start: int = 0) -> Iterator[Tuple[np.ndarray, List[str]]]:
+    """Infinite (images (B, H, W, 3) float32 in [-1, 1], captions) batches,
+    beginning with batch `start` of the stream (the sampler skips the
+    `start * batch_size` indices a resumed run has taken). With
+    `num_workers` > 0, decoding runs on that many threads, `prefetch`
+    batches ahead; the batches keep the sampler's order, so they are those
+    of `num_workers=0` (the JAX iterator's threads hand items over in the
+    order they finish)."""
     sampler = iter(InfiniteSampler(len(dataset), rank=rank, num_replicas=num_replicas, seed=seed))
+    for _ in range(start * batch_size):
+        next(sampler)
     if num_workers <= 0:
         while True:
             pairs = [dataset[next(sampler)] for _ in range(batch_size)]
             yield np.stack([p[0] for p in pairs]), [p[1] for p in pairs]
 
-    out_q: "queue.Queue" = queue.Queue(maxsize=prefetch)
-    idx_q: "queue.Queue" = queue.Queue(maxsize=batch_size * (prefetch + 1))
-    item_q: "queue.Queue" = queue.Queue(maxsize=batch_size * (prefetch + 1))
-
-    def feeder():
+    pool = ThreadPoolExecutor(num_workers)
+    pending: collections.deque = collections.deque(
+        pool.submit(dataset.__getitem__, next(sampler)) for _ in range(batch_size * (prefetch + 1)))
+    try:
         while True:
-            idx_q.put(next(sampler))
-
-    def worker():
-        while True:
-            item_q.put(dataset[idx_q.get()])
-
-    def collator():
-        while True:
-            pairs = [item_q.get() for _ in range(batch_size)]
-            out_q.put((np.stack([p[0] for p in pairs]), [p[1] for p in pairs]))
-
-    threads = [threading.Thread(target=feeder, daemon=True)]
-    threads += [threading.Thread(target=worker, daemon=True) for _ in range(num_workers)]
-    threads.append(threading.Thread(target=collator, daemon=True))
-    for t in threads:
-        t.start()
-    while True:
-        yield out_q.get()
+            pairs = []
+            for _ in range(batch_size):
+                pairs.append(pending.popleft().result())
+                pending.append(pool.submit(dataset.__getitem__, next(sampler)))
+            yield np.stack([p[0] for p in pairs]), [p[1] for p in pairs]
+    finally:  # the generator closed or collected: drop the work not started
+        pool.shutdown(wait=False, cancel_futures=True)

@@ -362,8 +362,14 @@ class ControllerRuntime:
 
     def add_step_store(self, sums: Dict[str, List[torch.Tensor]]) -> Dict[str, List[torch.Tensor]]:
         """`sums` plus this step's maps (every hooked layer fires every step,
-        in the same order; JAX :467-472)."""
+        in the same order; JAX :467-472). A step whose store keys or map
+        counts differ from the sums' raises instead of being truncated."""
         step = self.take_step_store()
+        if sums.keys() != step.keys() or any(len(sums[k]) != len(step[k]) for k in sums):
+            raise ValueError(
+                "add_step_store: this step stored "
+                f"{ {k: len(v) for k, v in step.items()} } maps, the sums hold "
+                f"{ {k: len(v) for k, v in sums.items()} }")
         return {k: [a + b for a, b in zip(sums[k], step[k])] for k in sums}
 
     def finalize_store(self, sums: Dict[str, List[torch.Tensor]], num_steps: int) -> None:

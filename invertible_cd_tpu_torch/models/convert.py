@@ -25,12 +25,26 @@ Loading from disk (counterparts of the JAX module's loaders):
   * `convert_lora_from_kohya` (JAX :304) and `export_lora_to_kohya` (:339):
     kohya LoRA files <-> this package's adapter dicts (`models.lora`), whose
     layout is kohya's, so this is mostly key renaming.
+
+The metric suite (`metrics/`), both directions:
+  * `metric_state_dict_from_flax`: a JAX metric module's variables
+    (Inception's params and batch_stats, the ViTs, LPIPS, ImageReward) ->
+    the port module's state dict, by the rules above plus BatchNorm's
+    `mean`/`var` -> `running_mean`/`running_var` and `blocks_N`/`layer_N` ->
+    `blocks.N`/`layer.N`;
+  * the published checkpoints -> the port's modules, counterparts of JAX
+    :379 `convert_clip_vision_from_transformers`, :189
+    `convert_clip_text_from_transformers` (the text scorer), :433
+    `convert_inception_weights`, :466 `convert_dinov2_weights`, :520
+    `convert_image_reward_weights` and :642 `convert_lpips_weights`. The
+    port keeps torch layouts, so these rename keys (and split the fused qkv
+    of the timm-style ViTs).
 """
 from __future__ import annotations
 
 import json
 import re
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -279,4 +293,188 @@ def export_lora_to_kohya(
         out[f"{flat}.lora_down.weight"] = down
         out[f"{flat}.lora_up.weight"] = up[:, :, None, None] if down.dim() == 4 else up
         out[f"{flat}.alpha"] = torch.tensor(alpha, dtype=torch.float32)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The metric suite
+# ---------------------------------------------------------------------------
+_METRIC_INDEXED = ("blocks", "layer")
+_METRIC_LEAVES = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias",
+                  "mean": "running_mean", "var": "running_var"}
+
+
+def metric_state_dict_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """A JAX metric module's variables ({"params": ..., ["batch_stats":
+    ...]} or the bare params tree, numpy leaves) -> the state dict of the
+    port's module of the same name (`metrics.inception`, `metrics.vit`,
+    `metrics.lpips`, `metrics.image_reward`). Leaves other than kernels,
+    norms, embeddings and BatchNorm statistics (class and position
+    embeddings, DINOv2's `ls1`/`ls2`) keep their names."""
+    parts = [tree["params"], tree.get("batch_stats", {})] if "params" in tree else [tree]
+    out = {}
+    for part in parts:
+        for path, value in _leaves(part):
+            names = []
+            for p in path[:-1]:
+                head, _, idx = p.rpartition("_")
+                names.append(f"{head}.{idx}" if head in _METRIC_INDEXED and idx.isdigit() else p)
+            leaf = path[-1]
+            if leaf == "kernel":
+                value = np.transpose(value, (3, 2, 0, 1)) if value.ndim == 4 else value.T
+            out[".".join(names + [_METRIC_LEAVES.get(leaf, leaf)])] = torch.tensor(np.array(value))
+    return out
+
+
+def _t(value) -> torch.Tensor:
+    return torch.as_tensor(value).float()
+
+
+def convert_inception_weights(state_dict: Dict) -> Dict[str, torch.Tensor]:
+    """pytorch-fid's `pt_inception-2015-12-05` state dict ->
+    `metrics.inception.InceptionV3Features` (JAX :433). The module names are
+    the published ones; the classifier (`fc.*`), the auxiliary head and the
+    BatchNorm batch counters are dropped."""
+    return {k: _t(v) for k, v in state_dict.items()
+            if not (k.startswith("fc.") or "AuxLogits" in k or k.endswith("num_batches_tracked"))}
+
+
+def convert_clip_text_from_transformers(state_dict: Dict) -> Dict[str, torch.Tensor]:
+    """transformers `CLIPTextModel(WithProjection)` -> `models.clip.CLIPTextModel`
+    (JAX :189), whose names are transformers'; `position_ids` is dropped."""
+    return {k: _t(v) for k, v in state_dict.items() if "position_ids" not in k}
+
+
+def convert_clip_vision_from_transformers(state_dict: Dict) -> Dict[str, torch.Tensor]:
+    """transformers `CLIPVisionModel(WithProjection)` -> `metrics.vit.ViTEncoder`
+    (JAX :379): vision_model.embeddings.{class_embedding,
+    patch_embedding.weight, position_embedding.weight}, pre_layrnorm (sic),
+    encoder.layers.N.{self_attn.{q,k,v,out}_proj, layer_norm1/2, mlp.fc1/2},
+    post_layernorm, [visual_projection.weight]."""
+    fixed = {"embeddings.class_embedding": "class_embedding",
+             "embeddings.patch_embedding.weight": "patch_embed.weight",
+             "embeddings.patch_embedding.bias": "patch_embed.bias",
+             "embeddings.position_embedding.weight": "position_embedding",
+             "visual_projection.weight": "projection.weight"}
+    out = {}
+    for key, value in state_dict.items():
+        k = key.replace("vision_model.", "")
+        if "position_ids" in k:
+            continue
+        if k in fixed:
+            k = fixed[k]
+        elif k.startswith(("pre_layrnorm.", "pre_layernorm.")):
+            k = "pre_layernorm." + k.rpartition(".")[2]
+        elif k.startswith("encoder.layers."):
+            layer, rest = k[len("encoder.layers."):].split(".", 1)
+            rest = (rest.replace("self_attn.", "").replace("mlp.", "")
+                    .replace("layer_norm1", "norm1").replace("layer_norm2", "norm2"))
+            k = f"blocks.{layer}.{rest}"
+        elif not k.startswith("post_layernorm."):
+            continue
+        out[k] = _t(value)
+    return out
+
+
+def _timm_vit(state_dict: Dict, n_pos: Optional[int]) -> Dict[str, torch.Tensor]:
+    """A timm-style ViT (torch-hub DINOv2, BLIP's visual encoder) ->
+    `metrics.vit.ViTTrunk` names: cls_token (1, 1, D), pos_embed (1, N+1, D)
+    (its first `n_pos` rows: the module slices, it does not interpolate),
+    patch_embed.proj, blocks.N.{norm1, attn.qkv (fused, split in thirds),
+    attn.proj, ls1.gamma, norm2, mlp.fc1/2, ls2.gamma}, norm."""
+    out = {}
+    for key, value in state_dict.items():
+        value = _t(value)
+        if key == "cls_token":
+            out["class_embedding"] = value.reshape(-1)
+        elif key == "pos_embed":
+            out["position_embedding"] = value[0, :n_pos]
+        elif key.startswith("patch_embed.proj."):
+            out["patch_embed." + key.rpartition(".")[2]] = value
+        elif key.startswith("norm."):
+            out["post_layernorm." + key.rpartition(".")[2]] = value
+        elif key.startswith("blocks."):
+            _, layer, rest = key.split(".", 2)
+            prefix, leaf = f"blocks.{layer}.", rest.rpartition(".")[2]
+            if rest.startswith("attn.qkv."):
+                for name, chunk in zip(("q_proj", "k_proj", "v_proj"), value.chunk(3, dim=0)):
+                    out[f"{prefix}{name}.{leaf}"] = chunk.contiguous()
+            elif rest.startswith("attn.proj."):
+                out[f"{prefix}out_proj.{leaf}"] = value
+            elif rest.startswith(("ls1.", "ls2.")):
+                out[prefix + rest[:3]] = value
+            elif rest.startswith(("norm1.", "norm2.")):
+                out[prefix + rest] = value
+            elif rest.startswith("mlp."):
+                out[prefix + rest[len("mlp."):]] = value
+    return out
+
+
+def _n_pos(cfg) -> Optional[int]:
+    return None if cfg is None else (cfg.image_size // cfg.patch_size) ** 2 + 1
+
+
+def convert_dinov2_weights(state_dict: Dict, cfg=None) -> Dict[str, torch.Tensor]:
+    """torch-hub DINOv2 ViT state dict -> `metrics.vit.ViTEncoder` (JAX :466);
+    `cfg` (a `ViTConfig`) sets how many position rows the module holds."""
+    return _timm_vit(state_dict, _n_pos(cfg))
+
+
+_IR_MLP = {"0": "fc1", "2": "fc2", "4": "fc3", "6": "fc4", "7": "fc5"}
+
+
+def convert_image_reward_weights(state_dict: Dict, vit_cfg=None) -> Dict[str, torch.Tensor]:
+    """ImageReward-v1.0's `ImageReward.pt` -> `metrics.image_reward.ImageReward`
+    (JAX :520): blip.visual_encoder.* (timm-style ViT-L/16, `_timm_vit`),
+    blip.text_encoder.* (BLIP's BertModel: embeddings.{word_embeddings,
+    position_embeddings, LayerNorm}, encoder.layer.N.{attention,
+    crossattention}.{self.query/key/value, output.dense, output.LayerNorm},
+    intermediate.dense, output.{dense, LayerNorm}) and mlp.layers.{0,2,4,6,7}
+    (the five reward Linears). BLIP's projection, ITM and decoder heads are
+    not used by scoring and are dropped."""
+    vis, out = {}, {}
+    for key, value in state_dict.items():
+        k = key[len("blip."):] if key.startswith("blip.") else key
+        if k.startswith("visual_encoder."):
+            vis[k[len("visual_encoder."):]] = value
+        elif k.startswith("text_encoder.") and "position_ids" not in k:
+            k = k[len("text_encoder."):]
+            if k == "embeddings.word_embeddings.weight":
+                out["text_encoder.word_embeddings.weight"] = _t(value)
+            elif k == "embeddings.position_embeddings.weight":
+                out["text_encoder.position_embeddings"] = _t(value)
+            elif k.startswith("embeddings.LayerNorm."):
+                out["text_encoder.embed_norm." + k.rpartition(".")[2]] = _t(value)
+            elif k.startswith("encoder.layer."):
+                layer, rest = k[len("encoder.layer."):].split(".", 1)
+                for old, new in (("self.", ""), ("output.dense.", "output."),
+                                 ("output.LayerNorm.", "norm."), ("intermediate.dense.", "intermediate.")):
+                    rest = rest.replace(old, new)
+                out[f"text_encoder.layer.{layer}.{rest}"] = _t(value)
+        elif k.startswith("mlp.layers."):
+            idx, leaf = k[len("mlp.layers."):].split(".", 1)
+            if idx in _IR_MLP:
+                out[f"mlp.{_IR_MLP[idx]}.{leaf}"] = _t(value)
+    out.update({"visual_encoder." + k: v for k, v in _timm_vit(vis, _n_pos(vit_cfg)).items()})
+    return out
+
+
+_VGG_FEATURE_INDEX = {0: "conv0_0", 2: "conv0_1", 5: "conv1_0", 7: "conv1_1", 10: "conv2_0",
+                      12: "conv2_1", 14: "conv2_2", 17: "conv3_0", 19: "conv3_1", 21: "conv3_2",
+                      24: "conv4_0", 26: "conv4_1", 28: "conv4_2"}
+
+
+def convert_lpips_weights(vgg_state_dict: Dict, lpips_state_dict: Dict) -> Dict[str, torch.Tensor]:
+    """torchvision `vgg16().features` ("features.N.*" or bare "N.*") and the
+    LPIPS heads (`lin{i}.model.1.weight`) -> `metrics.lpips.LPIPS` (JAX :642)."""
+    out = {}
+    for key, value in vgg_state_dict.items():
+        parts = key.split(".")
+        idx = int(parts[1] if parts[0] == "features" else parts[0])
+        if idx in _VGG_FEATURE_INDEX:
+            out[f"vgg.{_VGG_FEATURE_INDEX[idx]}.{parts[-1]}"] = _t(value)
+    for key, value in lpips_state_dict.items():
+        m = re.match(r"^lin(\d)\.model\.1\.weight$", key)
+        if m:
+            out[f"lin{m.group(1)}.weight"] = _t(value)
     return out

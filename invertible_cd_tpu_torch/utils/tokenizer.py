@@ -1,7 +1,7 @@
 """CLIP byte-pair-encoding tokenizer (self-contained, no `tokenizers` dep).
 
-A copy of `invertible_cd_tpu/utils/tokenizer.py` (the CLIP and hash
-tokenizers; the BERT tokenizer stays with the metrics), kept here so the
+A copy of `invertible_cd_tpu/utils/tokenizer.py` (the CLIP, hash and
+BERT WordPiece tokenizers), kept here so the
 PyTorch package imports nothing of the JAX package. It loads the standard
 CLIP `vocab.json` + `merges.txt` artifacts when available, plus a
 deterministic `HashTokenizer` used by tests and dry runs when no vocab
@@ -21,6 +21,7 @@ import gzip
 import html
 import json
 import os
+import unicodedata
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -256,3 +257,105 @@ def default_tokenizer(**kw):
     (which ignores ClipTokenizer-only kwargs like pad_token_id)."""
     tok = ClipTokenizer.find(**kw)
     return tok if tok is not None else HashTokenizer()
+
+
+class BertWordPieceTokenizer:
+    """Minimal BERT WordPiece tokenizer (lowercase, greedy longest-match)
+    for the BLIP text encoder inside ImageReward (reference scores via the
+    image_reward package's BERT tokenizer, `utils/metrics.py:283-293`).
+
+    `vocab`: {token: id} mapping or a vocab.txt path (one token per line).
+    Output: [CLS] tokens... [SEP] padded with [PAD], max_len 35 (BLIP's
+    scoring length).
+    """
+
+    def __init__(self, vocab, max_len: int = 35):
+        if isinstance(vocab, str):
+            with open(vocab, encoding="utf-8") as f:
+                vocab = {line.rstrip("\n"): i for i, line in enumerate(f)}
+        self.vocab: Dict[str, int] = dict(vocab)
+        self.max_len = max_len
+        self.pad_id = self.vocab.get("[PAD]", 0)
+        self.cls_id = self.vocab.get("[CLS]", 101)
+        self.sep_id = self.vocab.get("[SEP]", 102)
+        self.unk_id = self.vocab.get("[UNK]", 100)
+
+    @staticmethod
+    def _is_punct(ch: str) -> bool:
+        """BERT punctuation: the four ASCII symbol ranges plus every
+        unicode P* category char (this is broader than string.punctuation —
+        e.g. '$' is range-punct but '£' is category Sc and is NOT split)."""
+        cp = ord(ch)
+        if (
+            33 <= cp <= 47 or 58 <= cp <= 64
+            or 91 <= cp <= 96 or 123 <= cp <= 126
+        ):
+            return True
+        return unicodedata.category(ch).startswith("P")
+
+    @staticmethod
+    def _is_cjk(cp: int) -> bool:
+        return (
+            0x4E00 <= cp <= 0x9FFF or 0x3400 <= cp <= 0x4DBF
+            or 0x20000 <= cp <= 0x2A6DF or 0x2A700 <= cp <= 0x2B73F
+            or 0x2B740 <= cp <= 0x2B81F or 0x2B820 <= cp <= 0x2CEAF
+            or 0xF900 <= cp <= 0xFAFF or 0x2F800 <= cp <= 0x2FA1F
+        )
+
+    def _basic_tokens(self, text: str):
+        """BERT-uncased basic tokenization: lowercase, NFD accent
+        stripping (drop combining marks), CJK codepoints as single-char
+        tokens, punctuation split into its own tokens."""
+        text = whitespace_clean(basic_clean(text)).lower()
+        text = "".join(
+            ch for ch in unicodedata.normalize("NFD", text)
+            if unicodedata.category(ch) != "Mn"
+        )
+        out, word = [], []
+
+        def flush():
+            if word:
+                out.append("".join(word))
+                word.clear()
+
+        for ch in text:
+            if ch.isspace():
+                flush()
+            elif self._is_punct(ch) or self._is_cjk(ord(ch)):
+                flush()
+                out.append(ch)
+            else:
+                word.append(ch)
+        flush()
+        return out
+
+    def _wordpiece(self, word: str):
+        ids, start = [], 0
+        while start < len(word):
+            end = len(word)
+            cur = None
+            while start < end:
+                piece = word[start:end]
+                if start > 0:
+                    piece = "##" + piece
+                if piece in self.vocab:
+                    cur = self.vocab[piece]
+                    break
+                end -= 1
+            if cur is None:
+                return [self.unk_id]
+            ids.append(cur)
+            start = end
+        return ids
+
+    def __call__(self, texts) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        out = np.full((len(texts), self.max_len), self.pad_id, np.int32)
+        for i, t in enumerate(texts):
+            ids = [self.cls_id]
+            for w in self._basic_tokens(t):
+                ids.extend(self._wordpiece(w))
+            ids = ids[: self.max_len - 1] + [self.sep_id]
+            out[i, : len(ids)] = ids
+        return out

@@ -20,7 +20,9 @@ def traced_init(module, *args):
 def seeded_params(tree, seed=0):
     """Concrete weights for a tree of abstract arrays: kernels N(0, 1/fan_in)
     (fan_in = the product of all but the output axis), embeddings N(0, 1/4),
-    norm scales 1 + 0.05 N, biases and other leaves 0.05 N."""
+    norm scales 1 + 0.05 N, BatchNorm variances (`var`) 1 + 0.05 |N| (a
+    variance must be positive), biases and other leaves 0.05 N. Every leaf
+    takes one draw of its shape, in tree order."""
     rng = np.random.default_rng(seed)
 
     def draw(path, s):
@@ -30,5 +32,7 @@ def seeded_params(tree, seed=0):
             return jnp.asarray(noise / np.sqrt(np.prod(s.shape[:-1])))
         if name in ("embedding", "position_embedding"):
             return jnp.asarray(noise * 0.5)
+        if name == "var":
+            return jnp.asarray(1.0 + 0.05 * np.abs(noise))
         return jnp.asarray(1.0 + 0.05 * noise if name == "scale" else 0.05 * noise)
     return jax.tree_util.tree_map_with_path(draw, tree)

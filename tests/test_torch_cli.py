@@ -30,7 +30,7 @@ import cli.edit as jedit
 import cli.generate as jgenerate
 from invertible_cd_tpu.data import benchmarks as jbenchmarks
 from invertible_cd_tpu.utils.tokenizer import HashTokenizer as JHashTokenizer
-from invertible_cd_tpu_torch.cli import edit, generate, serve
+from invertible_cd_tpu_torch.cli import edit, generate, serve, train_icd
 from invertible_cd_tpu_torch.data import load_benchmark
 from invertible_cd_tpu_torch.edit import make_controller
 from invertible_cd_tpu_torch.pipelines import nti
@@ -136,28 +136,39 @@ def test_load_benchmark_matches_jax(name, kw):
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "*.json")))
 
 
+# the configs' model keys, flags of the port's generate and edit CLIs only
+# (`generate.add_model_args`): JAX's parsers drop them without a word
+MODEL_FLAGS = {"resolution", "w_embed_dim", "start_timestep", "lora_rank", "lora_alpha"}
+
+
 @pytest.mark.parametrize("cli", ["generate", "edit"])
 @pytest.mark.parametrize("config", CONFIGS, ids=[os.path.basename(c) for c in CONFIGS])
 def test_config_file_defaults_match_jax(cli, config):
     """`--config` gives the same parsed values as the JAX CLI's; the port's
-    parser has every flag of the JAX one it keeps, plus `--device`."""
+    parser has every flag of the JAX one it keeps, plus `--device` and the
+    configs' model keys (and, in edit, the generation `tau1`), which JAX's
+    parsers drop and the port's parse, to hold against the bundle."""
     port, jax_cli = {"generate": (generate, jgenerate), "edit": (edit, jedit)}[cli]
     argv = ["--config", config, "--out", "unused"]
     got, want = vars(port.parse_args(argv)), vars(jax_cli.parse_args(argv))
-    assert set(got) - set(want) == {"device"}
-    assert {k: got[k] for k in got if k in want} == {k: want[k] for k in got if k in want}
     with open(config) as f:
-        assert any(k in got and got[k] == v for k, v in json.load(f).items())
+        cfg = json.load(f)
+    port_only = {"device"} | MODEL_FLAGS | ({"tau1"} if cli == "edit" else set())
+    assert set(got) - set(want) == port_only
+    assert {k: got[k] for k in got if k in want} == {k: want[k] for k in got if k in want}
+    assert all(got[k] == cfg.get(k) for k in port_only - {"device"})
+    assert any(k in got and got[k] == v for k, v in cfg.items())
 
 
 @pytest.mark.parametrize("cli,flags", [
-    (generate, ["--quantize", "int8"]), (generate, ["--calc_metrics"]),
+    (generate, ["--quantize", "int8"]), (train_icd, ["--fsdp", "2"]),
     (generate, ["--platform", "cpu"]), (edit, ["--quantize", "int8"]),
-    (edit, ["--calc_metrics"]), (serve, ["--dp", "2"]), (serve, ["--sp", "2"]),
+    (edit, ["--platform", "cpu"]), (serve, ["--dp", "2"]), (serve, ["--sp", "2"]),
 ])
 def test_flags_not_ported_are_refused(cli, flags):
+    required = {serve: [], train_icd: ["--output_dir", "unused"]}.get(cli, ["--out", "unused"])
     with pytest.raises(SystemExit):
-        cli.parse_args(["--out", "unused", *flags] if cli is not serve else flags)
+        cli.parse_args([*required, *flags])
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (17, 33), (32, 32)])

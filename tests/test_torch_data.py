@@ -12,6 +12,7 @@ import csv
 import itertools
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -34,6 +35,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard(monkeypatch):
+    """The train CLI's logger takes TensorBoard whenever it imports, and the
+    import can pull in TensorFlow (~17 s); these tests read its PNG sink."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
 
 
 @pytest.fixture(scope="module")
@@ -148,3 +156,40 @@ def test_cli_tiny_run_from_an_image_folder(folder, tmp_path):
         assert (out / "export_2" / name / "lora_weights.safetensors").stat().st_size > 0
     rows = [json.loads(line) for line in open(out / "logs" / "metrics.jsonl")]
     assert [r["step"] for r in rows] == [1, 2]
+
+
+def test_train_iterator_start_skips_the_batches_taken():
+    """`start=k` gives the stream from its batch k on: the batches of a
+    fresh iterator after k of them (threads or none; the threaded batches
+    keep the sampler's order)."""
+    class Indices:  # a dataset whose items are their own index
+        def __len__(self):
+            return 7
+
+        def __getitem__(self, i):
+            return np.full((1,), i, np.float32), str(i)
+
+    def batches(it, n):
+        return [caps for _, caps in itertools.islice(it, n)]
+    straight = batches(dataset.make_train_iterator(Indices(), 3, seed=4, num_workers=0), 5)
+    for workers in (0, 2):
+        assert batches(dataset.make_train_iterator(Indices(), 3, seed=4, num_workers=workers), 5) == straight
+        resumed = dataset.make_train_iterator(Indices(), 3, seed=4, num_workers=workers, start=2)
+        assert batches(resumed, 3) == straight[2:]
+
+
+def test_cli_resumed_image_folder_run_continues_the_stream(folder, tmp_path):
+    """`--data_root`: two steps, then a resume to four, equal a straight run
+    of four (rtol 1e-6 on every metric): the resumed run takes batches 3 and
+    4 of the image stream, not its first two again."""
+    common = ["--model", "tiny", "--device", "cpu", "--data_root", folder, "--resolution", "16",
+              "--batch_size", "2", "--lora_rank", "4", "--log_every", "1", "--checkpointing_steps", "2",
+              "--validation_steps", "0"]
+    out = str(tmp_path / "run")
+    train_icd.main(common + ["--max_steps", "2", "--output_dir", out])
+    resumed = train_icd.main(common + ["--max_steps", "4", "--output_dir", out,
+                                       "--resume_from_checkpoint", "latest"])
+    straight = train_icd.main(common + ["--max_steps", "4", "--output_dir", str(tmp_path / "straight")])
+    for name, value in straight.items():
+        if name != "steps_per_sec":
+            np.testing.assert_allclose(resumed[name], value, rtol=1e-6, err_msg=name)

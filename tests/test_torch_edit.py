@@ -280,6 +280,22 @@ def test_aggregate_attention_and_store_only_specs():
     np.testing.assert_array_equal(out.numpy(), np.broadcast_to(x[:1], x.shape))
 
 
+
+def test_add_step_store_refuses_a_mismatched_step():
+    """The step-summed store of the DDIM loop adds a step's maps to the sums
+    only where both hold the same store keys and map counts; a step that
+    stored fewer maps, or under other keys, raises instead of being cut by
+    `zip`."""
+    runtime = ctrl.ControllerRuntime(*ctrl.spatial_replace_controller(4, 2, 0.5))
+    m = torch.ones((2, 2, 64, 77))
+    runtime.store = {"down_cross": [m, m]}
+    sums = runtime.add_step_store({"down_cross": [m, 2 * m]})
+    assert [float(t[0, 0, 0, 0]) for t in sums["down_cross"]] == [2.0, 3.0]
+    for step in ({"down_cross": [m]}, {"up_cross": [m, m]}, {"down_cross": [m, m], "up_cross": [m]}):
+        runtime.store = step
+        with pytest.raises(ValueError, match="add_step_store"):
+            runtime.add_step_store({"down_cross": [m, m]})
+
 # ---------------------------------------------------------------------------
 # sampler: cons_inversion and the hooked cons_generation on a toy noise model
 # ---------------------------------------------------------------------------

@@ -604,3 +604,90 @@ def test_lazy_lora_step_on_the_card_matches_the_merged_step(cuda):
         assert abs(m_lazy[name] - a) <= 5e-2 * abs(a), (name, a, m_lazy[name])
     rel = ((mu_lazy - mu_merged).norm() / mu_merged.norm()).item()
     assert rel <= 0.15, f"adapter gradients: relative L2 {rel:.3e}"
+
+
+# ---------------------------------------------------------------------------
+# the metric suite and the training eval on the card
+# ---------------------------------------------------------------------------
+SCORERS = ("inception", "clip_vision", "clip_text", "dino", "lpips", "image_reward")
+
+
+@pytest.mark.parametrize("name", SCORERS)
+def test_tiny_scorer_on_the_card_matches_the_cpu(cuda, name):
+    """Each scorer at the tiny configs (`scores.scorer_modules(tiny=True)`;
+    Inception and LPIPS at full size), fp32 on both sides with TF32 off, on
+    the same seeded weights and inputs: relative L2 <= 1e-3 (fp32 reductions
+    in another order; the CPU's own rounding is ~1e-6)."""
+    import numpy as np
+
+    from invertible_cd_tpu_torch.metrics import scores
+    from invertible_cd_tpu_torch.metrics.vit import preprocess_for
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = scores.scorer_modules(tiny=True, seed=3)[name]
+    gpu = scores.scorer_modules(tiny=True, seed=3)[name].to(cuda)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.uniform(size=(2, 3, 64, 64)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 999, (2, 12))).long()
+
+    def run(module, device):
+        with torch.inference_mode():
+            xd, idd = x.to(device), ids.to(device)
+            if name == "inception":
+                return module(xd)
+            if name in ("clip_vision", "dino"):
+                return module(preprocess_for(xd, 28, (0.5,) * 3, (0.25,) * 3))
+            if name == "clip_text":
+                return module(idd)["projected_pooled"]
+            if name == "lpips":
+                return module(xd * 2 - 1, xd.flip(-1) * 2 - 1)
+            return module(xd, idd, torch.arange(12, device=device)[None].expand(2, 12) < 7)
+
+    want, got = run(cpu, "cpu"), run(gpu, cuda).cpu()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 1e-3, rel
+
+
+def test_tiny_eval_inversion_on_the_card_matches_the_cpu(cuda):
+    """`eval_inversion` of 4 seeded latents with the tiny bundle's students
+    (bf16 on the card: the tiny VAE's d = 32 head takes B1, bf16 only)
+    against the same weights in fp32 on the CPU: the latent MSE within 5e-2
+    relative (four bf16 hops each way), finite recon-FID on both."""
+    from invertible_cd_tpu_torch.metrics import FIDScorer
+    from invertible_cd_tpu_torch.testing import tiny_bundle
+    from invertible_cd_tpu_torch.training.eval import eval_inversion, forward_sample, reverse_sample
+
+    cpu_pipe = tiny_bundle(None)
+    params = {name: m.state_dict() for name, m in cpu_pipe.unets.items()}
+    params.update(text=cpu_pipe.text_encoder.state_dict(), vae=cpu_pipe.vae.state_dict())
+    gpu_pipe = tiny_bundle(params, dtype=torch.bfloat16, device=cuda)
+    latents = torch.randn((4, 16, 16, 4), generator=torch.Generator().manual_seed(5))
+    fa.reset_launch_counts()
+    out = {}
+    for label, pipe in (("cpu", cpu_pipe), ("gpu", gpu_pipe)):
+        ctx = pipe.encode_prompt(["a cat"] * 4)[1]
+        g0 = pipe.default_guidance(guidance_scale=0.0)
+        noise = torch.randn((4, 16, 16, 4), generator=torch.Generator().manual_seed(6))
+
+        def invert(chunk, gen, c, pipe=pipe, noise=noise):
+            return forward_sample(pipe._noise_model(pipe.unets["forward"]), chunk,
+                                  noise.to(chunk.device), c, c, pipe.grid, pipe.schedule,
+                                  pipe.w_embed_dim)
+
+        def reconstruct(noisy, gen, c, pipe=pipe, g0=g0):
+            return reverse_sample(pipe._noise_model(pipe.unets["reverse"]), noisy, c, c,
+                                  pipe.grid, pipe.schedule, g0)
+
+        with torch.inference_mode():
+            out[label] = eval_inversion(
+                invert, reconstruct, latents.to(pipe.device), batch_size=4,
+                decode_fn=lambda z, pipe=pipe: pipe._decode_latents(z.permute(0, 3, 1, 2)),
+                scorer=FIDScorer.random_init(device=pipe.device), val_context=ctx,
+                reference_images=list((latents[..., :3].clamp(0, 1) * 255).byte().numpy()))
+    assert fa.launches("flash_fwd") > 0
+    a, b = out["cpu"]["inversion_latent_mse"], out["gpu"]["inversion_latent_mse"]
+    assert abs(a - b) <= 5e-2 * abs(a), (a, b)
+    assert all(map(torch.isfinite, map(torch.tensor, (out["cpu"]["inversion_fid"],
+                                                     out["gpu"]["inversion_fid"]))))

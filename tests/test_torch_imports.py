@@ -3,7 +3,8 @@
 leaves `jax`, `flax`, `optax`, `orbax`, `invertible_cd_tpu` and the JAX
 package's entry points (the root `cli` package) out of `sys.modules`; nor
 `PIL`, which the port imports only where it reads or writes an image file
-(`load_512`, the CLIs' `save_image`, the data path's `load_and_preprocess`)."""
+(`load_512`, the CLIs' `save_image`, the data path's `load_and_preprocess`,
+the FID scorer's host resize, `utils.images.to_pil_images`)."""
 import os
 import pkgutil
 import subprocess
@@ -31,7 +32,10 @@ def test_port_modules_are_all_found():
                  "edit", "edit.aligner", "edit.controllers", "pipelines.loading",
                  "pipelines.sampler", "pipelines.sdxl", "pipelines.nti", "serving",
                  "data", "data.benchmarks", "utils.images", "cli.generate", "cli.edit",
-                 "cli.serve", "data.dataset", "utils.native"):
+                 "cli.serve", "data.dataset", "utils.native", "metrics", "metrics.resize",
+                 "metrics.basic", "metrics.frechet", "metrics.inception", "metrics.fid",
+                 "metrics.lpips", "metrics.vit", "metrics.image_reward", "metrics.scores",
+                 "metrics.precision", "training.eval", "utils.profiling"):
         assert f"invertible_cd_tpu_torch.{name}" in mods
 
 

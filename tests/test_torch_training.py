@@ -11,6 +11,7 @@ Tolerances are stated at each comparison.
 import dataclasses
 import json
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -61,6 +62,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard(monkeypatch):
+    """The train CLI's logger takes TensorBoard whenever it imports, and the
+    import can pull in TensorFlow (~17 s); these tests read its PNG sink."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
 
 
 def _np_tree(tree):

@@ -10,7 +10,9 @@ stated at each comparison.
 """
 import dataclasses
 import json
+import math
 import os
+import sys
 import types
 
 import jax
@@ -299,9 +301,8 @@ def test_export_matches_jax_file_for_file(world, tmp_path):
 
 def test_cli_sdxl_flags_without_building_the_unet(tmp_path):
     """--model sdxl takes SDXL's endpoint grids and UNet config, and the
-    reference's SDXL config file loads as flag defaults (its keys this CLI
-    lacks, such as validation_steps, are ignored); nothing here builds a
-    module."""
+    reference's SDXL config file loads as flag defaults; nothing here
+    builds a module."""
     args = train_icd.parse_args(["--model", "sdxl", "--output_dir", "x", "--lazy_lora"])
     assert (args.endpoints, args.forward_endpoints) == ("0,249,499,699", "249,499,699,999")
     cfg = train_icd.unet_config("sdxl")
@@ -335,3 +336,55 @@ def test_synthetic_sdxl_batches_carry_added_cond():
     assert torch.equal(tid, torch.tensor([[64.0, 64, 0, 0, 64, 64]] * 3))
     again = next(train_icd.batch_iterator(args, cfg, 8, "cpu"))
     assert torch.equal(again["added_cond"]["text_embeds"], te)
+
+
+def test_sdxl_eval_runs_with_added_cond(tmp_path, monkeypatch):
+    """The train CLI's eval on an SDXL bundle (`train_icd.Eval` as `main`
+    builds it, --lazy_lora, the encoder pipe's teacher the training UNet),
+    here the tiny XL bundle at 16^2 pixels: the FID sweep, the inversion
+    eval with recon-FID, the validation panel and the triptychs run with
+    SDXL's added conditioning and give finite values, and that conditioning
+    reaches the UNet: zeroing the val set's pooled embeddings moves the
+    inversion MSE."""
+    from invertible_cd_tpu_torch.metrics import FIDScorer
+    from invertible_cd_tpu_torch.testing import tiny_bundle_xl
+    from invertible_cd_tpu_torch.training import init_train_state
+    from invertible_cd_tpu_torch.utils.logging import MetricLogger
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)  # the PNG sink
+    feats = np.random.default_rng(3).normal(size=(8, 2048))
+    np.savez(tmp_path / "stats.npz", mu=feats.mean(0), sigma=np.cov(feats, rowvar=False))
+    args = train_icd.parse_args([
+        "--model", "sdxl", "--lazy_lora", "--synthetic_data", "--lora_rank", "4",
+        "--resolution", "16", "--output_dir", str(tmp_path), "--validation_prompts_max", "1",
+        "--validation_batch", "2", "--inversion_validation_samples", "2",
+        "--inversion_eval_samples", "2", "--fid_num_samples", "2",
+        "--fid_prompts", "benchmarks/generation_coco_standin.csv",
+        "--fid_stats", str(tmp_path / "stats.npz"), "--inception_weights", "seeded"])
+    pipe = tiny_bundle_xl(None, latent_size=(8, 8))
+    unet = pipe.unets["teacher"]
+    schedule = make_schedule(device="cpu")
+    solver = make_train_solver(
+        schedule.alphas_cumprod, num_ddim_timesteps=args.num_ddim_timesteps,
+        num_endpoints=4, num_forward_endpoints=4, endpoints=args.endpoints,
+        forward_endpoints=args.forward_endpoints, device="cpu")
+    tcfg = train_icd.train_config(args, unet.cfg)
+    base = unet.state_dict()  # --lazy_lora: the adapters apply to the UNet's own tensors
+    state = init_train_state(torch.Generator().manual_seed(1), base, tcfg)
+    ev = train_icd.Eval(args, unet.cfg, 8, unet, base, tcfg, solver, lambda: pipe)
+    ev._scorer = FIDScorer.random_init(seed=2, device="cpu")  # for --inception_weights
+    logger = MetricLogger(str(tmp_path / "logs"))
+    fid = ev.fid(state)
+    inv = ev.inversion(state)
+    ev.validation(logger, state, 1)
+    panel_mse = ev.inversion_panels(logger, state, 1)
+    logger.close()
+    assert set(inv) == {"inversion_latent_mse", "inversion_fid"}
+    assert all(math.isfinite(v) for v in (fid, panel_mse, *inv.values()))
+    samples = sorted(os.listdir(tmp_path / "logs" / "samples"))
+    assert samples[:2] == ["inversion_sample_0_1.png", "inversion_sample_1_1.png"]
+    assert len(samples) == 3 and samples[2].startswith("validation_")
+    rows = [json.loads(line) for line in open(tmp_path / "logs" / "metrics.jsonl")]
+    assert {"validation_image_std", "inversion_panel_latent_mse"} <= set().union(*rows)
+    ev._val["added_cond"]["text_embeds"].zero_()
+    assert ev.inversion(state)["inversion_latent_mse"] != inv["inversion_latent_mse"]
