@@ -103,6 +103,39 @@ nothing of JAX. Phases, each of which must pass:
              run: its first gradient and its embedding); times each path,
              one teacher call at batch 2 and one NTI inner iteration, and
              traces one `ddim_generate`;
+  4f. int8 (after 4d, on the same bundle): int8 W8A8 inference through
+             kernel Q1 (`ops/csrc/int8_gemm.cu`): `generate` at batch 4 then
+             1 under every `quantize` mode (off, int8, int8_vae, int8_static
+             before calibration), `collect_quant_stats()`, int8_static again,
+             `invert` and the controlled `edit` under int8. Checks exact
+             launches derived from the configs (`q1_unet_launches`,
+             `q1_vae_launches`: 283 Q1 a UNet call, 40 a VAE decode, 32 an
+             encode, held to the count of int8 layers; B1 and B2 at their
+             "off" counts), finite outputs, int8 different from off (mean
+             and max |diff| printed), int8_vae latents and "off" after
+             calibration bit for bit "off"'s, int8_static without stats bit
+             for bit int8; Q1 against its plain version (float64 products
+             of the codes) at every launch shape of those runs on seeded
+             codes: int32 accumulators equal, outputs bit for bit (else
+             within 1 ulp, counted); the quantising pass card against CPU
+             (share of equal codes, none more than 1 apart); the generate
+             CLI with `--quantize int8_static` (calibrating once), the edit
+             CLI with `--quantize int8`, a `BatchingExecutor((1, 4))` on
+             the int8 bundle (a lone request and a burst of 3 padded to 4,
+             each served row bit for bit its row of a direct int8 generate
+             of the same padded batch), `cli.quant_quality` with n = 2;
+             times (one UNet call and one VAE decode off against int8,
+             generate under each mode, `collect_quant_stats`), peak memory,
+             and Q1's rows at the batch-4 int8 generate's five costliest
+             shapes and its costliest dense one (bound: 2 M N K / 1979e12
+             and bytes / 3.35e12; yardsticks the port never calls:
+             `torch._int_mm` plus its dequantising pass for a dense shape,
+             cuDNN's bf16 convolution for a conv shape), all on one JSON
+             line with the card. At the end of 4c, the SDXL bundle's int8
+             generate at 1024^2, batch 1 (`phase_int8_sdxl`): exact launches
+             (795 Q1 a UNet call; the fp32 VAE's 40 writing fp32), finite,
+             Q1 against its plain version at every shape of the fp32 VAE
+             decode, and Q1's row at the decode's costliest shape;
   4c. sdxl:  `InvertibleCDXL.sdxl` at full SDXL width (the 2.6B UNet, ViT-L
              and bigG, the fp32 VAE) with seeded weights and seeded r=64
              reverse and forward LoRAs, at 1024^2: `generate` of one prompt
@@ -210,7 +243,9 @@ nothing of JAX. Phases, each of which must pass:
      direct steps at its batch; plus phase 5c's counted eval runs at the
      batch each kernel ran at (its FID sweeps at 8, the batch-8 rows' only
      launches; the train CLI's steps with phase 5's, on the batch-4 rows);
-     B5's rows carry the harness's.
+     B5's rows carry the harness's; Q1's rows the counted int8 runs of
+     phase 4f (the generates at batch 4 and 1, invert and edit) and of the
+     SDXL int8 generate, at each row's launch shape.
 
 `--kernels-only` runs phases 1-3 and the harness (6) and prints the kernel
 rows; `--package-root DIR` imports the package (and builds its kernels) from
@@ -223,7 +258,9 @@ too; SDPA's forward the same way. The plain versions, SDPA's backward and
 the harness's rows (each above ~0.1 ms) are the median of 5 loops of 20
 back-to-back calls, each loop between one pair of CUDA events (`cuda_timed`).
 
-Every bound is the largest of FLOPs / 989e12 (/ 494.7e12, TF32's rate, for
+Q1's bound is the larger of its int8 operations / 1979e12 and its bytes
+(codes, scales and output each once) / 3.35e12. Every other bound is the
+largest of FLOPs / 989e12 (/ 494.7e12, TF32's rate, for
 B2's fp32 build, whose products are TF32), exponentials / 3.9e12 (7.8e12
 for B5's exp2bf16, whose ex2.approx.bf16x2 does two a MUFU issue) and
 bytes / 3.35e12, in ms; "bound_limit" names which.
@@ -1933,6 +1970,502 @@ def forced_unet_errors(cpu_pipe, gpu_pipe, run):
     return errs, result
 
 
+# ---------------------------------------------------------------------------
+# int8 W8A8 inference (kernel Q1)
+# ---------------------------------------------------------------------------
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core operations a second, at 700 W
+QUANT_MODES = ("off", "int8", "int8_vae", "int8_static")
+Q1_SOURCE = "invertible_cd_tpu_torch/ops/csrc/int8_gemm.cu"
+# Q1 replaces no TPU kernel: the JAX package's int8 products are XLA's
+Q1_REPLACES = {"dense": "invertible_cd_tpu/ops/quant.py:245", "conv": "invertible_cd_tpu/ops/quant.py:327"}
+INT8_SERVE_DELAY = 0.05  # the burst of 3 must coalesce into one padded batch of 4
+INT8_BURST = [("a photo of a corgi on the beach", 21), ("a red fox in the snow", 22),
+              ("a lighthouse at dawn, watercolor", 23)]
+Q1_TOP = 5  # rows for the costliest shapes of the batch-4 int8 generate
+
+
+def q1_unet_launches(cfg, with_w: bool = True) -> int:
+    """Q1 launches of one UNet call, derived from the config: conv_in and
+    conv_out; the time embedding's two dense layers (+ cond_proj with a
+    w-embedding) and SDXL's add_embedding's two; each ResNet block's conv1,
+    time_emb_proj and conv2 (+ a 1x1 shortcut where its channels change);
+    each transformer's proj_in and proj_out and, per block, q, k, v, out of
+    both attentions and the GEGLU and output projections (10); each down-
+    and upsampler's conv."""
+    n = 2 + 2 + int(bool(cfg.time_cond_proj_dim) and with_w)
+    n += 2 if cfg.addition_embed_dim is not None else 0
+
+    def resnet(cin, cout):
+        return 3 + int(cin != cout)
+
+    def transformer(depth):
+        return 2 + 10 * depth
+    levels = len(cfg.block_out_channels)
+    ch = cfg.block_out_channels[0]
+    skips = [ch]
+    for level, out in enumerate(cfg.block_out_channels):
+        for _ in range(cfg.layers_per_block):
+            n += resnet(ch, out) + (transformer(cfg.transformer_depth[level])
+                                    if cfg.cross_attn_blocks[level] else 0)
+            ch = out
+            skips.append(ch)
+        if level < levels - 1:
+            n += 1
+            skips.append(ch)
+    n += 2 * resnet(ch, ch) + transformer(cfg.transformer_depth[-1])
+    for i, level in enumerate(reversed(range(levels))):
+        out = cfg.block_out_channels[level]
+        for _ in range(cfg.layers_per_block + 1):
+            n += resnet(ch + skips.pop(), out) + (transformer(cfg.transformer_depth[level])
+                                                  if cfg.cross_attn_blocks[level] else 0)
+            ch = out
+        n += int(i < levels - 1)
+    return n
+
+
+def q1_vae_launches(cfg, decode: bool) -> int:
+    """Q1 launches of one VAE decode (post_quant_conv, the decoder) or
+    encode (the encoder, quant_conv), derived from the config: each ResNet
+    block's two convs (+ a 1x1 shortcut where its channels change), the mid
+    block's two ResNet blocks and its attention's four projections, each
+    down- or upsampler's conv, conv_in, conv_out and the 1x1 conv."""
+    chs = tuple(reversed(cfg.block_out_channels)) if decode else tuple(cfg.block_out_channels)
+    per_level = cfg.layers_per_block + (1 if decode else 0)
+    n = 1 + 1 + 1 + (2 * 2 + 4)  # conv_in, conv_out, the 1x1 conv, the mid block
+    for i, ch in enumerate(chs):
+        n += sum(2 + int((chs[max(i - 1, 0)] if j == 0 else ch) != ch) for j in range(per_level))
+        n += int(i < len(chs) - 1)
+    return n
+
+
+def q1_inputs(key, gen):
+    """Seeded int8 codes and fp32 scales for a Q1 launch key (`quant.launch_key`)
+    on the generator's device: (a, b, s_row, s_col, stride, padding, out
+    dtype, dense)."""
+    import torch
+
+    _, bsz, h, w, c, n, kh, kw, stride, pad, dtype = key
+    dev = gen.device
+    a = torch.randint(-127, 128, (bsz, h, w, c), generator=gen, device=dev, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, kh, kw, c), generator=gen, device=dev, dtype=torch.int8)
+    dense = h == w == kh == kw == 1
+    ho, wo = (h + 2 * pad - kh) // stride + 1, (w + 2 * pad - kw) // stride + 1
+    s_row = 0.05 * (torch.rand(bsz * ho * wo if dense else 1, generator=gen, device=dev) + 0.01)
+    s_col = 0.01 * (torch.rand(n, generator=gen, device=dev) + 0.01)
+    return a, b, s_row, s_col, (stride, stride), (pad, pad), getattr(torch, dtype), dense
+
+
+def q1_check_shapes(keys, label: str, device="cuda") -> dict:
+    """Q1 against its plain version at every launch key in `keys`, on seeded
+    codes: the int32 accumulators must be equal, the outputs bit for bit
+    (else within 1 ulp of the output type, the count printed)."""
+    import torch
+
+    from invertible_cd_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=device).manual_seed(4321)
+    worst, off_bits, failures = 0, 0, []
+    for key in sorted(keys):
+        a, b, s_row, s_col, stride, pad, dtype, _ = q1_inputs(key, gen)
+        acc = quant.int8_gemm_acc(a, b, stride, pad)
+        out = quant.int8_gemm(a, b, s_row, s_col, stride, pad, dtype)
+        want = quant.int8_gemm_acc_plain(a, b, stride, pad)
+        torch.cuda.synchronize()
+        if not torch.equal(acc, want):
+            failures.append(f"{key}: accumulators differ at {(acc != want).sum().item()} places")
+            continue
+        ref = quant.dequantize(want, s_row, s_col, dtype)
+        if not torch.equal(out, ref):
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            ulps = (out.view(bits).int() - ref.view(bits).int()).abs()
+            off_bits += int((ulps > 0).sum())
+            worst = max(worst, int(ulps.max()))
+            if worst > 1:
+                failures.append(f"{key}: output {worst} ulp off")
+        del a, b, acc, out, want, ref
+    check(not failures, f"Q1 vs plain ({label}): " + "; ".join(failures))
+    print(f"  Q1 vs plain at {len(keys)} launch shapes of {label}: int32 accumulators equal; "
+          f"outputs bit for bit at {len(keys) - (off_bits > 0)} of them, {off_bits} values 1 ulp off")
+    return {"shapes": len(keys), "values_1ulp_off": off_bits, "worst_ulp": worst}
+
+
+def q1_row(key, launches: int, device="cuda") -> dict:
+    """A kernels-line row for Q1 at launch key `key`: the kernel against its
+    plain version on seeded codes, per-launch times (the kernel in a CUDA
+    graph, the plain float64 version in loops), the bound, and the library
+    yardstick: `torch._int_mm` plus its dequantising pass for a dense shape
+    (rows padded to 17: it takes more than 16), cuDNN's bf16 convolution for
+    a conv shape (the port calls neither)."""
+    import torch
+    import torch.nn.functional as F
+
+    from invertible_cd_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=device).manual_seed(99)
+    a, b, s_row, s_col, stride, pad, dtype, dense = q1_inputs(key, gen)
+    _, bsz, h, w, c, n, kh, kw, _, _, _ = key
+    out = quant.int8_gemm(a, b, s_row, s_col, stride, pad, dtype)
+    ref = quant.int8_gemm_plain(a, b, s_row, s_col, stride, pad, dtype)
+    err = (out.float() - ref.float()).abs().max().item()
+    ms = graph_ms(lambda: quant.int8_gemm(a, b, s_row, s_col, stride, pad, dtype))
+    plain_ms = cuda_ms(lambda: quant.int8_gemm_plain(a, b, s_row, s_col, stride, pad, dtype),
+                       per_loop=3, loops=3, warmup=1)
+    m = out.shape[0] * out.shape[1] * out.shape[2]
+    k = kh * kw * c
+    if dense:
+        a2, b2 = a.reshape(m, k), b.reshape(n, k)
+        if m <= 16:
+            a2 = F.pad(a2, (0, 0, 0, 17 - m))
+        sr = s_row if m > 16 else F.pad(s_row, (0, 17 - m))
+
+        def library():
+            acc = torch._int_mm(a2, b2.t())
+            return (acc.float() * (sr[:, None] * s_col)).to(dtype)
+    else:
+        x = torch.randn((bsz, c, h, w), generator=gen, device=device).to(torch.bfloat16)
+        x = x.contiguous(memory_format=torch.channels_last)
+        wt = torch.randn((n, c, kh, kw), generator=gen, device=device).to(torch.bfloat16)
+        wt = wt.contiguous(memory_format=torch.channels_last)
+
+        def library():
+            return F.conv2d(x, wt, None, stride, pad)
+    library_ms = graph_ms(library)
+    flops = 2.0 * m * n * k
+    nbytes = a.numel() + b.numel() + m * n * out.element_size() + 4.0 * (s_row.numel() + n)
+    t_ops, t_bytes = flops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    kind = "dense" if dense else "conv"
+    name = (f"int8_gemm[{kind},b={bsz},{h}x{w}x{c}->{n},k={kh},s={stride[0]},{key[-1]}]")
+    row = {
+        "name": name, "kernel": "int8_gemm", "batch": bsz, "shape": list(key[1:]), "route": "cuda",
+        "source": Q1_SOURCE, "replaces": Q1_REPLACES[kind], "launches": launches,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "bound_limit": "int8 operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": library_ms,
+        "library": "torch._int_mm + dequantise" if dense else "cuDNN bf16 conv2d",
+    }
+    print(f"  {name:<58} err {err:.1e} kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TOP/s)  plain "
+          f"{plain_ms:.3f} ms  {row['library']} {library_ms:.4f} ms  bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})  launches {launches}")
+    return row
+
+
+def q1_costliest(counter, top: int):
+    """The `top` launch keys of `counter` with the most operations (2 M N K
+    times launches), plus the costliest dense key if none of those is."""
+    def ops(key):
+        _, bsz, h, w, c, n, kh, kw, s, p, _ = key
+        ho, wo = (h + 2 * p - kh) // s + 1, (w + 2 * p - kw) // s + 1
+        return 2.0 * bsz * ho * wo * n * kh * kw * c * counter[key]
+    keys = sorted(counter, key=ops, reverse=True)
+    chosen = keys[:top]
+    dense = [k for k in keys if k[2] == k[3] == k[6] == k[7] == 1]
+    if dense and not any(k in chosen for k in dense):
+        chosen.append(dense[0])
+    return chosen
+
+
+def q1_counts(counter):
+    """Q1's launch keys and count in a `LAUNCH_SHAPES` snapshot."""
+    return collections.Counter({k: n for k, n in counter.items() if k[0] == "int8_gemm"})
+
+
+def phase_int8(card: str, pipe):
+    """int8 W8A8 inference on the generate path's SD1.5 bundle: every mode at
+    batch 4 then 1, calibration, invert and edit under int8, exact launches,
+    Q1 against its plain version at every shape those runs gave it, the
+    quantising pass on the card against the CPU, the entry points (the
+    generate CLI with int8_static, the edit CLI with int8, the executor on an
+    int8 bundle, the quant_quality CLI), times. Returns Q1's kernel rows."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from invertible_cd_tpu_torch.cli import edit as edit_cli
+    from invertible_cd_tpu_torch.cli import generate as generate_cli
+    from invertible_cd_tpu_torch.cli import quant_quality
+    from invertible_cd_tpu_torch.edit import make_controller
+    from invertible_cd_tpu_torch.models.layers import QConv2d, QLinear
+    from invertible_cd_tpu_torch.ops import flash_attention as fa
+    from invertible_cd_tpu_torch.ops import quant
+    from invertible_cd_tpu_torch.pipelines.sampler import w_embedding_for
+    from invertible_cd_tpu_torch.serving import BatchingExecutor
+
+    t_phase = time.perf_counter()
+    pipe.quant_stats.clear()
+    dev = pipe.device
+    cfg, vcfg = pipe.unets["reverse"].cfg, pipe.vae.cfg
+    side, n_hops = pipe.latent_size[0], pipe.grid.num_reverse_steps
+    pix = side * 2 ** (len(vcfg.block_out_channels) - 1)
+    per_unet, per_dec, per_enc = (q1_unet_launches(cfg), q1_vae_launches(vcfg, True),
+                                  q1_vae_launches(vcfg, False))
+    n_unet = sum(isinstance(m, (QLinear, QConv2d)) for m in pipe.unets["reverse"].modules())
+    n_dec = sum(isinstance(m, (QLinear, QConv2d)) for m in (*pipe.vae.decoder.modules(),
+                                                            pipe.vae.post_quant_conv))
+    n_enc = sum(isinstance(m, (QLinear, QConv2d)) for m in (*pipe.vae.encoder.modules(),
+                                                            pipe.vae.quant_conv))
+    check((per_unet, per_dec, per_enc) == (n_unet, n_dec, n_enc),
+          f"Q1 launches derived from the configs {(per_unet, per_dec, per_enc)} != int8 layers "
+          f"{(n_unet, n_dec, n_enc)}")
+    b1 = n_hops * sum(unet_launches_per_call(cfg, side).values())
+    vae_b2 = vcfg.block_out_channels[-1] > 256  # the VAE's single head: B2 above d = 256, else B1
+    want_gen = {"int8_gemm": n_hops * per_unet + per_dec, "flash_fwd": b1 + (not vae_b2),
+                "flash_fwd_streamed": int(vae_b2)}
+    print(f"int8: SD1.5 bundle, {per_unet} Q1 launches a UNet call, {per_dec} a VAE decode, {per_enc} "
+          f"an encode (derived from the configs, = the int8 layers); a {n_hops}-hop generate "
+          f"{want_gen} ({card})")
+    report = {"phase": "int8", "card": card}
+    gen = torch.Generator(device=dev).manual_seed(150)
+    latents = {4: pipe.init_latent(gen, BATCH), 1: torch.randn((1, side, side, 4), generator=gen,
+                                                               device=dev)}
+    prompts = {4: PROMPTS, 1: PROMPTS[:1]}
+
+    def run(mode, b):
+        pipe.quantize = mode
+        try:
+            fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = pipe.generate(prompts[b], latent=latents[b])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            return out, secs, collections.Counter(fa.LAUNCH_SHAPES)
+        finally:
+            pipe.quantize = "off"
+
+    for mode in ("int8", "int8_vae"):  # warm-up: plans and handles at both batches
+        for b in (4, 1):
+            run(mode, b)
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- 1. every mode at batch 4, then 1: counts reset just before each run, read just after ----
+    results, gen_s, shapes = {}, {m: {} for m in QUANT_MODES}, collections.Counter()
+    int8_gen = {}  # the int8 generates' Q1 launches by batch
+    for b in (4, 1):
+        for mode in ("off", "int8", "int8_vae", "int8_static"):  # int8_static: no stats yet
+            (images, lat), secs, launched = run(mode, b)
+            results[(mode, b)] = (images, lat)
+            gen_s[mode][b] = secs
+            totals = {name: sum(c for k, c in launched.items() if k[0] == name) for name in want_gen}
+            want = dict(want_gen, int8_gemm={"off": 0, "int8_vae": per_dec}.get(mode, want_gen["int8_gemm"]))
+            check(totals == want, f"{mode} generate at batch {b}: launches {totals} != {want}")
+            check(bool(torch.isfinite(images).all()) and bool(torch.isfinite(lat).all()),
+                  f"{mode} generate at batch {b} not finite")
+            shapes += q1_counts(launched)
+            if mode == "int8":
+                int8_gen[b] = q1_counts(launched)
+        off_img, off_lat = results[("off", b)]
+        img8, lat8 = results[("int8", b)]
+        d = (img8 - off_img).abs()
+        report[f"int8_vs_off_b{b}"] = {"mean_abs": d.mean().item(), "max_abs": d.max().item()}
+        check(d.max().item() > 0, f"int8 at batch {b} equals off")
+        check(torch.equal(results[("int8_vae", b)][1], off_lat),
+              f"int8_vae latents at batch {b} differ from off's")
+        check(torch.equal(results[("int8_static", b)][0], img8),
+              f"int8_static without stats at batch {b} differs from int8")
+        print(f"  batch {b}: int8 vs off images mean |diff| {d.mean().item():.4e}, max "
+              f"{d.max().item():.4e}; int8_vae latents = off's bit for bit; int8_static without "
+              f"stats = int8 bit for bit; launches as derived")
+
+    # ---- 2. calibration, then int8_static ----
+    t0 = time.perf_counter()
+    pipe.collect_quant_stats()
+    torch.cuda.synchronize()
+    report["collect_quant_stats_s"] = time.perf_counter() - t0
+    n_stats = {k: len(v) for k, v in pipe.quant_stats.items()}
+    n_convs = {name: sum(isinstance(m, QConv2d) for m in mod.modules()) for name, mod in (
+        ("reverse", pipe.unets["reverse"]), ("forward", pipe.unets["forward"]), ("vae", pipe.vae))}
+    check(n_stats == n_convs, f"calibrated convs {n_stats} != the convs {n_convs}")
+    for b in (4, 1):
+        (st_img, _), secs, launched = run("int8_static", b)
+        gen_s["int8_static"][b] = secs
+        check(bool(torch.isfinite(st_img).all()), f"int8_static at batch {b} not finite")
+        check(sum(c for k, c in launched.items() if k[0] == "int8_gemm") == want_gen["int8_gemm"],
+              f"calibrated int8_static launches at batch {b}")
+        shapes += q1_counts(launched)
+        d = (st_img - results[("off", b)][0]).abs()
+        report[f"int8_static_vs_off_b{b}"] = {"mean_abs": d.mean().item(), "max_abs": d.max().item()}
+        (off_again, _), _, _ = run("off", b)
+        check(torch.equal(off_again, results[("off", b)][0]), f"off after calibration differs at batch {b}")
+        print(f"  calibrated int8_static, batch {b}: vs off mean |diff| {d.mean().item():.4e}, max "
+              f"{d.max().item():.4e}; off after calibration = off before, bit for bit")
+    print(f"  collect_quant_stats: {report['collect_quant_stats_s']:.2f} s, {n_stats} conv amaxes")
+
+    # ---- 3. invert and the controlled edit under int8 ----
+    image = np.random.default_rng(41).integers(0, 256, (pix, pix, 3), dtype=np.uint8)
+    noise = torch.randn((1, side, side, 4), generator=torch.Generator(device=dev).manual_seed(42),
+                        device=dev)
+    controller = make_controller([EDIT_SOURCE, EDIT_TARGET], pipe.tokenizer, n_hops, **EDIT_CONTROLLER)
+    pipe.quantize = "int8"
+    try:
+        fa.reset_launch_counts()
+        inv, clean = pipe.invert(image, EDIT_SOURCE, noise=noise)
+        torch.cuda.synchronize()
+        inv_launches = collections.Counter(fa.LAUNCH_SHAPES)
+        fa.reset_launch_counts()
+        edited, _ = pipe.edit(image, EDIT_SOURCE, EDIT_TARGET, controller, noise=noise)
+        torch.cuda.synchronize()
+        edit_launches = collections.Counter(fa.LAUNCH_SHAPES)
+    finally:
+        pipe.quantize = "off"
+    n_inv = sum(c for k, c in inv_launches.items() if k[0] == "int8_gemm")
+    n_edit = sum(c for k, c in edit_launches.items() if k[0] == "int8_gemm")
+    check(n_inv == per_enc + n_hops * per_unet, f"int8 invert: {n_inv} Q1 launches")
+    check(n_edit == n_inv + n_hops * per_unet + per_dec, f"int8 edit: {n_edit} Q1 launches")
+    for label, t in (("invert", inv), ("edit", edited)):
+        check(bool(torch.isfinite(t).all()), f"int8 {label} not finite")
+    shapes += q1_counts(inv_launches) + q1_counts(edit_launches)
+    print(f"  int8 invert ({n_inv} Q1 launches) and controlled edit ({n_edit}): finite, launches as "
+          f"derived")
+
+    # ---- 4. Q1 against its plain version at every shape of those runs; the quantising pass ----
+    report["q1_vs_plain"] = q1_check_shapes(set(shapes), "the SD1.5 int8 runs", dev)
+    x = torch.randn((BATCH, 320, 64, 64), generator=torch.Generator().manual_seed(7))
+    x.view(-1)[::4099] *= 12.0
+    codes = {}
+    for axes, label in ((None, "per tensor"), ((1,), "per row")):
+        xx = x if axes is None else x.permute(0, 2, 3, 1).reshape(-1, 320)
+        qc, sc = quant.quantize_int8(xx, axes)
+        qg, sg = quant.quantize_int8(xx.to(dev), axes)
+        diff = (qg.cpu().int() - qc.int()).abs()
+        codes[label] = {"equal_share": (diff == 0).float().mean().item(), "max_diff": int(diff.max()),
+                        "scales_equal": bool(torch.equal(sg.cpu(), sc))}
+        check(codes[label]["max_diff"] <= 1, f"quantising pass {label}: codes {diff.max()} apart")
+    report["quantize_pass_card_vs_cpu"] = codes
+    print(f"  quantising pass, card vs CPU on the same fp32 input: {codes}")
+
+    # ---- 5. the entry points ----
+    with tempfile.TemporaryDirectory() as tmp:
+        pipe.quant_stats.clear()
+        out = os.path.join(tmp, "gen")
+        fa.reset_launch_counts()
+        generate_cli.main(["--model", "sd15", "--quantize", "int8_static", "--prompt", PROMPTS[0],
+                           "--prompt", PROMPTS[1], "--out", out], _pipe=pipe)
+        cli_q1 = fa.launches("int8_gemm")
+        with open(os.path.join(out, "manifest.json")) as f:
+            files = json.load(f)["files"]
+        check(len(files) == 2 and all(os.path.exists(p) for p in files), f"generate CLI files {files}")
+        check(set(pipe.quant_stats) == {"reverse", "forward", "vae"} and pipe.quantize == "off",
+              f"the generate CLI's int8_static: stats {sorted(pipe.quant_stats)}, mode {pipe.quantize}")
+        check(cli_q1 == want_gen["int8_gemm"], f"generate CLI: {cli_q1} Q1 launches")
+        src = os.path.join(tmp, "in.jpg")
+        generate_cli.save_image(image, src)
+        out = os.path.join(tmp, "edit")
+        edit_cli.main(["--model", "sd15", "--quantize", "int8", "--image", src, "--source", EDIT_SOURCE,
+                       "--target", EDIT_TARGET, "--out", out], _pipe=pipe)
+        with open(os.path.join(out, "results.json")) as f:
+            edited_file = json.load(f)["results"][0]["file"]
+        check(os.path.exists(edited_file) and pipe.quantize == "off", "edit CLI --quantize int8")
+        print(f"  generate CLI --quantize int8_static (calibrated once, {cli_q1} Q1 launches) and edit "
+              f"CLI --quantize int8: files written, the bundle's mode restored")
+    pipe.quantize = "int8"
+    ex = BatchingExecutor(pipe, batch_sizes=SERVE_BATCH_SIZES, max_delay=INT8_SERVE_DELAY)
+    try:
+        lone = ex.submit(*LONE).result(timeout=600)
+        burst, order, _ = burst_requests(ex, INT8_BURST)
+        stats = ex.stats()
+        check(stats["batches_b1"] == 1 and stats["batches_b4"] == 1 and stats["padded_slots"] == 1,
+              f"int8 executor: the lone request at 1, the burst of 3 as one padded batch of 4: {stats}")
+        want_lone, _ = pipe.generate([LONE[0]], latent=ex._latents([LONE[1]]), guidance=ex.guidance)
+        reqs = [INT8_BURST[i] for i in order] + [INT8_BURST[order[-1]]]  # the executor's padding
+        want_burst, _ = pipe.generate([p for p, _ in reqs], latent=ex._latents([s for _, s in reqs]),
+                                      guidance=ex.guidance)
+        check(np.array_equal(lone, want_lone[0].cpu().numpy()), "int8 lone request differs")
+        check(all(np.array_equal(burst[i], want_burst[j].cpu().numpy()) for j, i in enumerate(order)),
+              "int8 served rows differ from the direct generate of their padded batch")
+    finally:
+        ex.shutdown()
+        pipe.quantize = "off"
+    print(f"  BatchingExecutor{SERVE_BATCH_SIZES} on the int8 bundle: {stats}; served rows = rows of "
+          f"direct int8 generates of the same padded batches, bit for bit")
+    qq = quant_quality.main(["--model", "sd15", "--n", "2", "--batch_size", "2", "--quantize", "int8"],
+                            _pipe=pipe)
+    check(all(math.isfinite(qq[k]) for k in ("psnr_generate", "psnr_roundtrip")), f"quant_quality {qq}")
+    report["quant_quality"] = qq
+
+    # ---- 6. times ----
+    unet = pipe.unets["reverse"]
+    ctx = pipe._encode_all(PROMPTS, need_uncond=False)[1]
+    z = results[("off", 4)][1].permute(0, 3, 1, 2).contiguous()
+    w = w_embedding_for(pipe.default_guidance(), 999, BATCH, device=dev)
+    t = torch.full((BATCH,), 999, device=dev)
+    unet_ms, vae_ms = {}, {}
+    with torch.inference_mode():
+        for mode in ("off", "int8"):
+            with quant.quant_scope(mode):
+                unet_ms[mode] = cuda_ms(lambda: unet(z, t, ctx, w), per_loop=1)
+            pipe.quantize = mode
+            vae_ms[mode] = cuda_ms(lambda: pipe._decode_latents(z), per_loop=1, loops=3, warmup=1)
+            pipe.quantize = "off"
+    report.update(unet_call_ms_b4=unet_ms, vae_decode_ms_b4=vae_ms, generate_s=gen_s,
+                  peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"  batch {BATCH}: UNet call off {unet_ms['off']:.2f} ms, int8 {unet_ms['int8']:.2f} ms; VAE "
+          f"decode off {vae_ms['off']:.2f} ms, int8 {vae_ms['int8']:.2f} ms ({card})")
+    print("  generate s by mode (batch 4, 1): " + "; ".join(
+        f"{m} {gen_s[m][4]:.3f}, {gen_s[m][1]:.3f}" for m in QUANT_MODES))
+
+    # ---- 7. Q1's rows: the costliest shapes of the batch-4 int8 generate ----
+    launches_all = int8_gen[4] + int8_gen[1] + q1_counts(inv_launches) + q1_counts(edit_launches)
+    rows = [q1_row(key, launches_all[key], dev) for key in q1_costliest(int8_gen[BATCH], Q1_TOP)]
+    report["q1_rows"] = [{k: r[k] for k in ("name", "ms", "bound_ms", "bound_by", "plain_ms",
+                                              "library_ms", "library", "launches")} for r in rows]
+    pipe.quant_stats.clear()
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(report))
+    return rows
+
+
+def phase_int8_sdxl(card: str, pipe, latent):
+    """One int8 generate of the SDXL bundle at 1024^2, batch 1 (after a
+    warm-up one): finite, exact Q1 launches (the fp32 VAE's layers writing
+    fp32), B1 and B2's fp32 build at their "off" counts; Q1 against its
+    plain version at every shape of the fp32 VAE decode. Returns Q1's row at
+    the decode's costliest shape."""
+    import torch
+
+    from invertible_cd_tpu_torch.ops import flash_attention as fa
+
+    cfg, vcfg = pipe.unets["reverse"].cfg, pipe.vae.cfg
+    side, n_hops = pipe.latent_size[0], pipe.grid.num_reverse_steps
+    per_unet, per_dec = q1_unet_launches(cfg), q1_vae_launches(vcfg, True)
+    off, _ = pipe.generate([EDIT_SOURCE], latent=latent)
+    pipe.quantize = "int8"
+    try:
+        pipe.generate([EDIT_SOURCE], latent=latent)  # warm-up
+        torch.cuda.synchronize()
+        # ---- counts reset just before, read just after ----
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        images, lat = pipe.generate([EDIT_SOURCE], latent=latent)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = collections.Counter(fa.LAUNCH_SHAPES)
+    finally:
+        pipe.quantize = "off"
+    q1 = q1_counts(launched)
+    vae = collections.Counter({k: c for k, c in q1.items() if k[-1] == "float32"})
+    totals = {name: sum(c for k, c in launched.items() if k[0] == name)
+              for name in ("int8_gemm", "flash_fwd", "flash_fwd_streamed_f32")}
+    vae_b2 = vcfg.block_out_channels[-1] > 256  # the fp32 VAE's single head: B2's fp32 build, else B1
+    want = {"int8_gemm": n_hops * per_unet + per_dec,
+            "flash_fwd": n_hops * sum(unet_launches_per_call(cfg, side).values()) + (not vae_b2),
+            "flash_fwd_streamed_f32": int(vae_b2)}
+    check(totals == want, f"SDXL int8 generate launches {totals} != {want}")
+    check(sum(vae.values()) == per_dec, f"fp32 VAE: {sum(vae.values())} fp32 Q1 launches, not {per_dec}")
+    check(bool(torch.isfinite(images).all()) and bool(torch.isfinite(lat).all()), "SDXL int8 not finite")
+    d = (images - off).abs()
+    print(f"sdxl int8: generate at 1024^2, batch 1: {secs * 1e3:.1f} ms, launches {totals} (derived: "
+          f"{per_unet} Q1 a UNet call, {per_dec} a decode, all {per_dec} of the fp32 VAE's writing fp32); "
+          f"vs off mean |diff| {d.mean().item():.4e}, max {d.max().item():.4e} ({card})")
+    checked = q1_check_shapes(set(vae), "SDXL's fp32 VAE decode at 1024^2", pipe.device)
+    top = q1_costliest(vae, 1)[0]
+    row = q1_row(top, vae[top], pipe.device)
+    print(json.dumps({"phase": "int8 sdxl", "card": card, "generate_ms": secs * 1e3, "launches": totals,
+                      "vs_off": {"mean_abs": d.mean().item(), "max_abs": d.max().item()},
+                      "q1_vs_plain": checked}))
+    return [row]
+
+
 def phase_sdxl(card: str):
     """The SDXL paths (BASELINE configs 3 and 4) at 1024^2: `generate` of one
     prompt, `invert` of a seeded image and the amplify `edit`, on
@@ -2151,9 +2684,10 @@ def phase_sdxl(card: str):
           f"peak memory {peak_gb:.2f} GiB ({card})")
     print(f"  UNet call {unet_ms:.2f} ms; fp32 VAE decode {decode_ms:.2f} ms, encode {encode_ms:.2f} ms; "
           f"text encoders ViT-L {clip_ms:.2f} ms, bigG {clip2_ms:.2f} ms ({card})")
+    q1_rows = phase_int8_sdxl(card, pipe, latent)
     trace_run("SDXL generate, 1024^2", generate)
     return {1: counted["generate"] + counted["invert"] + counted["served"] + opt_in[1],
-            2: pair_launches + opt_in[2]}
+            2: pair_launches + opt_in[2]}, q1_rows
 
 
 def trace_run(label: str, fn) -> None:
@@ -3157,7 +3691,8 @@ def main(argv=None) -> int:
         edit_launches = phase_edit(card, pipe)
         serve_launches = phase_serve(card, pipe)
         baseline_launches = phase_baselines(card, pipe)
-        sdxl_launches = phase_sdxl(card)
+        q1_rows = phase_int8(card, pipe)
+        sdxl_launches, xl_q1_rows = phase_sdxl(card)
         torch.cuda.empty_cache()  # the SDXL bundle is gone
         train_launches = phase_training(card, pipe)
         eval_launches, eval_train_launches = phase_eval(card, pipe)
@@ -3189,8 +3724,9 @@ def main(argv=None) -> int:
                            + (train_launches[key] + eval_train_launches[key]
                               if row["batch"] == BATCH else 0)
                            + (xl_train_launches[key] if row["batch"] == XL_TRAIN_BATCH else 0))
-    # B5 runs on the harness path alone; its rows carry that path's launches
-    rows += harness_rows
+    # B5 runs on the harness path alone; its rows carry that path's launches;
+    # Q1's rows carry the int8 phases' counted runs
+    rows += harness_rows + q1_rows + xl_q1_rows
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:
         print(f"chip_smoke: kernels not launched on their path: {missing}", file=sys.stderr)

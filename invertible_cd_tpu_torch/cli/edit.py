@@ -27,8 +27,13 @@ ImageReward of the edited image against the target prompt) and writes the
 means to `results.json` under "metrics" (None for a scorer whose weights are
 not given). A model config's keys are flags too (`generate.add_model_args`,
 checked against the bundle; `--tau1`, reported where it differs from
-`--tau`). Not ported yet: `--quantize` and host striding over several
+`--tau`). `--quantize` as in `cli.generate` (the DDIM inversion and
+reconstruction of the baselines quantised too; NTI's optimisation stays
+float, as in the JAX package). Not ported yet: host striding over several
 processes.
+
+    python -m invertible_cd_tpu_torch.cli.edit --model tiny --device cpu --quantize int8 \\
+        --image in.png --source "a cat" --target "a dog" --out runs/edit_int8
 """
 from __future__ import annotations
 
@@ -44,8 +49,8 @@ import torch
 
 from . import apply_config_file
 from .generate import (
-    METRICS_NOTE, _generator, add_grid_args, add_model_args, add_scorer_args, add_weights_args,
-    build_evaluators, build_pipeline, mean_or_none, save_image)
+    METRICS_NOTE, _generator, add_grid_args, add_model_args, add_quantize_arg, add_scorer_args,
+    add_weights_args, build_evaluators, build_pipeline, mean_or_none, quantized, save_image)
 from ..data import load_benchmark
 from ..edit import make_controller
 from ..pipelines import nti as nti_mod
@@ -108,6 +113,7 @@ def parse_args(argv=None):
     p.add_argument("--uncond_cache", default=None,
                    help="pickle file caching NTI per-step uncond embeddings by source prompt")
     p.add_argument("--num_ddim_steps", type=int, default=50, help="DDIM grid size")
+    add_quantize_arg(p)
     p.add_argument("--cross_replace_steps", type=float, default=0.6)
     p.add_argument("--self_replace_steps", type=float, default=0.4)
     p.add_argument("--no_blend", action="store_true")
@@ -257,7 +263,8 @@ def _is_one_word_swap(source: str, target: str) -> bool:
 
 
 def main(argv=None, _pipe=None):
-    """Edit; `_pipe` (a bundle) replaces the one the flags would build."""
+    """Edit; `_pipe` (a bundle) replaces the one the flags would build (in
+    `--quantize`'s mode for the run, its own restored after)."""
     args = parse_args(argv)
     if args.baseline != "none" and args.model == "sdxl":
         # the reference ships DDIM/NTI/NPI baselines for SD1.5 only; the SDXL
@@ -271,6 +278,12 @@ def main(argv=None, _pipe=None):
         print(f"--tau1 {args.tau1} is a generation setting: editing keeps --tau {args.tau}")
     os.makedirs(args.out, exist_ok=True)
     pipe = _pipe if _pipe is not None else build_pipeline(args)
+    with quantized(pipe, args.quantize):
+        run(args, pipe)
+
+
+def run(args, pipe):
+    """The edit CLI's work on a built bundle."""
     pix = pipe.latent_size[0] * 2 ** (len(pipe.vae.cfg.block_out_channels) - 1)
 
     if args.benchmark:

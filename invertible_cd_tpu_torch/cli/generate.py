@@ -4,6 +4,8 @@
         --prompt "a photo of a corgi on the beach" --prompt "a red fox" --out runs/gen
     python -m invertible_cd_tpu_torch.cli.generate --model tiny --device cpu \\
         --prompt "a cat" --out runs/tiny
+    python -m invertible_cd_tpu_torch.cli.generate --model tiny --device cpu \\
+        --quantize int8_static --prompt "a cat" --out runs/tiny_int8
 
 Counterpart of `cli/generate.py`: few-step consistency generation (reverse
 CD), the 50-step DDIM teacher baseline (`--ddim_baseline`), benchmark CSV
@@ -30,12 +32,16 @@ weights are not given); in the invert/reconstruct mode the inversion bundle
 A config file's `resolution`, `w_embed_dim`, `start_timestep`, `lora_rank`
 and `lora_alpha` are flags too (`add_model_args`): they describe the model,
 and each one given is checked against the bundle (`check_model_args`), which
-they do not change. Not ported yet: `--quantize` and host striding over
-several processes.
+they do not change. `--quantize int8|int8_vae|int8_static` runs the UNet
+and/or the VAE in int8 (`pipelines.pipeline.QUANT_MODES`, kernel Q1 on the
+card); `int8_static` first calibrates the bundle once
+(`collect_quant_stats`). Not ported yet: host striding over several
+processes.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -48,7 +54,8 @@ from . import apply_config_file
 from ..data import load_benchmark
 from ..diffusion.solver import make_solver_grid
 from ..pipelines import sampler as S
-from ..pipelines.pipeline import InvertibleCD, UNET_KEYS, load_512, resolve_device, to_uint8
+from ..pipelines.pipeline import (
+    QUANT_MODES, InvertibleCD, UNET_KEYS, load_512, resolve_device, to_uint8)
 
 # grids of the released checkpoints: SD1.5, and iCD-SDXL (reference running/sdxl/README.md:4)
 TIMESTEPS = {"sdxl": ([249, 499, 699, 999], [19, 249, 499, 699]),
@@ -83,6 +90,7 @@ def parse_args(argv=None):
     p.add_argument("--inv_guidance_scale", type=float, default=0.0,
                    help="CFG scale during inversion")
     p.add_argument("--num_ddim_steps", type=int, default=50, help="DDIM grid size")
+    add_quantize_arg(p)
     add_weights_args(p)
     add_model_args(p)
     p.add_argument("--calc_metrics", action="store_true")
@@ -190,6 +198,34 @@ def add_grid_args(p):
                    help="default: 19 259 519 779 (SD1.5) / 19 249 499 699 (SDXL)")
 
 
+def add_quantize_arg(p):
+    """`--quantize` (the JAX CLIs' flag, same choices and default)."""
+    p.add_argument("--quantize", default="off", choices=QUANT_MODES,
+                   help="int8 inference (ops/quant.py, kernel Q1 on the card): int8 = UNet and "
+                        "VAE, int8_vae = the VAE only, int8_static = int8 with calibrated conv "
+                        "scales (runs collect_quant_stats once)")
+
+
+def set_quantize(pipe, mode: str) -> None:
+    """`pipe` in int8 mode `mode`; "int8_static" calibrates it first
+    (`collect_quant_stats` with its defaults) unless it holds stats."""
+    pipe.quantize = mode
+    if mode == "int8_static" and not pipe.quant_stats:
+        pipe.collect_quant_stats()
+
+
+@contextlib.contextmanager
+def quantized(pipe, mode: str):
+    """`set_quantize(pipe, mode)` for the block; the pipe's previous mode
+    is restored after it."""
+    prev = pipe.quantize
+    set_quantize(pipe, mode)
+    try:
+        yield pipe
+    finally:
+        pipe.quantize = prev
+
+
 def add_weights_args(p):
     """Checkpoint file flags (`pipelines.loading.load_bundle_params`)."""
     p.add_argument("--reverse_lora", default=None, help="kohya safetensors")
@@ -204,7 +240,9 @@ def add_weights_args(p):
 
 def build_pipeline(args):
     """The bundle the flags ask for, on `--device`, on the grid of
-    `--num_ddim_steps`, `--reverse_timesteps` and `--forward_timesteps`."""
+    `--num_ddim_steps`, `--reverse_timesteps` and `--forward_timesteps`, in
+    the int8 mode of `--quantize` (`set_quantize`: "int8_static" calibrates
+    once, on the loaded weights)."""
     from ..pipelines.sdxl import InvertibleCDXL
     from ..testing import tiny_bundle
 
@@ -225,6 +263,7 @@ def build_pipeline(args):
         build = InvertibleCDXL.sdxl if args.model == "sdxl" else InvertibleCD.sd15
         pipe = build(params=params, grid=grid, dtype=dtype, device=device)
     check_model_args(args, pipe)
+    set_quantize(pipe, getattr(args, "quantize", "off"))
     return pipe
 
 
@@ -314,10 +353,17 @@ def reconstruct_images(pipe, args, g):
 
 
 def main(argv=None, _pipe=None):
-    """Generate; `_pipe` (a bundle) replaces the one the flags would build."""
+    """Generate; `_pipe` (a bundle) replaces the one the flags would build
+    (in `--quantize`'s mode for the run, its own restored after)."""
     args = parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
     pipe = _pipe if _pipe is not None else build_pipeline(args)
+    with quantized(pipe, args.quantize):
+        return run(args, pipe)
+
+
+def run(args, pipe):
+    """The generate CLI's work on a built bundle."""
     if args.benchmark:
         prompts = load_benchmark(args.benchmark, kind="generation", max_count=args.max_cnt)
     else:

@@ -12,8 +12,11 @@ Counterpart of `cli/serve.py`. Stdlib only (ThreadingHTTPServer):
 concurrent client requests block on their own futures while the executor
 coalesces them into batches; the PNG comes from `utils.images.encode_png`.
 The bundle is `cli.generate.build_pipeline`'s, on `--device` (default
-cuda). Serving over several cards (`--dp`, `--sp`) and `--quantize` are not
-ported yet.
+cuda), in the int8 mode of `--quantize` (as `cli.generate`; a bundle
+passed to `make_server` is set to it too). Serving over several cards
+(`--dp`, `--sp`) is not ported yet.
+
+    python -m invertible_cd_tpu_torch.cli.serve --model tiny --device cpu --quantize int8 --port 8765
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import argparse
 import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from .generate import add_grid_args, add_weights_args, build_pipeline
+from .generate import add_grid_args, add_quantize_arg, add_weights_args, build_pipeline, set_quantize
 from ..pipelines.pipeline import to_uint8
 from ..serving import BatchingExecutor
 from ..utils.images import encode_png
@@ -43,6 +46,7 @@ def parse_args(argv=None):
     p.add_argument("--tau2", type=float, default=0.8)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     add_grid_args(p)
+    add_quantize_arg(p)
     add_weights_args(p)
     return p.parse_args(argv)
 
@@ -50,9 +54,11 @@ def parse_args(argv=None):
 def make_server(args, pipe=None):
     """Build (ThreadingHTTPServer, BatchingExecutor); callers own both (the
     server's `shutdown` and `server_close`, the executor's `shutdown`).
-    `pipe` replaces the bundle the flags would build."""
+    `pipe` replaces the bundle the flags would build; either serves in
+    `--quantize`'s mode."""
     if pipe is None:
         pipe = build_pipeline(args)
+    set_quantize(pipe, args.quantize)
     g = pipe.default_guidance(guidance_scale=args.guidance_scale, dynamic_guidance=True,
                               tau1=args.tau1, tau2=args.tau2)
     sizes = tuple(int(b) for b in args.batch_sizes.split(",")) if args.batch_sizes else None

@@ -39,8 +39,11 @@ def guidance_scale_embedding(w, embedding_dim: int = 512, dtype=torch.float32):
     """
     w = torch.as_tensor(w).to(dtype) * 1000.0
     half_dim = embedding_dim // 2
+    # JAX multiplies the arange by a numpy float64 scalar, which promotes a
+    # bf16 arange to fp32: the frequencies, and so the features, are fp32
+    # whatever `dtype` (only w * 1000 is rounded to it)
     freq = torch.exp(
-        torch.arange(half_dim, dtype=dtype, device=w.device)
+        torch.arange(half_dim, dtype=dtype, device=w.device).float()
         * (-np.log(10000.0) / (half_dim - 1))
     )
     emb = w[:, None] * freq[None, :]

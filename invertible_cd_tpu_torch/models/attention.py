@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.flash_attention import flash_attention, flash_attention_streamed
-from .layers import FeedForward, GroupNorm32, LayerNorm32
+from .layers import FeedForward, GroupNorm32, LayerNorm32, QConv2d, QLinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,10 +92,10 @@ class CrossAttention(nn.Module):
         super().__init__()
         ctx = dim if context_dim is None else context_dim
         self.heads = heads
-        self.to_q = nn.Linear(dim, dim, bias=False)
-        self.to_k = nn.Linear(ctx, dim, bias=False)
-        self.to_v = nn.Linear(ctx, dim, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
+        self.to_q = QLinear(dim, dim, bias=False)
+        self.to_k = QLinear(ctx, dim, bias=False)
+        self.to_v = QLinear(ctx, dim, bias=False)
+        self.to_out = nn.ModuleList([QLinear(dim, dim)])
 
     def forward(self, x, context=None, hook: Optional[AttnHook] = None,
                 meta: Optional[AttnMeta] = None):
@@ -155,7 +155,7 @@ class Transformer2D(nn.Module):
         super().__init__()
         self.use_linear_projection = use_linear_projection
         self.norm = GroupNorm32(dim, eps=1e-6)
-        proj = nn.Linear if use_linear_projection else (lambda i, o: nn.Conv2d(i, o, 1))
+        proj = QLinear if use_linear_projection else (lambda i, o: QConv2d(i, o, 1))
         self.proj_in = proj(dim, dim)
         self.proj_out = proj(dim, dim)
         self.transformer_blocks = nn.ModuleList(

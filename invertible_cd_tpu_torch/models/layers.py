@@ -19,6 +19,40 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import quant
+
+
+class QLinear(nn.Linear):
+    """`nn.Linear` that runs int8 (`ops.quant.int8_linear`: per-token
+    activation and per-output-feature weight scales, kernel Q1) inside an
+    int8 `quant_scope`, and is exactly `nn.Linear` outside one or on
+    non-float input (JAX `QDense`). CLIP keeps plain `nn.Linear`."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if quant.current_quant_mode() in quant.INT8_MODES and x.is_floating_point():
+            return quant.int8_linear(x, self.weight, self.bias)
+        return super().forward(x)
+
+
+class QConv2d(nn.Conv2d):
+    """`nn.Conv2d` that runs int8 (`ops.quant.int8_conv2d`: one activation
+    scale per tensor, or its calibrated amax under "int8_static"; one weight
+    scale per output channel; kernel Q1) inside an int8 `quant_scope`,
+    records its input's amax inside a "calibrate" scope, and is exactly
+    `nn.Conv2d` otherwise (JAX `QConv`). Grouped, dilated or non-zero-padded
+    convolutions and non-float input stay float in every mode."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mode = quant.current_quant_mode()
+        if mode == "calibrate":
+            quant.record_amax(self, x)
+        elif (mode in quant.INT8_MODES and x.is_floating_point() and self.groups == 1
+              and self.dilation == (1, 1) and self.padding_mode == "zeros"
+              and not isinstance(self.padding, str)):
+            return quant.int8_conv2d(x, self.weight, self.bias, self.stride, self.padding,
+                                     quant.static_amax(self))
+        return super().forward(x)
+
 
 def sinusoidal_timestep_embedding(
     timesteps: torch.Tensor,
@@ -105,10 +139,10 @@ class TimestepEmbedding(nn.Module):
 
     def __init__(self, in_dim: int, embed_dim: int, cond_proj_dim: Optional[int] = None):
         super().__init__()
-        self.linear_1 = nn.Linear(in_dim, embed_dim)
-        self.linear_2 = nn.Linear(embed_dim, embed_dim)
+        self.linear_1 = QLinear(in_dim, embed_dim)
+        self.linear_2 = QLinear(embed_dim, embed_dim)
         self.cond_proj = (
-            nn.Linear(cond_proj_dim, in_dim, bias=False) if cond_proj_dim else None
+            QLinear(cond_proj_dim, in_dim, bias=False) if cond_proj_dim else None
         )
 
     def forward(self, sample: torch.Tensor, condition: Optional[torch.Tensor] = None):
@@ -128,14 +162,14 @@ class ResnetBlock2D(nn.Module):
                  temb_channels: Optional[int] = None, eps: float = 1e-5):
         super().__init__()
         self.norm1 = GroupNorm32(in_channels, eps)
-        self.conv1 = nn.Conv2d(in_channels, out_channels, 3, padding=1)
+        self.conv1 = QConv2d(in_channels, out_channels, 3, padding=1)
         self.time_emb_proj = (
-            nn.Linear(temb_channels, out_channels) if temb_channels else None
+            QLinear(temb_channels, out_channels) if temb_channels else None
         )
         self.norm2 = GroupNorm32(out_channels, eps)
-        self.conv2 = nn.Conv2d(out_channels, out_channels, 3, padding=1)
+        self.conv2 = QConv2d(out_channels, out_channels, 3, padding=1)
         self.conv_shortcut = (
-            nn.Conv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
+            QConv2d(in_channels, out_channels, 1) if in_channels != out_channels else None
         )
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None):
@@ -152,7 +186,7 @@ class Downsample2D(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0)
+        self.conv = QConv2d(channels, channels, 3, stride=2, padding=0)
 
     def forward(self, x):
         return self.conv(F.pad(x, (0, 1, 0, 1)))
@@ -163,7 +197,7 @@ class Upsample2D(nn.Module):
 
     def __init__(self, channels: int):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv = QConv2d(channels, channels, 3, padding=1)
 
     def forward(self, x):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
@@ -175,7 +209,7 @@ class GEGLU(nn.Module):
 
     def __init__(self, dim: int, dim_out: int):
         super().__init__()
-        self.proj = nn.Linear(dim, dim_out * 2)
+        self.proj = QLinear(dim, dim_out * 2)
 
     def forward(self, x):
         h, gate = self.proj(x).chunk(2, dim=-1)
@@ -188,7 +222,7 @@ class FeedForward(nn.Module):
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
-        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)])
+        self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), QLinear(dim * mult, dim)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))

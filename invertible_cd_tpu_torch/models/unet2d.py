@@ -21,6 +21,7 @@ from .attention import AttnHook, Transformer2D
 from .layers import (
     Downsample2D,
     GroupNorm32,
+    QConv2d,
     ResnetBlock2D,
     TimestepEmbedding,
     Upsample2D,
@@ -183,7 +184,7 @@ class UNet2DCondition(nn.Module):
         self.time_embedding = TimestepEmbedding(c0, cfg.time_embed_dim, cfg.time_cond_proj_dim)
         if cfg.addition_embed_dim is not None:
             self.add_embedding = TimestepEmbedding(cfg.addition_embed_dim, cfg.time_embed_dim)
-        self.conv_in = nn.Conv2d(cfg.in_channels, c0, 3, padding=1)
+        self.conv_in = QConv2d(cfg.in_channels, c0, 3, padding=1)
 
         n = len(cfg.block_out_channels)
         self.down_blocks = nn.ModuleList()
@@ -206,7 +207,7 @@ class UNet2DCondition(nn.Module):
             )
             ch = cfg.block_out_channels[level]
         self.conv_norm_out = GroupNorm32(c0, eps=1e-5)
-        self.conv_out = nn.Conv2d(c0, cfg.out_channels, 3, padding=1)
+        self.conv_out = QConv2d(c0, cfg.out_channels, 3, padding=1)
 
     @property
     def dtype(self) -> torch.dtype:

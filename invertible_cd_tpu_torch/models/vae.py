@@ -17,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .attention import fused_attention
-from .layers import Downsample2D, GroupNorm32, ResnetBlock2D, Upsample2D
+from .layers import Downsample2D, GroupNorm32, QConv2d, QLinear, ResnetBlock2D, Upsample2D
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,10 +48,10 @@ class VAEAttention(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
         self.group_norm = GroupNorm32(channels, eps=1e-6)
-        self.to_q = nn.Linear(channels, channels)
-        self.to_k = nn.Linear(channels, channels)
-        self.to_v = nn.Linear(channels, channels)
-        self.to_out = nn.ModuleList([nn.Linear(channels, channels)])
+        self.to_q = QLinear(channels, channels)
+        self.to_k = QLinear(channels, channels)
+        self.to_v = QLinear(channels, channels)
+        self.to_out = nn.ModuleList([QLinear(channels, channels)])
 
     def forward(self, x):
         b, c, h, w = x.shape
@@ -115,7 +115,7 @@ class Encoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         chs = cfg.block_out_channels
-        self.conv_in = nn.Conv2d(cfg.in_channels, chs[0], 3, padding=1)
+        self.conv_in = QConv2d(cfg.in_channels, chs[0], 3, padding=1)
         self.down_blocks = nn.ModuleList(
             [DownEncoderBlock(chs[max(i - 1, 0)], ch, cfg.layers_per_block,
                               add_downsample=i < len(chs) - 1)
@@ -123,7 +123,7 @@ class Encoder(nn.Module):
         )
         self.mid_block = MidBlock(chs[-1])
         self.conv_norm_out = GroupNorm32(chs[-1], eps=1e-6)
-        self.conv_out = nn.Conv2d(chs[-1], 2 * cfg.latent_channels, 3, padding=1)
+        self.conv_out = QConv2d(chs[-1], 2 * cfg.latent_channels, 3, padding=1)
 
     def forward(self, x):
         x = self.conv_in(x)
@@ -137,7 +137,7 @@ class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         chs = tuple(reversed(cfg.block_out_channels))
-        self.conv_in = nn.Conv2d(cfg.latent_channels, chs[0], 3, padding=1)
+        self.conv_in = QConv2d(cfg.latent_channels, chs[0], 3, padding=1)
         self.mid_block = MidBlock(chs[0])
         self.up_blocks = nn.ModuleList(
             [UpDecoderBlock(chs[max(i - 1, 0)], ch, cfg.layers_per_block + 1,
@@ -145,7 +145,7 @@ class Decoder(nn.Module):
              for i, ch in enumerate(chs)]
         )
         self.conv_norm_out = GroupNorm32(chs[-1], eps=1e-6)
-        self.conv_out = nn.Conv2d(chs[-1], cfg.out_channels, 3, padding=1)
+        self.conv_out = QConv2d(chs[-1], cfg.out_channels, 3, padding=1)
 
     def forward(self, z):
         x = self.mid_block(self.conv_in(z))
@@ -163,8 +163,8 @@ class AutoencoderKL(nn.Module):
         self.cfg = cfg
         self.encoder = Encoder(cfg)
         self.decoder = Decoder(cfg)
-        self.quant_conv = nn.Conv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
-        self.post_quant_conv = nn.Conv2d(cfg.latent_channels, cfg.latent_channels, 1)
+        self.quant_conv = QConv2d(2 * cfg.latent_channels, 2 * cfg.latent_channels, 1)
+        self.post_quant_conv = QConv2d(cfg.latent_channels, cfg.latent_channels, 1)
 
     @property
     def dtype(self) -> torch.dtype:

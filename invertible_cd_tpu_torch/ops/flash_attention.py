@@ -60,6 +60,10 @@ KERNELS: Dict[str, tuple] = {
     # `flash_variant.py`, one entry point per variant
     "flash_variant": ("flash_variant.cu", "icd_flash_variant_base"),
 }
+#: every library `build` compiles: the attention kernels above and Q1, the
+#: int8 implicit GEMM of the int8 layers (wrappers, argument types and plain
+#: version in `quant.py`)
+LIBRARIES: Dict[str, tuple] = {**KERNELS, "int8_gemm": ("int8_gemm.cu", "icd_int8_gemm")}
 _HEADERS = ("flash_common.cuh", "flash_mma.cuh", "flash_wgmma.cuh", "hopper.cuh")
 #: C entry point -> number of leading pointer arguments; every entry point is
 #: (pointers..., batch, heads, sq, sk, d, scale, stream) -> CUDA error code
@@ -102,7 +106,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     """Path of the built library for `name`; the hash covers its sources."""
-    src, _ = KERNELS[name]
+    src, _ = LIBRARIES[name]
     h = hashlib.sha256()
     for f in (src,) + _HEADERS:
         with open(os.path.join(_CSRC, f), "rb") as fh:
@@ -111,7 +115,7 @@ def library_path(name: str) -> str:
 
 
 def _nvcc_command(name: str, out: str) -> list:
-    src, _ = KERNELS[name]
+    src, _ = LIBRARIES[name]
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -119,7 +123,7 @@ def _nvcc_command(name: str, out: str) -> list:
     ]
 
 
-def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
+def build(names: Iterable[str] = tuple(LIBRARIES)) -> Dict[str, str]:
     """Compile every kernel in `names` that is not built yet, one nvcc
     process per source, all started together. Returns name -> nvcc's
     output (the -Xptxas -v register and shared-memory report)."""

@@ -66,7 +66,9 @@ def make_nti_step(pipe: InvertibleCD, num_inner_steps: int, guidance_scale: floa
     stops if that pre-update loss fell below `threshold` or after
     `num_inner_steps` iterations. The trajectory advances with the
     optimised embedding."""
-    noise_model = pipe._noise_model(pipe.unets["teacher"])
+    # outside any quantisation scope, whatever `pipe.quantize` (JAX
+    # `nti.py:33-37` applies the UNet directly): the optimisation stays float
+    noise_model = pipe._noise_model(pipe.unets["teacher"], quantized=False)
     schedule = pipe.schedule
     step_ratio = schedule.num_train_timesteps // pipe.grid.n_steps
 

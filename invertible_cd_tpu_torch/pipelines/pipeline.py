@@ -9,6 +9,14 @@ consistency paths:
                [source, target] pair with a prompt-to-prompt controller
   ddim_generate(), ddim_invert():  the 50-step DDIM baselines with the
                teacher (CFG; per-step null-text contexts from `nti.py`)
+  collect_quant_stats():  calibrates the "int8_static" convolution scales
+
+`quantize` selects int8 inference (`ops/quant.py`): "off"; "int8" (every
+UNet and VAE dense and convolution layer through kernel Q1); "int8_vae" (the
+VAE only: the latents are those of "off"); "int8_static" (as "int8", the
+convolutions with calibrated activation scales where `quant_stats` has
+them). CLIP is never quantised. It is read at every call, so assigning it
+switches the mode.
 
 Public functions keep the JAX package's layouts: latents (B, 64, 64, 4)
 NHWC in and out, images (B, 512, 512, 3) float32 in [0, 1] NHWC out. Inside,
@@ -32,10 +40,18 @@ from ..models.layers import cast_compute_weights, fan_in_init_
 from ..models.lora import merge_lora, seeded_lora
 from ..models.unet2d import UNet2DCondition, UNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig
+from ..ops.quant import quant_scope
 from ..utils.tokenizer import default_tokenizer
 from . import sampler as S
 
 UNET_KEYS = ("teacher", "reverse", "forward")
+QUANT_MODES = ("off", "int8", "int8_vae", "int8_static")
+
+
+def check_quantize(quantize: str) -> str:
+    if quantize not in QUANT_MODES:
+        raise ValueError(f"quantize={quantize!r}; expected one of {QUANT_MODES}")
+    return quantize
 
 
 def resolve_device(device) -> torch.device:
@@ -63,6 +79,15 @@ class InvertibleCD:
     grid: SolverGrid
     scaling_factor: float = 0.18215
     latent_size: Tuple[int, int] = (64, 64)
+    #: int8 inference mode, one of QUANT_MODES (JAX `pipeline.py:63-80`)
+    quantize: str = "off"
+    #: "int8_static"'s calibrated conv-input amaxes, per model ("reverse",
+    #: "forward", "vae"): {module name: fp32 scalar}, kept outside the state
+    #: dicts (`collect_quant_stats`)
+    quant_stats: Dict[str, Dict[str, torch.Tensor]] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        check_quantize(self.quantize)
 
     # ------------------------------------------------------------------
     # Construction
@@ -80,13 +105,14 @@ class InvertibleCD:
         vae_cfg: Optional[VAEConfig] = None,
         latent_size: Tuple[int, int] = (64, 64),
         lora_rank: int = 64,
+        quantize: str = "off",
     ) -> "InvertibleCD":
         """SD1.5 bundle on `device`, computing in `dtype`: the modules of
         `build_modules`, from `params` ("text", "vae" and one or more of
         "teacher", "reverse", "forward"; diffusers / transformers keys) or,
         without it, from seeded full-width synthetic weights with seeded
         rank-`lora_rank` LoRAs merged into the two students (the teacher
-        is the unmerged base)."""
+        is the unmerged base). `quantize`: the int8 mode (QUANT_MODES)."""
         device = resolve_device(device)
         unet_cfg = unet_cfg or UNetConfig.sd15()
         vae_cfg = vae_cfg or VAEConfig.sd()
@@ -106,6 +132,7 @@ class InvertibleCD:
             ),
             scaling_factor=vae_cfg.scaling_factor,
             latent_size=latent_size,
+            quantize=quantize,
         )
 
     @property
@@ -151,12 +178,31 @@ class InvertibleCD:
     # ------------------------------------------------------------------
     # Model calls
     # ------------------------------------------------------------------
-    def _noise_model(self, unet: UNet2DCondition, added: Optional[dict] = None):
+    def _unet_quant_mode(self) -> str:
+        return self.quantize if check_quantize(self.quantize) in ("int8", "int8_static") else "off"
+
+    def _vae_quant_mode(self) -> str:
+        if check_quantize(self.quantize) == "int8_static":
+            return "int8_static"
+        return "int8" if self.quantize in ("int8", "int8_vae") else "off"
+
+    def _quant_scope(self, mode: str, name: Optional[str], module: torch.nn.Module):
+        """The quantisation scope of one model call: `mode`, with the
+        calibrated stats of model `name` under "int8_static"."""
+        stats = self.quant_stats.get(name) if mode == "int8_static" else None
+        return quant_scope(mode, stats, root=module if stats else None)
+
+    def _noise_model(self, unet: UNet2DCondition, added: Optional[dict] = None,
+                     quantized: bool = True):
         """The sampler's noise model over `unet`, with SDXL's added
         conditioning broadcast to the batch of each call (JAX
         `pipeline.py:190-219`): a call on a doubled CFG batch [uncond; cond]
         gives the uncond half zero text embeds (the reference zeroes the
-        uncond pooled embeds) and every half the time ids."""
+        uncond pooled embeds) and every half the time ids. Each call runs in
+        the UNet's quantisation scope for `quantize` (read at the call), or
+        in "off" when not `quantized` (NTI's optimisation, as in JAX)."""
+        name = next((k for k, u in self.unets.items() if u is unet), None)
+
         def nm(latent, t, context, w_emb, hook=None):
             b = latent.shape[0]
             added_b = added
@@ -165,22 +211,27 @@ class InvertibleCD:
                 rep = b // te.shape[0]
                 added_b = {"text_embeds": torch.cat([torch.zeros_like(te)] * (rep - 1) + [te]),
                            "time_ids": torch.cat([added["time_ids"]] * rep)}
-            return unet(
-                latent, torch.full((b,), t, dtype=torch.long, device=latent.device),
-                context, w_cond=w_emb, added_cond=added_b, attn_hook=hook,
-            )
+            with self._quant_scope(self._unet_quant_mode() if quantized else "off", name, unet):
+                return unet(
+                    latent, torch.full((b,), t, dtype=torch.long, device=latent.device),
+                    context, w_cond=w_emb, added_cond=added_b, attn_hook=hook,
+                )
         return nm
 
     def _decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
-        """latents (B, 4, h, w) scaled -> images (B, H, W, 3) fp32 in [0, 1]."""
-        img = self.vae.decode(latents / self.scaling_factor)
+        """latents (B, 4, h, w) scaled -> images (B, H, W, 3) fp32 in [0, 1],
+        in the VAE's quantisation scope."""
+        with self._quant_scope(self._vae_quant_mode(), "vae", self.vae):
+            img = self.vae.decode(latents / self.scaling_factor)
         img = torch.clamp(img.float() / 2 + 0.5, 0.0, 1.0)
         return img.permute(0, 2, 3, 1).contiguous()
 
     def _encode_image(self, pixels: torch.Tensor) -> torch.Tensor:
         """pixels (B, H, W, 3) in [-1, 1] -> scaled posterior-mean latents
-        (B, 4, h, w) fp32 (JAX `pipeline.py:238-241`)."""
-        mean = self.vae.encode_mean(pixels.permute(0, 3, 1, 2))
+        (B, 4, h, w) fp32 (JAX `pipeline.py:238-241`), in the VAE's
+        quantisation scope."""
+        with self._quant_scope(self._vae_quant_mode(), "vae", self.vae):
+            mean = self.vae.encode_mean(pixels.permute(0, 3, 1, 2))
         return mean.float() * self.scaling_factor
 
     def _as_nchw(self, latent) -> torch.Tensor:
@@ -400,6 +451,77 @@ class InvertibleCD:
             self.grid, self.schedule, g, is_forward=True, return_all=True,
         )
         return traj, latent.permute(0, 2, 3, 1).contiguous()
+
+    @torch.inference_mode()
+    def collect_quant_stats(
+        self,
+        prompts: Sequence[str] = ("a photo of a corgi on the beach",),
+        generator: Optional[torch.Generator] = None,
+        models: Sequence[str] = ("reverse", "forward"),
+        guidance: Optional[S.GuidanceConfig] = None,
+        latent=None,
+        noise=None,
+    ) -> None:
+        """Calibrate the "int8_static" convolution scales (JAX
+        `pipeline.py:484-600`) into `quant_stats`.
+
+        An "off" reference run records the true per-hop inputs: `generate`'s
+        reverse trajectory from `latent` (else drawn from `generator`, seed
+        0 when None) and, for the forward student, the `invert` trajectory
+        of its images at w = 0 (its noise `noise`, else drawn from the same
+        generator). Each student then runs once a hop on exactly those
+        latents (cast to bf16 first, with a bf16 w-embedding, as JAX does)
+        under `quant_scope("calibrate")`, which records the running max of
+        |input| per convolution; the VAE decodes the final latent and
+        encodes the decoded pixels (clipped to [-1, 1]), one stats dict for
+        both. Each model's stats replace its old ones; the "off" path never
+        reads them."""
+        from ..diffusion.guidance import guidance_scale_embedding
+
+        prompts = list(prompts)
+        b = len(prompts)
+        g = guidance or self.default_guidance()
+        _, ctx_c, added = self._encode_all(prompts, need_uncond=False)
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        old = self.quantize
+        self.quantize = "off"
+        try:
+            images, traj = self.generate(prompts, generator=generator, latent=latent, guidance=g,
+                                         return_trajectory=True)
+            inv_traj = None
+            if "forward" in models:
+                inv_traj, _ = self.invert(
+                    images * 255.0, prompts, generator=generator, noise=noise,
+                    guidance=self.default_guidance(guidance_scale=0.0), return_trajectory=True)
+        finally:
+            self.quantize = old
+
+        def w_embedding(scale: float):
+            if not g.w_embed_dim:
+                return None
+            return guidance_scale_embedding(
+                torch.full((b,), scale, dtype=torch.float32, device=self.device),
+                g.w_embed_dim, dtype=torch.bfloat16)
+
+        for model in models:
+            if model == "forward":
+                grid_ts, hop_inputs, w = self.grid.forward_timesteps, inv_traj, w_embedding(0.0)
+            else:
+                grid_ts, hop_inputs, w = self.grid.reverse_timesteps, traj, w_embedding(g.guidance_scale)
+            unet, stats = self.unets[model], {}
+            with quant_scope("calibrate", stats, root=unet):
+                for i, t in enumerate(grid_ts):
+                    lat = hop_inputs[i].to(torch.bfloat16).permute(0, 3, 1, 2)
+                    unet(lat, torch.full((b,), int(t), dtype=torch.long, device=self.device),
+                         ctx_c, w_cond=w, added_cond=added)
+            self.quant_stats[model] = stats
+
+        stats = {}
+        with quant_scope("calibrate", stats, root=self.vae):
+            img = self.vae.decode(traj[-1].float().permute(0, 3, 1, 2) / self.scaling_factor)
+            self.vae.encode_mean(torch.clamp(img.float(), -1.0, 1.0))
+        self.quant_stats["vae"] = stats
 
     @torch.inference_mode()
     def decode(self, latents) -> np.ndarray:

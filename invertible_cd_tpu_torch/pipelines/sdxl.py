@@ -59,6 +59,7 @@ class InvertibleCDXL(InvertibleCD):
         latent_size: Tuple[int, int] = (128, 128),
         lora_rank: int = 64,
         default_resolution: int = 1024,
+        quantize: str = "off",
     ) -> "InvertibleCDXL":
         """SDXL bundle on `device`: the modules of
         `pipeline.build_modules`, from `params` ("text", "text_2", "vae" and
@@ -69,7 +70,8 @@ class InvertibleCDXL(InvertibleCD):
         encoders compute in `dtype`, the VAE in `vae_dtype` (fp32: SDXL's
         decoder overflows in fp16, reference `generation_sdxl.py:465-466`;
         bf16 keeps fp32's exponent range and is the opt-in). The configs
-        default to SDXL's; tests pass tiny ones."""
+        default to SDXL's; tests pass tiny ones. `quantize`: the int8 mode
+        (`pipeline.QUANT_MODES`; the fp32 VAE's int8 layers write fp32)."""
         device = resolve_device(device)
         unet_cfg = unet_cfg or UNetConfig.sdxl()
         vae_cfg = vae_cfg or VAEConfig.sdxl()
@@ -95,6 +97,7 @@ class InvertibleCDXL(InvertibleCD):
             # OpenCLIP pads with 0, not eot (reference tokenizer_2 config)
             tokenizer_2=tokenizer_2 or default_tokenizer(pad_token_id=0),
             default_resolution=default_resolution,
+            quantize=quantize,
         )
 
     # ------------------------------------------------------------------

@@ -161,8 +161,8 @@ def test_config_file_defaults_match_jax(cli, config):
 
 
 @pytest.mark.parametrize("cli,flags", [
-    (generate, ["--quantize", "int8"]), (train_icd, ["--fsdp", "2"]),
-    (generate, ["--platform", "cpu"]), (edit, ["--quantize", "int8"]),
+    (serve, ["--platform", "cpu"]), (train_icd, ["--fsdp", "2"]),
+    (generate, ["--platform", "cpu"]), (train_icd, ["--platform", "cpu"]),
     (edit, ["--platform", "cpu"]), (serve, ["--dp", "2"]), (serve, ["--sp", "2"]),
 ])
 def test_flags_not_ported_are_refused(cli, flags):

@@ -35,7 +35,8 @@ def test_port_modules_are_all_found():
                  "cli.serve", "data.dataset", "utils.native", "metrics", "metrics.resize",
                  "metrics.basic", "metrics.frechet", "metrics.inception", "metrics.fid",
                  "metrics.lpips", "metrics.vit", "metrics.image_reward", "metrics.scores",
-                 "metrics.precision", "training.eval", "utils.profiling"):
+                 "metrics.precision", "training.eval", "utils.profiling", "ops.quant",
+                 "cli.quant_quality"):
         assert f"invertible_cd_tpu_torch.{name}" in mods
 
 
