@@ -104,38 +104,47 @@ nothing of JAX. Phases, each of which must pass:
              one teacher call at batch 2 and one NTI inner iteration, and
              traces one `ddim_generate`;
   4f. int8 (after 4d, on the same bundle): int8 W8A8 inference through
-             kernel Q1 (`ops/csrc/int8_gemm.cu`): `generate` at batch 4 then
+             kernels Q2 (`ops/csrc/int8_quantize.cu`, the quantising pass)
+             and Q1 (`ops/csrc/int8_gemm.cu`): `generate` at batch 4 then
              1 under every `quantize` mode (off, int8, int8_vae, int8_static
              before calibration), `collect_quant_stats()`, int8_static again,
              `invert` and the controlled `edit` under int8. Checks exact
              launches derived from the configs (`q1_unet_launches`,
              `q1_vae_launches`: 283 Q1 a UNet call, 40 a VAE decode, 32 an
-             encode, held to the count of int8 layers; B1 and B2 at their
-             "off" counts), finite outputs, int8 different from off (mean
+             encode, held to the count of int8 layers, and as many Q2; B1
+             and B2 at their "off" counts), finite outputs, int8 different
+             from off (mean
              and max |diff| printed), int8_vae latents and "off" after
              calibration bit for bit "off"'s, int8_static without stats bit
              for bit int8; Q1 against its plain version (float64 products
              of the codes) at every launch shape of those runs on seeded
-             codes: int32 accumulators equal, outputs bit for bit (else
-             within 1 ulp, counted); the quantising pass card against CPU
-             (share of equal codes, none more than 1 apart); the generate
+             codes: int32 accumulators equal, outputs bit for bit, with
+             and without the fused bias; Q2 against its plain version at
+             every launch shape of those runs (NCHW and channels-last input
+             for a convolution), codes and scales bit for bit; a UNet call
+             whose weight codes were dropped quantises each weight once and
+             the next call none (`quant.weight_quantizations`); the generate
              CLI with `--quantize int8_static` (calibrating once), the edit
              CLI with `--quantize int8`, a `BatchingExecutor((1, 4))` on
              the int8 bundle (a lone request and a burst of 3 padded to 4,
              each served row bit for bit its row of a direct int8 generate
              of the same padded batch), `cli.quant_quality` with n = 2;
              times (one UNet call and one VAE decode off against int8,
-             generate under each mode, `collect_quant_stats`), peak memory,
-             and Q1's rows at the batch-4 int8 generate's five costliest
-             shapes and its costliest dense one (bound: 2 M N K / 1979e12
-             and bytes / 3.35e12; yardsticks the port never calls:
-             `torch._int_mm` plus its dequantising pass for a dense shape,
-             cuDNN's bf16 convolution for a conv shape), all on one JSON
-             line with the card. At the end of 4c, the SDXL bundle's int8
-             generate at 1024^2, batch 1 (`phase_int8_sdxl`): exact launches
-             (795 Q1 a UNet call; the fp32 VAE's 40 writing fp32), finite,
-             Q1 against its plain version at every shape of the fp32 VAE
-             decode, and Q1's row at the decode's costliest shape;
+             generate under each mode, `collect_quant_stats`), peak memory
+             and the cached weight codes' bytes, Q1's rows at the batch-4
+             int8 generate's five costliest shapes and its costliest dense
+             one (bound: 2 M N K / 1979e12 and bytes / 3.35e12; yardsticks
+             the port never calls: `torch._int_mm` plus its dequantising
+             pass for a dense shape, cuDNN's bf16 convolution for a conv
+             shape), and Q2's rows at its three costliest shapes and its
+             costliest dense one (bound: bytes of one read of x and one
+             write of codes and scales; plain: the eager quantiser; no
+             library call), all on one JSON line with the card. At the end
+             of 4c, the SDXL bundle's int8 generate at 1024^2, batch 1
+             (`phase_int8_sdxl`): exact launches (795 Q1 and Q2 a UNet
+             call; the fp32 VAE's 40 writing fp32), finite, Q1 and Q2
+             against their plain versions at every shape of the fp32 VAE
+             decode, and their rows at the decode's costliest shape;
   4c. sdxl:  `InvertibleCDXL.sdxl` at full SDXL width (the 2.6B UNet, ViT-L
              and bigG, the fp32 VAE) with seeded weights and seeded r=64
              reverse and forward LoRAs, at 1024^2: `generate` of one prompt
@@ -247,8 +256,9 @@ nothing of JAX. Phases, each of which must pass:
      phase 4f (the generates at batch 4 and 1, invert and edit) and of the
      SDXL int8 generate, at each row's launch shape.
 
-`--kernels-only` runs phases 1-3 and the harness (6) and prints the kernel
-rows; `--package-root DIR` imports the package (and builds its kernels) from
+`--kernels-only` runs phases 1-3 and the harness (6), times Q1 at the int8
+paths' costliest shapes (`Q1_COMPARE`), and prints the kernel rows;
+`--package-root DIR` imports the package (and builds its kernels) from
 another checkout, e.g. a parent commit unpacked under `build/`, so that two
 versions of the kernels are timed in one call by the same code.
 Kernel times are per launch: 20 launches captured in one CUDA graph, the
@@ -259,7 +269,8 @@ the harness's rows (each above ~0.1 ms) are the median of 5 loops of 20
 back-to-back calls, each loop between one pair of CUDA events (`cuda_timed`).
 
 Q1's bound is the larger of its int8 operations / 1979e12 and its bytes
-(codes, scales and output each once) / 3.35e12. Every other bound is the
+(codes, scales and output each once) / 3.35e12; Q2's its bytes (x read
+once, codes and scales written once) / 3.35e12. Every other bound is the
 largest of FLOPs / 989e12 (/ 494.7e12, TF32's rate, for
 B2's fp32 build, whose products are TF32), exponentials / 3.9e12 (7.8e12
 for B5's exp2bf16, whose ex2.approx.bf16x2 does two a MUFU issue) and
@@ -1982,6 +1993,23 @@ INT8_SERVE_DELAY = 0.05  # the burst of 3 must coalesce into one padded batch of
 INT8_BURST = [("a photo of a corgi on the beach", 21), ("a red fox in the snow", 22),
               ("a lighthouse at dawn, watercolor", 23)]
 Q1_TOP = 5  # rows for the costliest shapes of the batch-4 int8 generate
+Q2_SOURCE = "invertible_cd_tpu_torch/ops/csrc/int8_quantize.cu"
+# Q2 replaces no TPU kernel: the JAX package's quantiser is XLA's (`quantize_int8`)
+Q2_REPLACES = "invertible_cd_tpu/ops/quant.py:176"
+Q2_TOP = 3  # rows for Q2's costliest shapes of the batch-4 int8 generate
+# Q1's launch keys timed by --kernels-only, for a comparison of two checkouts
+# in one call: the int8 paths' costliest shapes (the SD1.5 VAE decode and
+# dense layer at batch 4, the SDXL fp32 VAE decode at batch 1) and the
+# UNet's 64^2 and 8^2 convolutions at batch 4
+Q1_COMPARE = [("int8_gemm", 4, 128, 128, 512, 512, 3, 3, 1, 1, "bfloat16"),
+              ("int8_gemm", 4, 256, 256, 256, 256, 3, 3, 1, 1, "bfloat16"),
+              ("int8_gemm", 4, 512, 512, 128, 128, 3, 3, 1, 1, "bfloat16"),
+              ("int8_gemm", 4, 256, 256, 512, 512, 3, 3, 1, 1, "bfloat16"),
+              ("int8_gemm", 4, 512, 512, 256, 256, 3, 3, 1, 1, "bfloat16"),
+              ("int8_gemm", 16384, 1, 1, 320, 2560, 1, 1, 1, 0, "bfloat16"),
+              ("int8_gemm", 1, 256, 256, 512, 512, 3, 3, 1, 1, "float32"),
+              ("int8_gemm", 4, 64, 64, 320, 320, 3, 3, 1, 1, "bfloat16"),
+              ("int8_gemm", 4, 8, 8, 1280, 1280, 3, 3, 1, 1, "bfloat16")]
 
 
 def q1_unet_launches(cfg, with_w: bool = True) -> int:
@@ -2058,17 +2086,19 @@ def q1_inputs(key, gen):
 def q1_check_shapes(keys, label: str, device="cuda") -> dict:
     """Q1 against its plain version at every launch key in `keys`, on seeded
     codes: the int32 accumulators must be equal, the outputs bit for bit
-    (else within 1 ulp of the output type, the count printed)."""
+    with and without a fused bias (the eager `dequantize` and bias add)."""
     import torch
 
     from invertible_cd_tpu_torch.ops import quant
 
     gen = torch.Generator(device=device).manual_seed(4321)
-    worst, off_bits, failures = 0, 0, []
+    failures = []
     for key in sorted(keys):
         a, b, s_row, s_col, stride, pad, dtype, _ = q1_inputs(key, gen)
+        bias = torch.randn(b.shape[0], generator=gen, device=device).to(dtype)
         acc = quant.int8_gemm_acc(a, b, stride, pad)
         out = quant.int8_gemm(a, b, s_row, s_col, stride, pad, dtype)
+        out_b = quant.int8_gemm(a, b, s_row, s_col, stride, pad, dtype, bias)
         want = quant.int8_gemm_acc_plain(a, b, stride, pad)
         torch.cuda.synchronize()
         if not torch.equal(acc, want):
@@ -2076,17 +2106,97 @@ def q1_check_shapes(keys, label: str, device="cuda") -> dict:
             continue
         ref = quant.dequantize(want, s_row, s_col, dtype)
         if not torch.equal(out, ref):
-            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
-            ulps = (out.view(bits).int() - ref.view(bits).int()).abs()
-            off_bits += int((ulps > 0).sum())
-            worst = max(worst, int(ulps.max()))
-            if worst > 1:
-                failures.append(f"{key}: output {worst} ulp off")
-        del a, b, acc, out, want, ref
+            failures.append(f"{key}: output differs at {(out != ref).sum().item()} places")
+        if not torch.equal(out_b, ref + bias):
+            failures.append(f"{key}: biased output differs at {(out_b != ref + bias).sum().item()} places")
+        del a, b, acc, out, out_b, want, ref
     check(not failures, f"Q1 vs plain ({label}): " + "; ".join(failures))
-    print(f"  Q1 vs plain at {len(keys)} launch shapes of {label}: int32 accumulators equal; "
-          f"outputs bit for bit at {len(keys) - (off_bits > 0)} of them, {off_bits} values 1 ulp off")
-    return {"shapes": len(keys), "values_1ulp_off": off_bits, "worst_ulp": worst}
+    print(f"  Q1 vs plain at {len(keys)} launch shapes of {label}: int32 accumulators equal; outputs "
+          f"bit for bit, with and without the fused bias")
+    return {"shapes": len(keys), "bit_for_bit": True}
+
+
+def q2_inputs(key, gen):
+    """Seeded activations for a Q2 launch key (`quant.quantize_key`) on the
+    generator's device, N(0, 1) with a few entries at 11 sigma: (x,
+    per_row, amax); a static key gets an amax below max |x|, so codes clip."""
+    import torch
+
+    form, shape, dtype = key[1], key[2:-1], getattr(torch, key[-1])
+    x = torch.randn(shape, generator=gen, device=gen.device)
+    x.view(-1)[::997] *= 11.0
+    amax = (0.75 * x.abs().amax()).reshape(1) if form == "static" else None
+    return x.to(dtype), form == "rows", amax
+
+
+def q2_check_shapes(keys, label: str, device="cuda") -> dict:
+    """Q2 against its plain version at every launch key in `keys` on seeded
+    activations (a convolution's NCHW and channels-last): codes and scales
+    bit for bit."""
+    import torch
+
+    from invertible_cd_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=device).manual_seed(8765)
+    failures, checked = [], 0
+    for key in sorted(keys):
+        x, per_row, amax = q2_inputs(key, gen)
+        for xx in ([x] if per_row else [x, x.contiguous(memory_format=torch.channels_last)]):
+            q, s = quant.quantize_activation(xx, per_row, amax)
+            qp, sp = quant.quantize_activation_plain(xx, per_row, amax)
+            torch.cuda.synchronize()
+            checked += 1
+            if not (torch.equal(q, qp) and torch.equal(s, sp)):
+                failures.append(f"{key}: codes differ at {(q != qp).sum().item()}, scales at "
+                                f"{(s != sp).sum().item()}")
+        del x
+    check(not failures, f"Q2 vs plain ({label}): " + "; ".join(failures))
+    print(f"  Q2 vs plain at {len(keys)} launch shapes of {label} ({checked} layouts): codes and "
+          f"scales bit for bit")
+    return {"shapes": len(keys), "layouts": checked, "bit_for_bit": True}
+
+
+def q2_row(key, launches: int, device="cuda") -> dict:
+    """A kernels-line row for Q2 at launch key `key`: the kernel against its
+    plain version (the eager quantiser) on seeded activations, per-launch
+    times, the byte bound; no single PyTorch call computes the pass."""
+    import torch
+
+    from invertible_cd_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=device).manual_seed(98)
+    x, per_row, amax = q2_inputs(key, gen)
+    q, s = quant.quantize_activation(x, per_row, amax)
+    qp, sp = quant.quantize_activation_plain(x, per_row, amax)
+    err = max((q.int() - qp.int()).abs().max().item(), (s - sp).abs().max().item())
+    ms = graph_ms(lambda: quant.quantize_activation(x, per_row, amax))
+    plain_ms = cuda_ms(lambda: quant.quantize_activation_plain(x, per_row, amax), per_loop=5, loops=3,
+                       warmup=1)
+    nbytes = x.numel() * x.element_size() + q.numel() + 4.0 * s.numel()
+    bound = nbytes / PEAK_BYTES * 1e3
+    name = f"int8_quantize[{key[1]},{'x'.join(map(str, key[2:-1]))},{key[-1]}]"
+    row = {
+        "name": name, "kernel": "int8_quantize", "batch": key[2], "shape": list(key[1:]), "route": "cuda",
+        "source": Q2_SOURCE, "replaces": Q2_REPLACES, "launches": launches, "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes", "bound_limit": "bytes",
+        "library_ms": None, "library": None,
+    }
+    print(f"  {name:<58} err {err:.1e} kernel {ms:.4f} ms ({nbytes / ms / 1e6:.0f} GB/s)  plain "
+          f"{plain_ms:.3f} ms  bound {bound:.4f} ms (bytes)  launches {launches}")
+    return row
+
+
+def q2_costliest(counter, top: int):
+    """The `top` Q2 launch keys of `counter` with the most bytes times
+    launches, plus the costliest dense (rows) key if none of those is."""
+    def cost(key):
+        return math.prod(key[2:-1]) * counter[key]
+    keys = sorted(counter, key=cost, reverse=True)
+    chosen = keys[:top]
+    rows = [k for k in keys if k[1] == "rows"]
+    if rows and not any(k in chosen for k in rows):
+        chosen.append(rows[0])
+    return chosen
 
 
 def q1_row(key, launches: int, device="cuda") -> dict:
@@ -2165,18 +2275,43 @@ def q1_costliest(counter, top: int):
     return chosen
 
 
-def q1_counts(counter):
-    """Q1's launch keys and count in a `LAUNCH_SHAPES` snapshot."""
-    return collections.Counter({k: n for k, n in counter.items() if k[0] == "int8_gemm"})
+def q1_counts(counter, name="int8_gemm"):
+    """Q1's (or `name`'s) launch keys and count in a `LAUNCH_SHAPES` snapshot."""
+    return collections.Counter({k: n for k, n in counter.items() if k[0] == name})
+
+
+def q2_counts(counter):
+    return q1_counts(counter, "int8_quantize")
+
+
+def codes_gib(*modules) -> float:
+    """GiB of the weight codes and scales cached on the int8 layers."""
+    total = 0
+    for mod in modules:
+        for m in mod.modules():
+            cached = m.__dict__.get("_int8_weight_codes")
+            if cached is not None:
+                total += sum(t.numel() * t.element_size() for t in cached[2])
+    return total / 2**30
+
+
+def phase_q1_compare():
+    """Q1 at `Q1_COMPARE`, timed by the package imported (this checkout, or
+    another one under --package-root): one JSON line of the rows."""
+    print("Q1 at the int8 paths' costliest shapes (launches: not counted in this mode):")
+    rows = [q1_row(key, 0) for key in Q1_COMPARE]
+    print(json.dumps({"q1_compare": [{k: r[k] for k in ("name", "ms", "bound_ms", "library_ms")}
+                                     for r in rows]}))
 
 
 def phase_int8(card: str, pipe):
     """int8 W8A8 inference on the generate path's SD1.5 bundle: every mode at
-    batch 4 then 1, calibration, invert and edit under int8, exact launches,
-    Q1 against its plain version at every shape those runs gave it, the
-    quantising pass on the card against the CPU, the entry points (the
+    batch 4 then 1, calibration, invert and edit under int8, exact launches
+    of Q1 and Q2, both against their plain versions at every shape those
+    runs gave them, the weight codes quantised once, the entry points (the
     generate CLI with int8_static, the edit CLI with int8, the executor on an
-    int8 bundle, the quant_quality CLI), times. Returns Q1's kernel rows."""
+    int8 bundle, the quant_quality CLI), times. Returns Q1's and Q2's kernel
+    rows."""
     import tempfile
 
     import numpy as np
@@ -2210,10 +2345,10 @@ def phase_int8(card: str, pipe):
           f"{(n_unet, n_dec, n_enc)}")
     b1 = n_hops * sum(unet_launches_per_call(cfg, side).values())
     vae_b2 = vcfg.block_out_channels[-1] > 256  # the VAE's single head: B2 above d = 256, else B1
-    want_gen = {"int8_gemm": n_hops * per_unet + per_dec, "flash_fwd": b1 + (not vae_b2),
-                "flash_fwd_streamed": int(vae_b2)}
-    print(f"int8: SD1.5 bundle, {per_unet} Q1 launches a UNet call, {per_dec} a VAE decode, {per_enc} "
-          f"an encode (derived from the configs, = the int8 layers); a {n_hops}-hop generate "
+    want_gen = {"int8_gemm": n_hops * per_unet + per_dec, "int8_quantize": n_hops * per_unet + per_dec,
+                "flash_fwd": b1 + (not vae_b2), "flash_fwd_streamed": int(vae_b2)}
+    print(f"int8: SD1.5 bundle, {per_unet} Q1 and Q2 launches a UNet call, {per_dec} a VAE decode, "
+          f"{per_enc} an encode (derived from the configs, = the int8 layers); a {n_hops}-hop generate "
           f"{want_gen} ({card})")
     report = {"phase": "int8", "card": card}
     gen = torch.Generator(device=dev).manual_seed(150)
@@ -2240,20 +2375,23 @@ def phase_int8(card: str, pipe):
 
     # ---- 1. every mode at batch 4, then 1: counts reset just before each run, read just after ----
     results, gen_s, shapes = {}, {m: {} for m in QUANT_MODES}, collections.Counter()
-    int8_gen = {}  # the int8 generates' Q1 launches by batch
+    q2_shapes = collections.Counter()
+    int8_gen, int8_gen_q2 = {}, {}  # the int8 generates' Q1 and Q2 launches by batch
     for b in (4, 1):
         for mode in ("off", "int8", "int8_vae", "int8_static"):  # int8_static: no stats yet
             (images, lat), secs, launched = run(mode, b)
             results[(mode, b)] = (images, lat)
             gen_s[mode][b] = secs
             totals = {name: sum(c for k, c in launched.items() if k[0] == name) for name in want_gen}
-            want = dict(want_gen, int8_gemm={"off": 0, "int8_vae": per_dec}.get(mode, want_gen["int8_gemm"]))
+            n_q = {"off": 0, "int8_vae": per_dec}.get(mode, want_gen["int8_gemm"])
+            want = dict(want_gen, int8_gemm=n_q, int8_quantize=n_q)
             check(totals == want, f"{mode} generate at batch {b}: launches {totals} != {want}")
             check(bool(torch.isfinite(images).all()) and bool(torch.isfinite(lat).all()),
                   f"{mode} generate at batch {b} not finite")
             shapes += q1_counts(launched)
+            q2_shapes += q2_counts(launched)
             if mode == "int8":
-                int8_gen[b] = q1_counts(launched)
+                int8_gen[b], int8_gen_q2[b] = q1_counts(launched), q2_counts(launched)
         off_img, off_lat = results[("off", b)]
         img8, lat8 = results[("int8", b)]
         d = (img8 - off_img).abs()
@@ -2276,13 +2414,18 @@ def phase_int8(card: str, pipe):
     n_convs = {name: sum(isinstance(m, QConv2d) for m in mod.modules()) for name, mod in (
         ("reverse", pipe.unets["reverse"]), ("forward", pipe.unets["forward"]), ("vae", pipe.vae))}
     check(n_stats == n_convs, f"calibrated convs {n_stats} != the convs {n_convs}")
+    n_convs_dec = sum(isinstance(m, QConv2d) for m in (*pipe.vae.decoder.modules(), pipe.vae.post_quant_conv))
     for b in (4, 1):
         (st_img, _), secs, launched = run("int8_static", b)
         gen_s["int8_static"][b] = secs
         check(bool(torch.isfinite(st_img).all()), f"int8_static at batch {b} not finite")
-        check(sum(c for k, c in launched.items() if k[0] == "int8_gemm") == want_gen["int8_gemm"],
-              f"calibrated int8_static launches at batch {b}")
+        n_static = sum(c for k, c in launched.items() if k[:2] == ("int8_quantize", "static"))
+        check(sum(c for k, c in launched.items() if k[0] == "int8_gemm") == want_gen["int8_gemm"]
+              and sum(q2_counts(launched).values()) == want_gen["int8_quantize"]
+              and n_static == n_hops * n_convs["reverse"] + n_convs_dec,
+              f"calibrated int8_static launches at batch {b} ({n_static} static Q2)")
         shapes += q1_counts(launched)
+        q2_shapes += q2_counts(launched)
         d = (st_img - results[("off", b)][0]).abs()
         report[f"int8_static_vs_off_b{b}"] = {"mean_abs": d.mean().item(), "max_abs": d.max().item()}
         (off_again, _), _, _ = run("off", b)
@@ -2308,31 +2451,22 @@ def phase_int8(card: str, pipe):
         edit_launches = collections.Counter(fa.LAUNCH_SHAPES)
     finally:
         pipe.quantize = "off"
-    n_inv = sum(c for k, c in inv_launches.items() if k[0] == "int8_gemm")
-    n_edit = sum(c for k, c in edit_launches.items() if k[0] == "int8_gemm")
-    check(n_inv == per_enc + n_hops * per_unet, f"int8 invert: {n_inv} Q1 launches")
-    check(n_edit == n_inv + n_hops * per_unet + per_dec, f"int8 edit: {n_edit} Q1 launches")
+    n_inv = sum(q1_counts(inv_launches).values())
+    n_edit = sum(q1_counts(edit_launches).values())
+    check(n_inv == per_enc + n_hops * per_unet == sum(q2_counts(inv_launches).values()),
+          f"int8 invert: {n_inv} Q1 launches")
+    check(n_edit == n_inv + n_hops * per_unet + per_dec == sum(q2_counts(edit_launches).values()),
+          f"int8 edit: {n_edit} Q1 launches")
     for label, t in (("invert", inv), ("edit", edited)):
         check(bool(torch.isfinite(t).all()), f"int8 {label} not finite")
     shapes += q1_counts(inv_launches) + q1_counts(edit_launches)
-    print(f"  int8 invert ({n_inv} Q1 launches) and controlled edit ({n_edit}): finite, launches as "
-          f"derived")
+    q2_shapes += q2_counts(inv_launches) + q2_counts(edit_launches)
+    print(f"  int8 invert ({n_inv} Q1 and Q2 launches) and controlled edit ({n_edit}): finite, "
+          f"launches as derived")
 
-    # ---- 4. Q1 against its plain version at every shape of those runs; the quantising pass ----
+    # ---- 4. Q1 and Q2 against their plain versions at every shape of those runs ----
     report["q1_vs_plain"] = q1_check_shapes(set(shapes), "the SD1.5 int8 runs", dev)
-    x = torch.randn((BATCH, 320, 64, 64), generator=torch.Generator().manual_seed(7))
-    x.view(-1)[::4099] *= 12.0
-    codes = {}
-    for axes, label in ((None, "per tensor"), ((1,), "per row")):
-        xx = x if axes is None else x.permute(0, 2, 3, 1).reshape(-1, 320)
-        qc, sc = quant.quantize_int8(xx, axes)
-        qg, sg = quant.quantize_int8(xx.to(dev), axes)
-        diff = (qg.cpu().int() - qc.int()).abs()
-        codes[label] = {"equal_share": (diff == 0).float().mean().item(), "max_diff": int(diff.max()),
-                        "scales_equal": bool(torch.equal(sg.cpu(), sc))}
-        check(codes[label]["max_diff"] <= 1, f"quantising pass {label}: codes {diff.max()} apart")
-    report["quantize_pass_card_vs_cpu"] = codes
-    print(f"  quantising pass, card vs CPU on the same fp32 input: {codes}")
+    report["q2_vs_plain"] = q2_check_shapes(set(q2_shapes), "the SD1.5 int8 runs", dev)
 
     # ---- 5. the entry points ----
     with tempfile.TemporaryDirectory() as tmp:
@@ -2341,13 +2475,13 @@ def phase_int8(card: str, pipe):
         fa.reset_launch_counts()
         generate_cli.main(["--model", "sd15", "--quantize", "int8_static", "--prompt", PROMPTS[0],
                            "--prompt", PROMPTS[1], "--out", out], _pipe=pipe)
-        cli_q1 = fa.launches("int8_gemm")
+        cli_q1, cli_q2 = fa.launches("int8_gemm"), fa.launches("int8_quantize")
         with open(os.path.join(out, "manifest.json")) as f:
             files = json.load(f)["files"]
         check(len(files) == 2 and all(os.path.exists(p) for p in files), f"generate CLI files {files}")
         check(set(pipe.quant_stats) == {"reverse", "forward", "vae"} and pipe.quantize == "off",
               f"the generate CLI's int8_static: stats {sorted(pipe.quant_stats)}, mode {pipe.quantize}")
-        check(cli_q1 == want_gen["int8_gemm"], f"generate CLI: {cli_q1} Q1 launches")
+        check(cli_q1 == cli_q2 == want_gen["int8_gemm"], f"generate CLI: {cli_q1} Q1, {cli_q2} Q2 launches")
         src = os.path.join(tmp, "in.jpg")
         generate_cli.save_image(image, src)
         out = os.path.join(tmp, "edit")
@@ -2391,6 +2525,16 @@ def phase_int8(card: str, pipe):
     t = torch.full((BATCH,), 999, device=dev)
     unet_ms, vae_ms = {}, {}
     with torch.inference_mode():
+        quant.forget_weight_codes(unet)  # the first int8 call quantises every weight, the next none
+        n_q = [quant.weight_quantizations()]
+        for _ in range(2):
+            with quant.quant_scope("int8"):
+                unet(z, t, ctx, w)
+            n_q.append(quant.weight_quantizations())
+        check(n_q[1] - n_q[0] == n_unet and n_q[2] == n_q[1],
+              f"weight quantisations of two int8 UNet calls: {n_q[1] - n_q[0]}, {n_q[2] - n_q[1]}")
+        print(f"  weight codes: a UNet call after `forget_weight_codes` quantised {n_q[1] - n_q[0]} "
+              f"weights (= its int8 layers), the next call {n_q[2] - n_q[1]}")
         for mode in ("off", "int8"):
             with quant.quant_scope(mode):
                 unet_ms[mode] = cuda_ms(lambda: unet(z, t, ctx, w), per_loop=1)
@@ -2398,15 +2542,21 @@ def phase_int8(card: str, pipe):
             vae_ms[mode] = cuda_ms(lambda: pipe._decode_latents(z), per_loop=1, loops=3, warmup=1)
             pipe.quantize = "off"
     report.update(unet_call_ms_b4=unet_ms, vae_decode_ms_b4=vae_ms, generate_s=gen_s,
-                  peak_gb=torch.cuda.max_memory_allocated() / 2**30)
+                  peak_gb=torch.cuda.max_memory_allocated() / 2**30,
+                  weight_codes_gib=codes_gib(*pipe.unets.values(), pipe.vae),
+                  weight_quantizations_second_call=n_q[2] - n_q[1])
     print(f"  batch {BATCH}: UNet call off {unet_ms['off']:.2f} ms, int8 {unet_ms['int8']:.2f} ms; VAE "
           f"decode off {vae_ms['off']:.2f} ms, int8 {vae_ms['int8']:.2f} ms ({card})")
     print("  generate s by mode (batch 4, 1): " + "; ".join(
-        f"{m} {gen_s[m][4]:.3f}, {gen_s[m][1]:.3f}" for m in QUANT_MODES))
+        f"{m} {gen_s[m][4]:.3f}, {gen_s[m][1]:.3f}" for m in QUANT_MODES)
+          + f"; peak {report['peak_gb']:.2f} GiB, cached weight codes {report['weight_codes_gib']:.3f} GiB")
 
-    # ---- 7. Q1's rows: the costliest shapes of the batch-4 int8 generate ----
+    # ---- 7. Q1's and Q2's rows: the costliest shapes of the batch-4 int8 generate ----
     launches_all = int8_gen[4] + int8_gen[1] + q1_counts(inv_launches) + q1_counts(edit_launches)
     rows = [q1_row(key, launches_all[key], dev) for key in q1_costliest(int8_gen[BATCH], Q1_TOP)]
+    launches_q2 = (int8_gen_q2[4] + int8_gen_q2[1] + q2_counts(inv_launches)
+                   + q2_counts(edit_launches))
+    rows += [q2_row(key, launches_q2[key], dev) for key in q2_costliest(int8_gen_q2[BATCH], Q2_TOP)]
     report["q1_rows"] = [{k: r[k] for k in ("name", "ms", "bound_ms", "bound_by", "plain_ms",
                                               "library_ms", "library", "launches")} for r in rows]
     pipe.quant_stats.clear()
@@ -2417,10 +2567,10 @@ def phase_int8(card: str, pipe):
 
 def phase_int8_sdxl(card: str, pipe, latent):
     """One int8 generate of the SDXL bundle at 1024^2, batch 1 (after a
-    warm-up one): finite, exact Q1 launches (the fp32 VAE's layers writing
-    fp32), B1 and B2's fp32 build at their "off" counts; Q1 against its
-    plain version at every shape of the fp32 VAE decode. Returns Q1's row at
-    the decode's costliest shape."""
+    warm-up one): finite, exact Q1 and Q2 launches (the fp32 VAE's layers
+    writing fp32), B1 and B2's fp32 build at their "off" counts; Q1 and Q2
+    against their plain versions at every shape of the fp32 VAE decode.
+    Returns their rows at the decode's costliest shape."""
     import torch
 
     from invertible_cd_tpu_torch.ops import flash_attention as fa
@@ -2433,6 +2583,7 @@ def phase_int8_sdxl(card: str, pipe, latent):
     try:
         pipe.generate([EDIT_SOURCE], latent=latent)  # warm-up
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         # ---- counts reset just before, read just after ----
         fa.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2440,30 +2591,36 @@ def phase_int8_sdxl(card: str, pipe, latent):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launched = collections.Counter(fa.LAUNCH_SHAPES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
     finally:
         pipe.quantize = "off"
     q1 = q1_counts(launched)
     vae = collections.Counter({k: c for k, c in q1.items() if k[-1] == "float32"})
+    vae_q2 = collections.Counter({k: c for k, c in q2_counts(launched).items() if k[-1] == "float32"})
     totals = {name: sum(c for k, c in launched.items() if k[0] == name)
-              for name in ("int8_gemm", "flash_fwd", "flash_fwd_streamed_f32")}
+              for name in ("int8_gemm", "int8_quantize", "flash_fwd", "flash_fwd_streamed_f32")}
     vae_b2 = vcfg.block_out_channels[-1] > 256  # the fp32 VAE's single head: B2's fp32 build, else B1
-    want = {"int8_gemm": n_hops * per_unet + per_dec,
+    want = {"int8_gemm": n_hops * per_unet + per_dec, "int8_quantize": n_hops * per_unet + per_dec,
             "flash_fwd": n_hops * sum(unet_launches_per_call(cfg, side).values()) + (not vae_b2),
             "flash_fwd_streamed_f32": int(vae_b2)}
     check(totals == want, f"SDXL int8 generate launches {totals} != {want}")
-    check(sum(vae.values()) == per_dec, f"fp32 VAE: {sum(vae.values())} fp32 Q1 launches, not {per_dec}")
+    check(sum(vae.values()) == sum(vae_q2.values()) == per_dec,
+          f"fp32 VAE: {sum(vae.values())} fp32 Q1 launches, {sum(vae_q2.values())} Q2, not {per_dec}")
     check(bool(torch.isfinite(images).all()) and bool(torch.isfinite(lat).all()), "SDXL int8 not finite")
     d = (images - off).abs()
     print(f"sdxl int8: generate at 1024^2, batch 1: {secs * 1e3:.1f} ms, launches {totals} (derived: "
-          f"{per_unet} Q1 a UNet call, {per_dec} a decode, all {per_dec} of the fp32 VAE's writing fp32); "
-          f"vs off mean |diff| {d.mean().item():.4e}, max {d.max().item():.4e} ({card})")
+          f"{per_unet} Q1 and Q2 a UNet call, {per_dec} a decode, all {per_dec} of the fp32 VAE's in and "
+          f"writing fp32); vs off mean |diff| {d.mean().item():.4e}, max {d.max().item():.4e}; peak "
+          f"{peak:.2f} GiB, cached weight codes {codes_gib(pipe.unets['reverse'], pipe.vae):.3f} GiB ({card})")
     checked = q1_check_shapes(set(vae), "SDXL's fp32 VAE decode at 1024^2", pipe.device)
-    top = q1_costliest(vae, 1)[0]
-    row = q1_row(top, vae[top], pipe.device)
+    checked_q2 = q2_check_shapes(set(vae_q2), "SDXL's fp32 VAE decode at 1024^2", pipe.device)
+    top, top_q2 = q1_costliest(vae, 1)[0], q2_costliest(vae_q2, 1)[0]
+    rows = [q1_row(top, vae[top], pipe.device), q2_row(top_q2, vae_q2[top_q2], pipe.device)]
     print(json.dumps({"phase": "int8 sdxl", "card": card, "generate_ms": secs * 1e3, "launches": totals,
                       "vs_off": {"mean_abs": d.mean().item(), "max_abs": d.max().item()},
-                      "q1_vs_plain": checked}))
-    return [row]
+                      "peak_gb": peak, "weight_codes_gib": codes_gib(pipe.unets["reverse"], pipe.vae),
+                      "q1_vs_plain": checked, "q2_vs_plain": checked_q2}))
+    return rows
 
 
 def phase_sdxl(card: str):
@@ -3658,6 +3815,8 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one GPU.")
     p.add_argument("--kernels-only", action="store_true",
                    help="run phases 1-3 and 6 only and print the kernel rows (not the device line)")
+    p.add_argument("--q1-compare", action="store_true",
+                   help="build and time Q1 at the int8 paths' costliest shapes (Q1_COMPARE) only")
     p.add_argument("--package-root", default=None,
                    help="import invertible_cd_tpu_torch from this checkout (e.g. an unpacked "
                         "parent commit, to time two versions of the kernels in one call)")
@@ -3682,9 +3841,13 @@ def main(argv=None) -> int:
         print(f"package: {os.path.dirname(invertible_cd_tpu_torch.__file__)}")
         card = phase_card()
         phase_build()
+        if args.q1_compare:
+            phase_q1_compare()
+            return 0
         rows = phase_kernels(card) + phase_backward_kernels(card)
         harness_rows = phase_harness(card, rows)
         if args.kernels_only:
+            phase_q1_compare()
             print(json.dumps({"kernels": rows + harness_rows}))
             return 0
         pipe, generate_launches = phase_main_path(card)
@@ -3725,7 +3888,7 @@ def main(argv=None) -> int:
                               if row["batch"] == BATCH else 0)
                            + (xl_train_launches[key] if row["batch"] == XL_TRAIN_BATCH else 0))
     # B5 runs on the harness path alone; its rows carry that path's launches;
-    # Q1's rows carry the int8 phases' counted runs
+    # Q1's and Q2's rows carry the int8 phases' counted runs
     rows += harness_rows + q1_rows + xl_q1_rows
     missing = [r["name"] for r in rows if r["launches"] == 0]
     if missing:

@@ -24,23 +24,29 @@ from ..ops import quant
 
 class QLinear(nn.Linear):
     """`nn.Linear` that runs int8 (`ops.quant.int8_linear`: per-token
-    activation and per-output-feature weight scales, kernel Q1) inside an
-    int8 `quant_scope`, and is exactly `nn.Linear` outside one or on
-    non-float input (JAX `QDense`). CLIP keeps plain `nn.Linear`."""
+    activation and per-output-feature weight scales, kernels Q2 and Q1, the
+    weight's codes cached on the layer) inside an int8 `quant_scope`, and is
+    exactly `nn.Linear` outside one or on non-float input (JAX `QDense`).
+    CLIP keeps plain `nn.Linear`."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if quant.current_quant_mode() in quant.INT8_MODES and x.is_floating_point():
-            return quant.int8_linear(x, self.weight, self.bias)
+            return quant.int8_linear(x, self.weight, self.bias, quant.weight_codes(self))
         return super().forward(x)
+
+    def _apply(self, fn, *args, **kwargs):  # .to() / .cuda() / .float(): the codes go with the weight
+        self.__dict__.pop("_int8_weight_codes", None)
+        return super()._apply(fn, *args, **kwargs)
 
 
 class QConv2d(nn.Conv2d):
     """`nn.Conv2d` that runs int8 (`ops.quant.int8_conv2d`: one activation
     scale per tensor, or its calibrated amax under "int8_static"; one weight
-    scale per output channel; kernel Q1) inside an int8 `quant_scope`,
-    records its input's amax inside a "calibrate" scope, and is exactly
-    `nn.Conv2d` otherwise (JAX `QConv`). Grouped, dilated or non-zero-padded
-    convolutions and non-float input stay float in every mode."""
+    scale per output channel; kernels Q2 and Q1, the weight's codes cached on
+    the layer) inside an int8 `quant_scope`, records its input's amax inside
+    a "calibrate" scope, and is exactly `nn.Conv2d` otherwise (JAX `QConv`).
+    Grouped, dilated or non-zero-padded convolutions and non-float input
+    stay float in every mode."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mode = quant.current_quant_mode()
@@ -50,8 +56,12 @@ class QConv2d(nn.Conv2d):
               and self.dilation == (1, 1) and self.padding_mode == "zeros"
               and not isinstance(self.padding, str)):
             return quant.int8_conv2d(x, self.weight, self.bias, self.stride, self.padding,
-                                     quant.static_amax(self))
+                                     quant.static_amax(self), quant.weight_codes(self))
         return super().forward(x)
+
+    def _apply(self, fn, *args, **kwargs):
+        self.__dict__.pop("_int8_weight_codes", None)
+        return super()._apply(fn, *args, **kwargs)
 
 
 def sinusoidal_timestep_embedding(

@@ -60,10 +60,11 @@ KERNELS: Dict[str, tuple] = {
     # `flash_variant.py`, one entry point per variant
     "flash_variant": ("flash_variant.cu", "icd_flash_variant_base"),
 }
-#: every library `build` compiles: the attention kernels above and Q1, the
-#: int8 implicit GEMM of the int8 layers (wrappers, argument types and plain
-#: version in `quant.py`)
-LIBRARIES: Dict[str, tuple] = {**KERNELS, "int8_gemm": ("int8_gemm.cu", "icd_int8_gemm")}
+#: every library `build` compiles: the attention kernels above, Q1, the
+#: int8 implicit GEMM of the int8 layers, and Q2, their quantising pass
+#: (wrappers, argument types and plain versions in `quant.py`)
+LIBRARIES: Dict[str, tuple] = {**KERNELS, "int8_gemm": ("int8_gemm.cu", "icd_int8_gemm"),
+                               "int8_quantize": ("int8_quantize.cu", "icd_quantize_rows")}
 _HEADERS = ("flash_common.cuh", "flash_mma.cuh", "flash_wgmma.cuh", "hopper.cuh")
 #: C entry point -> number of leading pointer arguments; every entry point is
 #: (pointers..., batch, heads, sq, sk, d, scale, stream) -> CUDA error code

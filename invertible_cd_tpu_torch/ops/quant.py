@@ -1,4 +1,4 @@
-"""Int8 W8A8 inference: the quantisation scope, the quantisers and kernel Q1.
+"""Int8 W8A8 inference: the quantisation scope, the quantisers and kernels Q1 and Q2.
 
 PyTorch counterpart of `invertible_cd_tpu/ops/quant.py`. Enablement is a
 scope read when a layer RUNS (the port is eager; the JAX package reads it
@@ -12,28 +12,37 @@ when a program is traced):
 on every call; outside an int8 scope they are exactly their base class.
 
   * weights: symmetric per-output-feature int8 (scale = amax / 127 over the
-    input dims), quantised on every call, as JAX does;
+    input dims). JAX re-quantises them inside its program on every call;
+    the port quantises a weight once and keeps the codes on its layer until
+    the weight changes (`weight_codes`), the same codes bit for bit;
   * activations: dynamic symmetric int8, one scale per row (token) for a
     dense layer, one per tensor (batch included) for a convolution; under
-    "int8_static" a convolution with a calibrated amax uses it instead;
+    "int8_static" a convolution with a calibrated amax uses it instead.
+    Kernel Q2 (`csrc/int8_quantize.cu`, `quantize_activation`) writes the
+    codes in the layout Q1 reads: (rows, K) for a dense layer, NHWC for a
+    convolution, the last dim padded to a multiple of 16 with zero codes;
   * the product: kernel Q1 (`csrc/int8_gemm.cu`), an int8 implicit GEMM with
-    exact int32 accumulation and the dequantising epilogue
-    `float(acc) * (s_row * s_col)` fused, the scales multiplied first as in
-    JAX; the result is cast to the layer's dtype and the bias added after,
-    in that dtype, as flax's Dense and Conv do.
+    exact int32 accumulation and the epilogue fused: the dequantising
+    `float(acc) * (s_row * s_col)` (the scales multiplied first, as in
+    JAX), the cast to the layer's dtype, and the bias added in that dtype,
+    as flax's Dense and Conv add it.
 
-Q1 replaces no TPU kernel: JAX leaves the int8 products to XLA
+On the card a Q-layer call is Q2 (one launch; two for a convolution's
+dynamic amax), the output's allocation and Q1. Neither kernel replaces a TPU
+kernel: JAX leaves the quantisers and the int8 products to XLA
 (`lax.dot_general` / `lax.conv_general_dilated` at int32), and PyTorch has
-no int8 convolution on CUDA. Given CUDA tensors, `int8_gemm` launches Q1 or
-raises (a failed build is an error); given CPU tensors it computes
-`int8_gemm_plain`, the same products in float64 (exact for |acc| < 2^53)
-rounded back to int32, then the same epilogue. Launches count in
+no int8 convolution on CUDA. Given CUDA tensors, `int8_gemm` and
+`quantize_activation` launch their kernels or raise (a failed build is an
+error); given CPU tensors they compute `int8_gemm_plain` (the same products
+in float64, exact for |acc| < 2^53, rounded back to int32, then the same
+epilogue) and `quantize_activation_plain`. Launches count in
 `flash_attention.LAUNCH_SHAPES` under ("int8_gemm", batch, H, W, C, N, kh,
-kw, stride, padding, output dtype).
+kw, stride, padding, output dtype) and ("int8_quantize", form, shape...,
+input dtype); weight quantisations in `WEIGHT_QUANTIZATIONS`.
 
-The quantising pass (amax, multiply by the precomputed reciprocal, round
-half to even, clip, int8) is plain PyTorch, as JAX's is XLA: on fp32 input
-its codes and scales equal those of JAX's compiled programs bit for bit.
+The quantisers (amax, multiply by the precomputed reciprocal, round half to
+even, clip, int8) take JAX's IEEE steps: on fp32 input their codes and
+scales equal those of JAX's compiled programs bit for bit.
 
 Modes:
   off          bit-identical to the plain layers, no Q1 launch;
@@ -51,10 +60,12 @@ The trainer never enters a scope.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 import ctypes
 import dataclasses
+import weakref
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -178,6 +189,187 @@ def quantize_int8(
 
 
 # ---------------------------------------------------------------------------
+# kernel Q2, the quantising pass, and its plain version
+# ---------------------------------------------------------------------------
+#: Q1 reads the reduction's innermost dim (C of a convolution, K of a dense
+#: layer) in 16-byte vectors: Q2 and the weight codes pad it with zero codes
+PAD = 16
+_IN_KIND = {torch.float32: 1, torch.bfloat16: 2}
+
+
+def padded(c: int) -> int:
+    """`c` rounded up to a multiple of `PAD`."""
+    return -(-c // PAD) * PAD
+
+
+def _pad_last(q: torch.Tensor) -> torch.Tensor:
+    c = q.shape[-1]
+    return (F.pad(q, (0, padded(c) - c)) if c % PAD else q).contiguous()
+
+
+def quantize_activation_plain(x: torch.Tensor, per_row: bool,
+                              amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Q2's plain version. per_row (a dense layer's input (..., K)): codes
+    (rows, Kp) and one scale a row. Otherwise (a convolution's NCHW input):
+    codes (B, H, W, Cp), NHWC, and one scale (1,), from the tensor's amax or,
+    under "int8_static", the calibrated `amax` floored at 1e-12. Kp and Cp
+    are K and C padded to a multiple of 16 with zero codes; the codes and
+    scales are `quantize_int8`'s bit for bit."""
+    if per_row:
+        q, s = quantize_int8(x.reshape(-1, x.shape[-1]), axes=(1,))
+        return _pad_last(q), s
+    if amax is None:
+        q, s = quantize_int8(x)
+    else:
+        amax = torch.clamp_min(amax.to(device=x.device, dtype=torch.float32), 1e-12)
+        q, s = _quantize_with(x, amax, None), _scale(amax)
+    return _pad_last(q.permute(0, 2, 3, 1)), s.reshape(1)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ENTRIES: Dict[str, object] = {}
+_DTYPE_NAME = {torch.float32: "float32", torch.bfloat16: "bfloat16", torch.int32: "int32"}
+
+
+def _entry(lib: str, name: str, argtypes, restype=ctypes.c_int):
+    """A kernel library's C entry point, argument types set once."""
+    fn = _ENTRIES.get(name)
+    if fn is None:
+        fn = getattr(fa._lib(lib), name)
+        fn.argtypes, fn.restype = argtypes, restype
+        _ENTRIES[name] = fn
+    return fn
+
+
+def _launch(device: torch.device, fn, *args) -> None:
+    """fn(*args, stream) on `device`'s current stream (the device made
+    current for the call where it is not); raises on a CUDA error."""
+    if device.index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            return _launch(device, fn, *args)
+    rc = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed with CUDA error {rc}")
+
+
+# (x, x_kind, q, scale, rows, k, kp, stream); (x, x_kind, channels_last, q,
+# scale, amax, workspace, batch, c, h, w, cp, stream)
+_ROWS_ARGS = [_P, _I, _P, _P, ctypes.c_longlong, _I, _I, _P]
+_TENSOR_ARGS = [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+
+
+def quantize_key(x: torch.Tensor, per_row: bool, static: bool = False) -> tuple:
+    """The `LAUNCH_SHAPES` key of one Q2 launch."""
+    if per_row:
+        return ("int8_quantize", "rows", x.numel() // x.shape[-1], x.shape[-1], _DTYPE_NAME[x.dtype])
+    return ("int8_quantize", "static" if static else "tensor", *x.shape, _DTYPE_NAME[x.dtype])
+
+
+def quantize_activation(x: torch.Tensor, per_row: bool,
+                        amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel Q2 (`csrc/int8_quantize.cu`): `quantize_activation_plain`'s
+    codes and scales, bit for bit, in one launch (dense, or a convolution
+    with a calibrated `amax`, read on the device) or two (a convolution's
+    dynamic amax, then the codes, counted as one launch). CPU tensors take
+    the plain version."""
+    if x.device.type == "cpu":
+        return quantize_activation_plain(x, per_row, amax)
+    if x.dtype not in _IN_KIND:
+        raise TypeError(f"Q2 reads bf16 or fp32, not {x.dtype}")
+    dev = x.device
+    if per_row:
+        k = x.shape[-1]
+        rows = x.reshape(-1, k)
+        if not rows.is_contiguous():
+            rows = rows.contiguous()
+        m = rows.shape[0]
+        q = torch.empty((m, padded(k)), dtype=torch.int8, device=dev)
+        s = torch.empty(m, dtype=torch.float32, device=dev)
+        _launch(dev, _entry("int8_quantize", "icd_quantize_rows", _ROWS_ARGS), rows.data_ptr(),
+                _IN_KIND[x.dtype], q.data_ptr(), s.data_ptr(), m, k, q.shape[1])
+        fa.LAUNCH_SHAPES[quantize_key(x, True)] += 1
+        return q, s
+    if x.dim() != 4:
+        raise ValueError(f"Q2 takes a (B, C, H, W) activation, not {tuple(x.shape)}")
+    channels_last = 0
+    if not x.is_contiguous():
+        if x.is_contiguous(memory_format=torch.channels_last):
+            channels_last = 1
+        else:
+            x = x.contiguous()
+    b, c, h, w = x.shape
+    q = torch.empty((b, h, w, padded(c)), dtype=torch.int8, device=dev)
+    s = torch.empty(1, dtype=torch.float32, device=dev)
+    if amax is None:
+        ws = torch.empty(_entry("int8_quantize", "icd_quantize_workspace_floats", [])(), dtype=torch.float32,
+                         device=dev)  # pass 1's partial amaxes
+        amax_ptr, ws_ptr = None, ws.data_ptr()
+    else:
+        amax = amax.to(device=dev, dtype=torch.float32).reshape(1)
+        amax_ptr, ws_ptr = amax.data_ptr(), None
+    _launch(dev, _entry("int8_quantize", "icd_quantize_tensor", _TENSOR_ARGS), x.data_ptr(),
+            _IN_KIND[x.dtype], channels_last, q.data_ptr(), s.data_ptr(), amax_ptr, ws_ptr, b, c, h, w,
+            q.shape[3])
+    fa.LAUNCH_SHAPES[quantize_key(x, False, amax is not None)] += 1
+    return q, s
+
+
+# ---------------------------------------------------------------------------
+# the weight codes, quantised once a weight
+# ---------------------------------------------------------------------------
+#: weight quantisations per (weight shape, dtype); `weight_quantizations` sums them
+WEIGHT_QUANTIZATIONS = collections.Counter()
+
+
+def quantize_weight(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A Q-layer's weight codes as Q1 reads them: per-output-feature codes
+    (N, 1, 1, Kp) of a dense (N, K) weight, (N, kh, kw, Cp) of an OIHW conv
+    weight (K and C padded to a multiple of 16 with zero codes), and the
+    fp32 scales (N,): `quantize_int8(weight, axes=...)` bit for bit, laid
+    out. Plain PyTorch: it runs once a weight."""
+    with torch.no_grad():
+        if weight.dim() == 2:
+            q, s = quantize_int8(weight, axes=(1,))
+            codes = _pad_last(q).view(q.shape[0], 1, 1, -1)
+        else:
+            q, s = quantize_int8(weight, axes=(1, 2, 3))
+            codes = _pad_last(q.permute(0, 2, 3, 1))
+    WEIGHT_QUANTIZATIONS[(tuple(weight.shape), weight.dtype)] += 1
+    return codes, s
+
+
+def weight_quantizations() -> int:
+    return sum(WEIGHT_QUANTIZATIONS.values())
+
+
+def weight_codes(layer: torch.nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`quantize_weight(layer.weight)`, kept on the layer until the weight
+    changes: the cache is keyed on the weight's identity, data_ptr,
+    `_version`, dtype and device, so `load_state_dict` (an in-place copy),
+    `load_state_dict(assign=True)` (a new tensor), an in-place op on the
+    weight and `.to()` all miss. A write through `weight.data` is invisible
+    to `_version` (PyTorch gives `.data` a fresh version counter), and an
+    inference tensor (a weight made under `torch.inference_mode`) has no
+    version counter: call `forget_weight_codes` after an in-place write to
+    either. The codes are a plain attribute, not a buffer, so `state_dict()`
+    never holds them."""
+    w = layer.weight
+    key = (w.data_ptr(), None if w.is_inference() else w._version, w.dtype, w.device)
+    cached = layer.__dict__.get("_int8_weight_codes")
+    if cached is not None and cached[0]() is w and cached[1] == key:
+        return cached[2]
+    codes = quantize_weight(w)
+    layer.__dict__["_int8_weight_codes"] = (weakref.ref(w), key, codes)
+    return codes
+
+
+def forget_weight_codes(model: torch.nn.Module) -> None:
+    """Drop the cached weight codes of every layer under `model`."""
+    for m in model.modules():
+        m.__dict__.pop("_int8_weight_codes", None)
+
+
+# ---------------------------------------------------------------------------
 # kernel Q1 and its plain version
 # ---------------------------------------------------------------------------
 def _out_hw(h: int, w: int, kh: int, kw: int, stride, padding) -> Tuple[int, int]:
@@ -206,19 +398,22 @@ def dequantize(acc: torch.Tensor, s_row: torch.Tensor, s_col: torch.Tensor,
 
 
 def int8_gemm_plain(a, b, s_row, s_col, stride=(1, 1), padding=(0, 0),
-                    out_dtype=torch.float32) -> torch.Tensor:
-    """Q1's plain version: `int8_gemm_acc_plain`, then `dequantize`."""
-    return dequantize(int8_gemm_acc_plain(a, b, stride, padding), s_row, s_col, out_dtype)
+                    out_dtype=torch.float32, bias=None) -> torch.Tensor:
+    """Q1's plain version: `int8_gemm_acc_plain`, then `dequantize`, then
+    the bias added in the output dtype (as the eager layers add it)."""
+    y = dequantize(int8_gemm_acc_plain(a, b, stride, padding), s_row, s_col, out_dtype)
+    return y if bias is None else y + bias.to(out_dtype)
 
 
-def _check_gemm(a, b, s_row, s_col, stride, padding):
+def _check_gemm(a, b, s_row, s_col, bias, stride, padding):
     for name, t, dtype in (("a", a, torch.int8), ("b", b, torch.int8),
-                           ("s_row", s_row, torch.float32), ("s_col", s_col, torch.float32)):
+                           ("s_row", s_row, torch.float32), ("s_col", s_col, torch.float32),
+                           ("bias", bias, None)):
         if t is None:
             continue
         if t.device != a.device:
             raise ValueError(f"{name} lies on {t.device}, a on {a.device}")
-        if t.dtype != dtype:
+        if dtype is not None and t.dtype != dtype:
             raise TypeError(f"{name} is {t.dtype}; Q1 takes {dtype}")
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
@@ -229,63 +424,97 @@ def _check_gemm(a, b, s_row, s_col, stride, padding):
         raise ValueError(f"no output for a {tuple(a.shape)}, b {tuple(b.shape)}, stride {stride}, padding {padding}")
     if s_col is not None and s_col.numel() != b.shape[0]:
         raise ValueError(f"s_col has {s_col.numel()} scales for {b.shape[0]} outputs")
+    if bias is not None and bias.numel() != b.shape[0]:
+        raise ValueError(f"bias has {bias.numel()} values for {b.shape[0]} outputs")
     m = a.shape[0] * ho * wo
     if s_row is not None and s_row.numel() not in (1, m):
         raise ValueError(f"s_row has {s_row.numel()} scales for {m} rows")
-    if m >= 2**31 or b.shape[0] * b.shape[1] * b.shape[2] * b.shape[3] >= 2**31:
-        raise ValueError("Q1 takes fewer than 2^31 rows and weight bytes")
+    if a.numel() >= 2**31 or m >= 2**31 or max(a.shape[1], a.shape[2]) >= 2**14:
+        raise ValueError("Q1 takes fewer than 2^31 activation bytes and rows, H and W below 2^14")
     return ho, wo
 
 
-def _entry(entry: str, n_pointers: int):
-    fn = getattr(fa._lib("int8_gemm"), entry)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * (13 if n_pointers == 5 else 11) + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+# (a, b, s_row, s_col, bias, out, workspace, batch, h, w, c, n, kh, kw, stride_h,
+# stride_w, pad_h, pad_w, row_scale_stride, out_kind, stream); (a, b, out,
+# batch .. pad_w, stream) for the int32 accumulators; the workspace's bytes
+_GEMM_ARGS = [_P] * 7 + [_I] * 13 + [_P]
+_ACC_ARGS = [_P] * 3 + [_I] * 11 + [_P]
+_WS_ARGS = [_I] * 11
 
 
-def _launch(entry: str, pointers, a, b, stride, padding, extra, key) -> None:
-    n_ptr = len(pointers)
-    fn = _entry(entry, n_ptr)
+def _pad_channels(a, b):
+    c = a.shape[3]
+    if c % PAD == 0:
+        return a, b
+    return F.pad(a, (0, padded(c) - c)).contiguous(), F.pad(b, (0, padded(c) - c)).contiguous()
+
+
+def _geometry(a, b, stride, padding) -> tuple:
     bsz, h, w, c = a.shape
     n, kh, kw, _ = b.shape
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    with torch.cuda.device(a.device):
-        rc = fn(*(t.data_ptr() for t in pointers), bsz, h, w, c, n, kh, kw, stride[0], stride[1],
-                padding[0], padding[1], *extra, stream)
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed with CUDA error {rc}")
-    fa.LAUNCH_SHAPES[key] += 1
+    return (bsz, h, w, c, n, kh, kw, stride[0], stride[1], padding[0], padding[1])
 
 
 def launch_key(a, b, stride, padding, out_dtype) -> tuple:
     """The `LAUNCH_SHAPES` key of one Q1 launch."""
     return ("int8_gemm", *a.shape, b.shape[0], b.shape[1], b.shape[2], stride[0], padding[0],
-            str(out_dtype).replace("torch.", ""))
+            _DTYPE_NAME[out_dtype])
+
+
+#: a launch splits its K steps only where its tiles fill at most half the
+#: SMs, so M x N <= SMs / 2 x 128 x 256; above that it needs no workspace
+_NO_SPLIT_MN: Dict[int, int] = {}
+
+
+def _q1(a, b, s_row, s_col, bias, stride, padding, out_dtype, ho, wo) -> torch.Tensor:
+    """Launch Q1 on checked, padded operands."""
+    dev = a.device
+    geometry = _geometry(a, b, stride, padding)
+    n = b.shape[0]
+    m = a.shape[0] * ho * wo
+    ws = None  # held until the launch is queued: its memory must not go to `out`
+    limit = _NO_SPLIT_MN.get(dev.index)
+    if limit is None:
+        limit = _NO_SPLIT_MN.setdefault(dev.index, torch.cuda.get_device_properties(dev).multi_processor_count
+                                        // 2 * 128 * 256)
+    if m * n <= limit:
+        ws_bytes = _entry("int8_gemm", "icd_int8_gemm_workspace", _WS_ARGS, ctypes.c_longlong)(*geometry)
+        if ws_bytes < 0:
+            raise ValueError(f"Q1 does not take a {tuple(a.shape)}, b {tuple(b.shape)}")
+        if ws_bytes:
+            ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
+    out = torch.empty((a.shape[0], ho, wo, n), dtype=out_dtype, device=dev)
+    _launch(dev, _entry("int8_gemm", "icd_int8_gemm", _GEMM_ARGS), a.data_ptr(), b.data_ptr(),
+            s_row.data_ptr(), s_col.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), *geometry, 0 if s_row.numel() == 1 else 1,
+            _OUT_KIND[out_dtype])
+    fa.LAUNCH_SHAPES[launch_key(a, b, stride, padding, out_dtype)] += 1
+    return out
 
 
 def int8_gemm(a: torch.Tensor, b: torch.Tensor, s_row: torch.Tensor, s_col: torch.Tensor,
-              stride=(1, 1), padding=(0, 0), out_dtype=torch.bfloat16) -> torch.Tensor:
+              stride=(1, 1), padding=(0, 0), out_dtype=torch.bfloat16,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel Q1: out[m, n] = out_dtype(float(sum_k A[m, k] B[n, k]) *
-    (s_row[m] * s_col[n])), A gathered from the NHWC int8 activation `a`
-    (B, H, W, C) by implicit-GEMM addressing (k in kh, kw, c order, zero
-    padding, `stride`), B the int8 weight `b` (N, kh, kw, C). A dense layer
-    is H = W = 1 with C its input features. `s_row` holds one scale or one
-    per row; returns (B, Ho, Wo, N) in `out_dtype` (bf16 or fp32). CPU
-    tensors take `int8_gemm_plain`."""
+    (s_row[m] * s_col[n])) (+ bias[n] in out_dtype), A gathered from the
+    NHWC int8 activation `a` (B, H, W, C) by implicit-GEMM addressing (k in
+    kh, kw, c order, zero padding, `stride`), B the int8 weight `b`
+    (N, kh, kw, C). A dense layer is H = W = 1 with C its input features.
+    `s_row` holds one scale or one per row; returns (B, Ho, Wo, N) in
+    `out_dtype` (bf16 or fp32). The kernel takes C in multiples of 16: the
+    int8 layers' codes come padded (Q2, `weight_codes`); other callers' are
+    padded here with zero codes, which add nothing. CPU tensors take
+    `int8_gemm_plain`."""
     stride, padding = tuple(stride), tuple(padding)
     if a.device.type == "cpu":
-        return int8_gemm_plain(a, b, s_row, s_col, stride, padding, out_dtype)
+        return int8_gemm_plain(a, b, s_row, s_col, stride, padding, out_dtype, bias)
     if out_dtype not in _OUT_KIND:
         raise TypeError(f"Q1 writes bf16 or fp32, not {out_dtype}")
-    ho, wo = _check_gemm(a, b, s_row, s_col, stride, padding)
-    out = torch.empty((a.shape[0], ho, wo, b.shape[0]), dtype=out_dtype, device=a.device)
-    _launch("icd_int8_gemm", (a, b, s_row, s_col, out), a, b, stride, padding,
-            (0 if s_row.numel() == 1 else 1, _OUT_KIND[out_dtype]),
-            launch_key(a, b, stride, padding, out_dtype))
-    return out
+    if bias is not None:
+        bias = bias.to(out_dtype)
+    ho, wo = _check_gemm(a, b, s_row, s_col, bias, stride, padding)
+    a, b = _pad_channels(a, b)
+    return _q1(a, b, s_row, s_col, bias, stride, padding, out_dtype, ho, wo)
 
 
 def int8_gemm_acc(a: torch.Tensor, b: torch.Tensor, stride=(1, 1), padding=(0, 0)) -> torch.Tensor:
@@ -295,75 +524,113 @@ def int8_gemm_acc(a: torch.Tensor, b: torch.Tensor, stride=(1, 1), padding=(0, 0
     stride, padding = tuple(stride), tuple(padding)
     if a.device.type == "cpu":
         return int8_gemm_acc_plain(a, b, stride, padding)
-    ho, wo = _check_gemm(a, b, None, None, stride, padding)
+    ho, wo = _check_gemm(a, b, None, None, None, stride, padding)
+    a, b = _pad_channels(a, b)
     out = torch.empty((a.shape[0], ho, wo, b.shape[0]), dtype=torch.int32, device=a.device)
-    _launch("icd_int8_gemm_acc", (a, b, out), a, b, stride, padding, (),
-            launch_key(a, b, stride, padding, torch.int32))
+    _launch(a.device, _entry("int8_gemm", "icd_int8_gemm_acc", _ACC_ARGS), a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), *_geometry(a, b, stride, padding))
+    fa.LAUNCH_SHAPES[launch_key(a, b, stride, padding, torch.int32)] += 1
     return out
 
 
 # ---------------------------------------------------------------------------
 # the int8 layers' maths
 # ---------------------------------------------------------------------------
+def _linear(x, weight, bias, codes):
+    """Q2 on x's rows, then Q1 with the bias fused (CPU: the plain versions)."""
+    q, s_row = quantize_activation(x, per_row=True)
+    wq, s_col = codes
+    out_dtype = torch.promote_types(x.dtype, weight.dtype)
+    q = q.view(-1, 1, 1, q.shape[1])
+    if x.device.type == "cpu":
+        y = int8_gemm_plain(q, wq, s_row, s_col, out_dtype=out_dtype, bias=bias)
+    else:
+        if bias is not None and bias.dtype != out_dtype:
+            bias = bias.to(out_dtype)
+        y = _q1(q, wq, s_row, s_col, bias, (1, 1), (0, 0), out_dtype, 1, 1)
+    return y.view(*x.shape[:-1], wq.shape[0])
+
+
+def _conv(x, weight, bias, codes, stride, padding, amax):
+    """Q2 on x (NHWC codes), then Q1 with the bias fused (CPU: the plain
+    versions); NCHW out, a channels-last view of Q1's NHWC output."""
+    q, s_row = quantize_activation(x, per_row=False, amax=amax)
+    wq, s_col = codes
+    out_dtype = torch.promote_types(x.dtype, weight.dtype)
+    if x.device.type == "cpu":
+        y = int8_gemm_plain(q, wq, s_row, s_col, stride, padding, out_dtype, bias)
+    else:
+        if bias is not None and bias.dtype != out_dtype:
+            bias = bias.to(out_dtype)
+        ho, wo = _out_hw(q.shape[1], q.shape[2], wq.shape[1], wq.shape[2], stride, padding)
+        y = _q1(q, wq, s_row, s_col, bias, stride, padding, out_dtype, ho, wo)
+    return y.permute(0, 3, 1, 2)
+
+
+def _bias_grad(ctx, grad: torch.Tensor, dims):
+    return grad.sum(dims).to(ctx.bias_dtype) if ctx.needs_input_grad[2] else None
+
+
 class _Int8Linear(torch.autograd.Function):
-    """x (..., K) @ weight (N, K)^T through Q1 with per-row activation and
-    per-output-feature weight scales; zero gradient (inference only)."""
+    """`_linear` under autograd: zero gradient for x and the weight
+    (inference only); the bias keeps its gradient, as it had when it was
+    added after the product."""
 
     @staticmethod
-    def forward(ctx, x, weight):
+    def forward(ctx, x, weight, bias, codes):
         ctx.shapes = (x.shape, x.dtype, weight.shape, weight.dtype)
-        k = x.shape[-1]
-        rows = x.reshape(-1, k)
-        q, s_row = quantize_int8(rows, axes=(1,))
-        wq, s_col = quantize_int8(weight, axes=(1,))
-        out_dtype = torch.promote_types(x.dtype, weight.dtype)
-        y = int8_gemm(q.view(-1, 1, 1, k), wq.view(-1, 1, 1, k), s_row, s_col, out_dtype=out_dtype)
-        return y.view(*x.shape[:-1], weight.shape[0])
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return _linear(x, weight, bias, codes)
 
     @staticmethod
     def backward(ctx, grad):
         xs, xd, ws, wd = ctx.shapes
-        return grad.new_zeros(xs, dtype=xd), grad.new_zeros(ws, dtype=wd)
+        db = _bias_grad(ctx, grad, tuple(range(grad.dim() - 1)))
+        return grad.new_zeros(xs, dtype=xd), grad.new_zeros(ws, dtype=wd), db, None
 
 
 class _Int8Conv2d(torch.autograd.Function):
-    """NCHW conv of x with an OIHW weight through Q1: one activation scale
-    per tensor (or the calibrated amax), one weight scale per output
-    channel; returns NCHW in the promoted dtype as a channels-last view of
-    Q1's NHWC output. Zero gradient (inference only)."""
+    """`_conv` under autograd: zero gradient for x and the weight (inference
+    only); the bias keeps its gradient."""
 
     @staticmethod
-    def forward(ctx, x, weight, stride, padding, amax):
+    def forward(ctx, x, weight, bias, codes, stride, padding, amax):
         ctx.shapes = (x.shape, x.dtype, weight.shape, weight.dtype)
-        if amax is None:
-            q, s_row = quantize_int8(x)
-        else:
-            amax = torch.clamp_min(amax.to(device=x.device, dtype=torch.float32), 1e-12)
-            q, s_row = _quantize_with(x, amax, None), _scale(amax)
-        wq, s_col = quantize_int8(weight, axes=(1, 2, 3))
-        out_dtype = torch.promote_types(x.dtype, weight.dtype)
-        y = int8_gemm(q.permute(0, 2, 3, 1).contiguous(), wq.permute(0, 2, 3, 1).contiguous(),
-                      s_row.reshape(1), s_col, stride, padding, out_dtype)
-        return y.permute(0, 3, 1, 2)
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        return _conv(x, weight, bias, codes, stride, padding, amax)
 
     @staticmethod
     def backward(ctx, grad):
         xs, xd, ws, wd = ctx.shapes
-        return grad.new_zeros(xs, dtype=xd), grad.new_zeros(ws, dtype=wd), None, None, None
+        db = _bias_grad(ctx, grad, (0, 2, 3))
+        return grad.new_zeros(xs, dtype=xd), grad.new_zeros(ws, dtype=wd), db, None, None, None, None
 
 
-def int8_linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None):
-    """The int8 dense layer (JAX `quant_dot_general` under `nn.Dense`):
-    Q1's dequantised product in the promoted dtype, then the bias in it."""
-    y = _Int8Linear.apply(x, weight)
-    return y if bias is None else y + bias.to(y.dtype)
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def int8_linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                codes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """The int8 dense layer (JAX `quant_dot_general` under `nn.Dense`): Q2
+    on x, then Q1's dequantised product in the promoted dtype with the bias
+    added in it. `codes`: the weight's cached codes (`weight_codes(layer)`);
+    None quantises `weight` now. Outside autograd (inference) the maths run
+    without the `autograd.Function`, whose only work is the zero gradient."""
+    codes = quantize_weight(weight) if codes is None else codes
+    if _needs_grad(x, weight, bias):
+        return _Int8Linear.apply(x, weight, bias, codes)
+    return _linear(x, weight, bias, codes)
 
 
 def int8_conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
-                stride, padding, amax: Optional[torch.Tensor] = None):
+                stride, padding, amax: Optional[torch.Tensor] = None,
+                codes: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """The int8 convolution (JAX `quant_conv_general_dilated` under
     `nn.Conv`): zero padding, no groups or dilation; `amax` the calibrated
-    activation amax of "int8_static" (None: dynamic). Bias after, in the
-    output dtype."""
-    y = _Int8Conv2d.apply(x, weight, tuple(stride), tuple(padding), amax)
-    return y if bias is None else y + bias.to(y.dtype)[None, :, None, None]
+    activation amax of "int8_static" (None: dynamic); `codes` as in
+    `int8_linear`. The bias is added in the output dtype."""
+    codes = quantize_weight(weight) if codes is None else codes
+    if _needs_grad(x, weight, bias):
+        return _Int8Conv2d.apply(x, weight, bias, codes, tuple(stride), tuple(padding), amax)
+    return _conv(x, weight, bias, codes, tuple(stride), tuple(padding), amax)

@@ -1,7 +1,7 @@
-"""Kernels B1-B5 and Q1 of the PyTorch port on a CUDA card, against their
-plain versions on the same inputs (plain math in fp32; Q1's in float64 on
-its integer codes, exact, so its accumulators and outputs are held bit for
-bit).
+"""Kernels B1-B5, Q1 and Q2 of the PyTorch port on a CUDA card, against
+their plain versions on the same inputs (plain math in fp32; Q1's in float64
+on its integer codes, exact, so its accumulators and outputs are held bit for
+bit; Q2's codes and scales bit for bit).
 
 Marked `gpu`; every test skips without a CUDA device. This file imports
 torch only, so it runs on a machine without JAX:
@@ -708,6 +708,13 @@ Q1_SHAPES = [  # (batch, H, W, C, N, kernel, stride, padding)
     (3, 1, 1, 40, 24, 1, 1, 0),     # K = 40: byte gathers, ragged K step
     (2, 8, 8, 320, 640, 1, 1, 0),   # a 1x1 shortcut
     (1, 5, 7, 16, 130, 3, 1, 1),    # ragged M and N tiles
+    (4, 1, 1, 320, 1280, 1, 1, 0),  # M = 4: the time embedding's first dense layer
+    (2, 11, 13, 320, 320, 3, 1, 1),  # N = 320 (160-wide tiles), M tail
+    (1, 9, 9, 640, 640, 3, 1, 1),   # N = 640, M tail
+    (1, 7, 7, 48, 200, 3, 1, 1),    # K = 432 (a K-step tail), N tail
+    (4, 17, 17, 128, 256, 3, 2, 0),  # stride 2, 256-wide tiles
+    (4, 8, 8, 1280, 1280, 3, 1, 1),  # split K: 10 tiles of 90 K steps
+    (4, 1, 1, 1280, 1280, 1, 1, 0),  # M = 4, split K
 ]
 
 
@@ -736,6 +743,96 @@ def test_q1_matches_plain(cuda, shape, out_dtype):
     assert acc.dtype == torch.int32 and acc.shape == (b, ho, wo, n)
     assert torch.equal(acc, want)
     assert out.dtype == out_dtype and torch.equal(out, quant.dequantize(want, s_row, s_col, out_dtype))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", [Q1_SHAPES[i] for i in (0, 3, 5, 9, 10, 14)])
+def test_q1_fused_bias_matches_the_eager_bias_add(cuda, shape, out_dtype):
+    """Q1 with the bias fused: bit for bit the eager `dequantize` followed by
+    the bias added in the output dtype (bf16: bf16(float(bf16(y)) + bias))."""
+    from invertible_cd_tpu_torch.ops import quant
+
+    b, h, w, c, n, k, s, p = shape
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    a = torch.randint(-127, 128, (b, h, w, c), generator=gen, device=cuda, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (n, k, k, c), generator=gen, device=cuda, dtype=torch.int8)
+    ho, wo = (h + 2 * p - k) // s + 1, (w + 2 * p - k) // s + 1
+    rows = b * ho * wo if h == w == k == 1 else 1
+    s_row = 0.05 * (torch.rand(rows, generator=gen, device=cuda) + 0.01)
+    s_col = 0.01 * (torch.rand(n, generator=gen, device=cuda) + 0.01)
+    bias = torch.randn(n, generator=gen, device=cuda).to(out_dtype)
+    out = quant.int8_gemm(a, wq, s_row, s_col, (s, s), (p, p), out_dtype, bias)
+    want = quant.dequantize(quant.int8_gemm_acc_plain(a, wq, (s, s), (p, p)), s_row, s_col, out_dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want + bias)
+
+
+Q2_SHAPES = [  # (form, shape): the int8 paths' kinds of Q2 input, and odd ones
+    ("rows", (4, 320)),          # M = 4: the time embedding
+    ("rows", (16384, 320)),      # 64^2 tokens at batch 4
+    ("rows", (4096, 640)),
+    ("rows", (256, 1280)),
+    ("rows", (308, 768)),        # the context's 77 tokens at batch 4 into k and v
+    ("rows", (16384, 1280)),     # GEGLU's output projection at 64^2
+    ("rows", (256, 5120)),
+    ("rows", (2, 2816)),         # SDXL's added conditioning
+    ("rows", (7, 40)),           # odd rows, a K tail
+    ("rows", (5, 8)),            # K = 8: padded to 16
+    ("rows", (3, 1000)),
+    ("tensor", (4, 4, 64, 64)),  # the UNet's conv_in: C = 4
+    ("tensor", (4, 320, 64, 64)),
+    ("tensor", (4, 2560, 8, 8)),
+    ("tensor", (1, 3, 256, 256)),  # the VAE encoder's conv_in: C = 3
+    ("tensor", (4, 8, 64, 64)),  # C = 8
+    ("tensor", (4, 512, 128, 128)),
+    ("tensor", (2, 20, 33, 17)),  # odd C, H, W
+    ("static", (4, 320, 64, 64)),
+    ("static", (1, 3, 64, 64)),
+    ("static", (2, 20, 33, 17)),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("form,shape", Q2_SHAPES)
+def test_q2_matches_plain(cuda, form, shape, dtype):
+    """Q2's codes and scales equal its plain version's bit for bit: dense
+    rows (one scale a row, K padded to 16), a convolution's tensor (one
+    scale; NHWC codes, C padded to 16) from NCHW and channels-last input,
+    and the static form (the calibrated amax read on the device, clipping);
+    one launch counted each call."""
+    from invertible_cd_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    x = torch.randn(shape, generator=gen, device=cuda)
+    x.view(-1)[::997] *= 11.0
+    x = x.to(dtype)
+    amax = (0.75 * x.float().abs().amax()).reshape(1) if form == "static" else None
+    per_row = form == "rows"
+    for xx in [x] if per_row else [x, x.contiguous(memory_format=torch.channels_last)]:
+        before = fa.launches("int8_quantize")
+        q, s = quant.quantize_activation(xx, per_row, amax)
+        qp, sp = quant.quantize_activation_plain(xx, per_row, amax)
+        torch.cuda.synchronize()
+        assert fa.launches("int8_quantize") == before + 1
+        assert q.shape[-1] % 16 == 0 and torch.equal(q, qp) and torch.equal(s, sp)
+
+
+def test_q2_all_zero_input(cuda):
+    from invertible_cd_tpu_torch.ops import quant
+
+    for per_row, shape in ((True, (3, 40)), (False, (2, 16, 8, 8))):
+        q, s = quant.quantize_activation(torch.zeros(shape, device=cuda, dtype=torch.bfloat16), per_row)
+        torch.cuda.synchronize()
+        assert not q.any() and torch.all(s == torch.tensor(1.0) * (1.0 / 127.0)).item()
+
+
+def test_q2_wrapper_raises_instead_of_falling_back(cuda):
+    from invertible_cd_tpu_torch.ops import quant
+
+    with pytest.raises(TypeError):
+        quant.quantize_activation(torch.ones((4, 16), device=cuda, dtype=torch.float16), True)
+    with pytest.raises(ValueError):
+        quant.quantize_activation(torch.ones((4, 16, 8), device=cuda), False)
 
 
 def test_q1_wrapper_raises_instead_of_falling_back(cuda):
