@@ -258,9 +258,11 @@ nothing of JAX. Phases, each of which must pass:
 
 `--kernels-only` runs phases 1-3 and the harness (6), times Q1 at the int8
 paths' costliest shapes (`Q1_COMPARE`), and prints the kernel rows;
-`--package-root DIR` imports the package (and builds its kernels) from
-another checkout, e.g. a parent commit unpacked under `build/`, so that two
-versions of the kernels are timed in one call by the same code.
+`--q1-compare` times Q1 alone there and `--b2f32-compare` B2's fp32 build
+alone at SDXL's VAE shapes (`B2F32_COMPARE`), each printing one JSON line
+of rows; `--package-root DIR` imports the package (and builds its kernels)
+from another checkout, e.g. a parent commit unpacked under `build/`, so
+that two versions of the kernels are timed in one call by the same code.
 Kernel times are per launch: 20 launches captured in one CUDA graph, the
 graph replayed 5 times between pairs of CUDA events, the median
 (`graph_ms`), so a launch shorter than its wrapper's host work is timed
@@ -2304,6 +2306,76 @@ def phase_q1_compare():
                                      for r in rows]}))
 
 
+# B2's fp32 build at SDXL's VAE mid-block at 1024^2 (batch 1: encode and
+# decode; batch 2: the edited pair's decode), timed by --b2f32-compare
+B2F32_COMPARE = [(1, 16384, 16384, 1, 512), (2, 16384, 16384, 1, 512)]
+
+
+def phase_b2f32_compare():
+    """B2's fp32 build at `B2F32_COMPARE`, timed by the package imported
+    (this checkout, or another one under --package-root), each against the
+    plain version on the same seeded inputs; SDPA on the same fp32 inputs as
+    the yardstick; then the layer it serves, SDXL's fp32 VAE at 1024^2
+    (decode at batch 1 and 2, encode at 1; seeded weights, CUDA events, the
+    median of 5). One JSON line of the rows (launches: not counted)."""
+    import torch
+    import torch.nn.functional as F
+
+    from invertible_cd_tpu_torch.ops import flash_attention as fa
+
+    lib = fa._lib("flash_fwd_streamed_f32")
+    if hasattr(lib, "icd_flash_fwd_streamed_f32_clusters"):
+        print(f"B2 fp32: {lib.icd_flash_fwd_streamed_f32_clusters()} clusters of 4 resident at once")
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rows = []
+    for b, sq, sk, h, d in B2F32_COMPARE:
+        q = QK_SCALE * torch.randn((b, sq, h, d), generator=gen, device="cuda")
+        k = QK_SCALE * torch.randn((b, sk, h, d), generator=gen, device="cuda")
+        v = V_SCALE * torch.randn((b, sk, h, d), generator=gen, device="cuda")
+        out = fa.flash_attention_streamed(q, k, v)
+        ref = fa.attention_plain(q, k, v)
+        err = (out - ref).abs().max().item()
+        limit = KERNEL_TOL * min(1.0, ref.abs().max().item())
+        check(err <= limit and torch.equal(out, fa.flash_attention_streamed(q, k, v)),
+              f"B2 fp32 b={b}: max abs err {err} > {limit}, or a repeat gave other bits")
+        del ref
+        ms = graph_ms(lambda: fa.flash_attention_streamed(q, k, v))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), per_loop=5, loops=3)
+        nbytes = 4.0 * b * h * d * (2 * sq + 2 * sk)
+        row = {"name": f"flash_fwd_streamed_f32[b={b},sq={sq},sk={sk},h={h},d={d}]", "ms": ms,
+               **bound(4.0 * b * h * sq * sk * d, b * h * sq * sk, nbytes, flop_rate=PEAK_TF32_FLOPS),
+               "library_ms": library_ms, "max_abs_err": err}
+        rows.append(row)
+        print(f"  {row['name']:<52} {ms:.3f} ms  bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_ms'] / ms:.3f} of it)  sdpa {library_ms:.3f} ms  err {err:.2e}")
+        del q, k, v, out, qt, kt, vt
+        torch.cuda.empty_cache()
+    # the layer it serves: SDXL's fp32 VAE at 1024^2 (seeded weights), decode
+    # at batch 1 and 2 and encode at batch 1, one B2 fp32 launch each
+    from invertible_cd_tpu_torch.models.layers import fan_in_init_
+    from invertible_cd_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+
+    with torch.device("cuda"):
+        vae = AutoencoderKL(VAEConfig.sdxl())
+    fan_in_init_(vae, torch.Generator(device="cuda").manual_seed(0))
+    with torch.inference_mode():
+        for b in (1, 2):
+            lat = torch.randn((b, 4, 128, 128), generator=gen, device="cuda")
+            rows.append({"name": f"sdxl_fp32_vae_decode[b={b},1024^2]",
+                         "ms": cuda_ms(lambda: vae.decode(lat), per_loop=1, loops=5, warmup=1)})
+        pixels = torch.rand((1, 3, 1024, 1024), generator=gen, device="cuda") * 2 - 1
+        rows.append({"name": "sdxl_fp32_vae_encode[b=1,1024^2]",
+                     "ms": cuda_ms(lambda: vae.encode_mean(pixels), per_loop=1, loops=5, warmup=1)})
+    for row in rows[-3:]:
+        print(f"  {row['name']:<52} {row['ms']:.2f} ms")
+    del vae
+    torch.cuda.empty_cache()
+    print(json.dumps({"b2f32_compare": [
+        {k: r[k] for k in ("name", "ms", "bound_ms", "library_ms", "max_abs_err") if k in r}
+        for r in rows]}))
+
+
 def phase_int8(card: str, pipe):
     """int8 W8A8 inference on the generate path's SD1.5 bundle: every mode at
     batch 4 then 1, calibration, invert and edit under int8, exact launches
@@ -3817,6 +3889,8 @@ def parse_args(argv=None):
                    help="run phases 1-3 and 6 only and print the kernel rows (not the device line)")
     p.add_argument("--q1-compare", action="store_true",
                    help="build and time Q1 at the int8 paths' costliest shapes (Q1_COMPARE) only")
+    p.add_argument("--b2f32-compare", action="store_true",
+                   help="build and time B2's fp32 build at SDXL's VAE shapes (B2F32_COMPARE) only")
     p.add_argument("--package-root", default=None,
                    help="import invertible_cd_tpu_torch from this checkout (e.g. an unpacked "
                         "parent commit, to time two versions of the kernels in one call)")
@@ -3843,6 +3917,9 @@ def main(argv=None) -> int:
         phase_build()
         if args.q1_compare:
             phase_q1_compare()
+            return 0
+        if args.b2f32_compare:
+            phase_b2f32_compare()
             return 0
         rows = phase_kernels(card) + phase_backward_kernels(card)
         harness_rows = phase_harness(card, rows)

@@ -117,9 +117,10 @@ __device__ __forceinline__ void load_rows_transposed(bf16* dst, int ldt, const b
 // logits `s` (in place: logits in, fp32 probabilities out). `m`/`l` are the
 // running max and sum of rows g (index 0) and g+8 (index 1), in the base-2
 // domain (logits are pre-multiplied by log2(e)/sqrt(d)). Keys at or past
-// `sk` (key index = k0 + n*8 + 2t + e) are masked. Returns the factors the
-// accumulator rows must be rescaled by.
-template <int NT>
+// `sk` (key index = k0 + n*8 + 2t + e) are masked, unless `Mask` is false
+// (a caller's tile wholly below sk). Returns the factors the accumulator
+// rows must be rescaled by.
+template <int NT, bool Mask = true>
 __device__ __forceinline__ void online_softmax(float (&s)[NT][4], float (&m)[2], float (&l)[2],
                                                float (&alpha)[2], float scale_log2,
                                                int k0, int sk, int t) {
@@ -129,7 +130,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[NT][4], float (&m)[2],
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int key = k0 + n * 8 + 2 * t + (e & 1);
-      const float x = key < sk ? s[n][e] * scale_log2 : kNegInf;
+      const float x = !Mask || key < sk ? s[n][e] * scale_log2 : kNegInf;
       s[n][e] = x;
       mx[e >> 1] = fmaxf(mx[e >> 1], x);
     }

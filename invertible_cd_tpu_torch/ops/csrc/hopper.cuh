@@ -1,8 +1,10 @@
 // Hopper pieces of the flash-attention kernels B1 and B5 (their shared loop
-// flash_wgmma.cuh), B2 (flash_fwd_streamed.cu), B3 (flash_bwd_dq.cu) and B4
+// flash_wgmma.cuh), B2 (flash_fwd_streamed.cu and, TF32, its fp32 build
+// flash_fwd_streamed_f32.cu), B3 (flash_bwd_dq.cu) and B4
 // (flash_bwd_dkdv.cu): cp.async tile copies, shared-memory matrix
 // descriptors, the warpgroup products (wgmma) they issue, with the fences
-// around them, mbarriers and TMA copies, and the MUFU exponential.
+// around them, mbarriers, TMA copies, stores into a peer block's shared
+// memory, and the MUFU exponential.
 //
 // Shared-memory layout of every operand tile (no swizzle). A tile of R rows
 // (queries or keys) x DP columns (head dim, padded to a multiple of 16) is
@@ -87,6 +89,16 @@ __device__ __forceinline__ void fence_regs(float (&d)[NT][4]) {
   for (int j = 0; j < NT; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e]) :: "memory");
+  }
+}
+
+// The same for a register A operand (TF32 bit patterns).
+template <int NT>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[NT][4]) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e]) :: "memory");
   }
 }
 
@@ -180,6 +192,16 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank
   uint32_t remote;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(bar)), "r"(rank));
   asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" :: "r"(remote)
+               : "memory");
+}
+
+// The same arrival without release ordering: for a consumer that only
+// read the stage through wgmma products it has already waited for (the
+// release at cluster scope cost ~800 cycles a call in B2's fp32 build).
+__device__ __forceinline__ void mbar_arrive_cluster_relaxed(uint64_t* bar, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(bar)), "r"(rank));
+  asm volatile("mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n" :: "r"(remote)
                : "memory");
 }
 
@@ -370,5 +392,143 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32][4], const uint32_t (&a)[
         "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
         "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+// ---------------------------------------------------------------------------
+// TF32 (B2's fp32 build at d = 512). Operands are TF32 bit patterns: fp32
+// rounded by cvt.rna before they reach shared memory or registers (the
+// tensor cores would truncate raw fp32 bits). TF32 wgmma reads its shared
+// operands K-major only (no transpose), with a k-depth of 8 (32 bytes). Its
+// tiles here use the 128-byte swizzle: rows of 32 floats (128 bytes), 8-row
+// groups 1024 bytes apart, a tile wider than 32 floats cut into 32-float
+// column blocks stored one after the other; a k-step inside a block adds
+// 32 bytes to the start address. The register A operand of m64nNk8 gives
+// warp w of the warpgroup rows 16w + g and 16w + g + 8 and columns t and
+// t + 4: a0 = (g, t), a1 = (g + 8, t), a2 = (g, t + 4), a3 = (g + 8, t + 4).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// Matrix descriptor of a K-major operand in the 128-byte swizzle starting at
+// `p` (its 8-row groups 1024-byte aligned): SBO 1024 bytes, LBO unused (1),
+// layout type 1.
+__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// d (64 x 32, fp32) (+)= A (64 x 8, shared, K-major) * B (32 x 8, shared, K-major)^T, TF32
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[4][4], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 256, fp32) (+)= A (64 x 8, registers) * B (256 x 8, shared, K-major)^T, TF32
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[32][4], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3]),
+        "+f"(d[24][0]), "+f"(d[24][1]), "+f"(d[24][2]), "+f"(d[24][3]),
+        "+f"(d[25][0]), "+f"(d[25][1]), "+f"(d[25][2]), "+f"(d[25][3]),
+        "+f"(d[26][0]), "+f"(d[26][1]), "+f"(d[26][2]), "+f"(d[26][3]),
+        "+f"(d[27][0]), "+f"(d[27][1]), "+f"(d[27][2]), "+f"(d[27][3]),
+        "+f"(d[28][0]), "+f"(d[28][1]), "+f"(d[28][2]), "+f"(d[28][3]),
+        "+f"(d[29][0]), "+f"(d[29][1]), "+f"(d[29][2]), "+f"(d[29][3]),
+        "+f"(d[30][0]), "+f"(d[30][1]), "+f"(d[30][2]), "+f"(d[30][3]),
+        "+f"(d[31][0]), "+f"(d[31][1]), "+f"(d[31][2]), "+f"(d[31][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// One box of a 3-, 4- or 5-dimensional tensor map: multicast to the blocks
+// of this cluster in `mask` (landing at shared-memory offset `dst` and
+// completing its bytes on the barrier at offset `bar` in each), or into this
+// block alone.
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst, const void* map, int c0, int c1,
+                                                      int c2, uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d_multicast(void* dst, const void* map, int c0, int c1,
+                                                      int c2, int c3, uint64_t* bar,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar)),
+         "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(void* dst, const void* map, int c0, int c1, int c2,
+                                            int c3, int c4, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
+      :: "r"(smem_u32(dst)), "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+         "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The shared-memory address of `p`'s offset in block `rank` of this cluster.
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(smem_u32(p)), "r"(rank));
+  return remote;
+}
+
+// 16 bytes into another block's shared memory (`addr` from cluster_addr),
+// completing 16 bytes on its barrier at `bar` (also from cluster_addr).
+__device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b, float c, float d,
+                                            uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n"
+      :: "r"(addr), "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar) : "memory");
+}
+
+// Barrier `id` among the first `count` threads of the block (count a
+// multiple of 32).
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 }  // namespace icd

@@ -14,9 +14,10 @@ PyTorch counterpart of `invertible_cd_tpu/ops/flash_attention.py`:
     SMs idle it splits the key range and merges the splits in a second
     pass, which counts as the same launch) and fp32 for SDXL's fp32 VAE
     (`csrc/flash_fwd_streamed_f32.cu`, kernel name `flash_fwd_streamed_f32`,
-    TF32 tensor-core products with fp32 accumulation); its backward is plain
-    PyTorch chunked over key tiles (`attention_backward_chunked`), as the
-    reference's is plain XLA.
+    TF32 tensor-core products with fp32 accumulation; at d = 512 a prepass
+    writes K rounded and V transposed into a workspace first, in the same
+    launch); its backward is plain PyTorch chunked over key tiles
+    (`attention_backward_chunked`), as the reference's is plain XLA.
 
 All take q (B, Sq, H, D) and k/v (B, Sk, H, D), contiguous — the layout the
 attention projections produce — bf16 (B2 also fp32), and return
@@ -73,8 +74,9 @@ _ENTRY_POINTERS: Dict[str, int] = {
     "icd_flash_fwd_lse": 5,             # q k v o lse
     "icd_flash_fwd_streamed": 5,        # q k v o workspace
     "icd_flash_fwd_streamed_lse": 6,    # q k v o lse workspace
-    "icd_flash_fwd_streamed_f32": 4,    # q k v o
-    "icd_flash_fwd_streamed_f32_lse": 5,  # q k v o lse
+    "icd_flash_fwd_streamed_f32": 5,    # q k v o workspace
+    "icd_flash_fwd_streamed_f32_lse": 6,  # q k v o lse workspace
+    "icd_flash_fwd_streamed_f32_prepass": 3,  # k v workspace
     "icd_flash_bwd_dq": 7,              # q k v o do lse dq
     "icd_flash_bwd_dkdv": 9,            # q k v o do lse dk dv workspace
 }  # B5's entry points are registered by `flash_variant.py`
@@ -353,17 +355,57 @@ def _forward_streamed(q, k, v, with_lse: bool):
     return o, lse
 
 
+#: B2's fp32 build at d = 512: keys a tile (its prepass pads the key axis
+#: of its workspace to whole tiles with zero rows)
+F32_KEY_TILE = 32
+
+
+def f32_prepass_plain(k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The d = 512 route's prepass in plain PyTorch: (kr (B*H, Skp, 512),
+    vt (B*H, 512, Skp)), both `round_tf32`-rounded, Skp = Sk rounded up to
+    the key tile with zero rows; vt's keys in each group of 8 in the order
+    0 2 4 6 1 3 5 7 (where the TF32 product's register operand takes them)."""
+    b, sk, h, d = k.shape
+    skp = -(-sk // F32_KEY_TILE) * F32_KEY_TILE
+    kr = round_tf32(pad_rows(k, F32_KEY_TILE).permute(0, 2, 1, 3).reshape(b * h, skp, d))
+    vr = round_tf32(pad_rows(v, F32_KEY_TILE).permute(0, 2, 1, 3).reshape(b * h, skp, d))
+    order = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])
+    keys = (torch.arange(0, skp, 8)[:, None] + order).reshape(-1)
+    return kr, vr[:, keys].transpose(1, 2).contiguous()
+
+
+def f32_prepass(k: torch.Tensor, v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The d = 512 route's prepass alone on checked fp32 CUDA k, v (for the
+    card test of its layout; not a counted launch) -> (kr, vt) as
+    `f32_prepass_plain` lays them out."""
+    _check(k, k, v, max_d=512, min_d=511, dtype=torch.float32)
+    b, sk, h, d = k.shape
+    skp = -(-sk // F32_KEY_TILE) * F32_KEY_TILE
+    work = torch.empty((2, b * h * skp * d), dtype=torch.float32, device=k.device)
+    fn = _entry("flash_fwd_streamed_f32", "icd_flash_fwd_streamed_f32_prepass")
+    with torch.cuda.device(k.device):
+        rc = fn(k.data_ptr(), v.data_ptr(), work.data_ptr(), b, h, sk, sk, d, 0.0,
+                torch.cuda.current_stream(k.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"icd_flash_fwd_streamed_f32_prepass launch failed with CUDA error {rc}")
+    return work[0].view(b * h, skp, d), work[1].view(b * h, d, skp)
+
+
 def _forward_streamed_f32(q, k, v, with_lse: bool):
     """Kernel B2's fp32 build on checked CUDA tensors -> (o, lse or None).
-    Its copies bound-check every row, so a ragged Sk needs no padding."""
+    At d = 512 its prepass fills the workspace with K rounded and V
+    transposed, and a split key range's partials are merged by a second
+    pass (all one launch); the first version's copies, at other widths,
+    bound-check every row. A ragged Sk needs no padding either way."""
     o = torch.empty_like(q)
     name = "flash_fwd_streamed_f32"
-    if not with_lse:
-        _launch(name, KERNELS[name][1], q, k, (q, k, v, o))
-        return o, None
     b, sq, h, _ = q.shape
+    work = _workspace(name, q, k)
+    if not with_lse:
+        _launch(name, KERNELS[name][1], q, k, (q, k, v, o, work))
+        return o, None
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    _launch(name, KERNELS[name][1] + "_lse", q, k, (q, k, v, o, lse))
+    _launch(name, KERNELS[name][1] + "_lse", q, k, (q, k, v, o, lse, work))
     return o, lse
 
 
@@ -392,7 +434,8 @@ def _workspace(name: str, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     (its C function `<entry>_workspace`): B4's per query row (lse * log2 e,
     delta) and, where the query tiles are split, fp32 partial dK and dV;
     B2's fp32 partial outputs and (m, l) where the key tiles are split
-    (none otherwise)."""
+    (none otherwise); B2 fp32's (d = 512) K rounded to TF32, V transposed
+    and, where the key range is split, fp32 partial outputs and (m, l)."""
     fn = getattr(_lib(name), KERNELS[name][1] + "_workspace")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int] * 5

@@ -142,3 +142,43 @@ def test_round_tf32_rounds_to_nearest_ties_away():
     y = torch.randn(1000, generator=torch.Generator().manual_seed(0))
     assert torch.equal(port.round_tf32(port.round_tf32(y)), port.round_tf32(y))
     assert ((port.round_tf32(y) - y).abs() <= y.abs() * 2.0 ** -11).all()
+
+
+@pytest.mark.parametrize("sq,sk", [(96, 300), (64 * 5 + 1, 77), (64, 32)])
+def test_b2_fp32_tf32_model_matches_pallas_streamed(sq, sk):
+    """The model the card gates hold B2's fp32 build to: the plain version on
+    q, k, v rounded to TF32 (`round_tf32`, as the kernel rounds its
+    operands), against the JAX package's streamed kernel in interpret mode on
+    the same rounded fp32 inputs, output and lse (natural log). Both are
+    fp32 products of the same TF32-exact values, so they differ only in
+    summation order (online softmax over 32-key tiles against one softmax):
+    the module's 2e-5 / 1e-4 for o, and 2e-5 absolute for lse (|lse| < 10
+    here, fp32 rounding ~1e-6). Shapes: a ragged key tail, an odd count of
+    64-row query tiles with a one-row tail, and a single key tile."""
+    q, k, v = (port.round_tf32(torch.from_numpy(x)).numpy()
+               for x in _inputs(1, sq, sk, 1, 512, seed=5))
+    out, lse = _flash_forward_streamed(
+        _bhsd(q), _bhsd(k), _bhsd(v), 32, 32, 512**-0.5, True, with_lse=True
+    )
+    got_o, got_lse = port.attention_plain_lse(*(torch.from_numpy(x) for x in (q, k, v)))
+    np.testing.assert_allclose(got_o.numpy(), _from_bhsd(out, 1, 1), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got_lse.numpy()[0, 0], np.asarray(lse)[0, :, 0], atol=2e-5, rtol=0)
+
+
+def test_b2_fp32_prepass_plain_layout():
+    """The prepass's layout in plain PyTorch (what the card test holds the
+    kernel's prepass to bit for bit): K rounded to TF32 as (B*H, Skp, 512);
+    V rounded and transposed to (B*H, 512, Skp), each group of 8 keys in
+    the order 0 2 4 6 1 3 5 7; zero rows and columns for keys past Sk."""
+    k = torch.randn((2, 77, 3, 512), generator=torch.Generator().manual_seed(7))
+    v = torch.randn((2, 77, 3, 512), generator=torch.Generator().manual_seed(8))
+    kr, vt = port.f32_prepass_plain(k, v)
+    assert kr.shape == (6, 96, 512) and vt.shape == (6, 512, 96)
+    order = [0, 2, 4, 6, 1, 3, 5, 7]
+    for b, h in ((0, 0), (1, 2)):
+        bh = b * 3 + h
+        assert torch.equal(kr[bh, :77], port.round_tf32(k[b, :, h])) and not kr[bh, 77:].any()
+        for place in range(96):
+            key = 8 * (place // 8) + order[place % 8]
+            want = port.round_tf32(v[b, key, h]) if key < 77 else torch.zeros(512)
+            assert torch.equal(vt[bh, :, place], want)

@@ -99,8 +99,10 @@ B2_SHAPES = [
     (1, 16384, 16384, 1, 512),  # SDXL's VAE mid-block at 1024^2 under the bf16 opt-in
     (2, 16384, 16384, 1, 512),  # and its decode of an edited pair
 ]
-# B2's fp32 build (SDXL's default fp32 VAE; it never splits the key range):
-# SDXL's shapes, and ragged ones
+# B2's fp32 build (SDXL's default fp32 VAE): SDXL's shapes, and ragged ones.
+# d = 512 takes the Hopper route (clusters of 2 query tiles x 2 head-dim
+# halves, 32-key tiles, the key range split where clusters are few: batch 1
+# at 16384^2 and the small shapes); other widths the first version's route.
 B2_F32_SHAPES = [
     (1, 16384, 16384, 1, 512),
     (2, 16384, 16384, 1, 512),
@@ -109,6 +111,9 @@ B2_F32_SHAPES = [
     (1, 64, 130, 2, 384),
     (1, 300, 1000, 2, 320),   # two heads, d = 320, ragged queries
     (2, 700, 333, 2, 264),    # d = 264, ragged on both sides
+    (1, 64 * 5 + 1, 1000, 1, 512),  # six query tiles, the last one row: a cluster's second tile ragged
+    (1, 300, 16384 - 7, 1, 512),    # five query tiles (a cluster's second wholly past Sq), Sk off the tile
+    (2, 1024, 1000, 2, 512),        # batch 2 with two heads
 ]
 
 
@@ -156,6 +161,19 @@ def test_b2_fp32_matches_plain(cuda, b, sq, sk, h, d):
     ref_lse = fa.attention_plain_lse(fa.round_tf32(q), fa.round_tf32(k), v)[1]
     assert (lse - ref_lse).abs().max().item() <= 1e-3
     assert torch.equal(fa.flash_attention_streamed(q, k, v), out)
+
+
+@pytest.mark.parametrize("b,sk,h", [(1, 77, 1), (2, 1000, 2), (1, 16384 - 7, 1)])
+def test_b2_fp32_prepass_layout(cuda, b, sk, h):
+    """The d = 512 route's prepass (its launch's first pass): K rounded to
+    TF32 and V rounded and transposed, each 8-key group of V^T in the order
+    0 2 4 6 1 3 5 7, zero rows past Sk; bit for bit against
+    `f32_prepass_plain` (round_tf32 is cvt.rna's rounding exactly)."""
+    _, k, v = _qkv(cuda, b, 8, sk, h, 512, seed=12, dtype=torch.float32)
+    kr, vt = fa.f32_prepass(k, v)
+    torch.cuda.synchronize()
+    want_k, want_v = fa.f32_prepass_plain(k, v)
+    assert torch.equal(kr, want_k) and torch.equal(vt, want_v)
 
 
 def test_b2_takes_bf16_and_fp32_only(cuda):
