@@ -258,9 +258,11 @@ nothing of JAX. Phases, each of which must pass:
 
 `--kernels-only` runs phases 1-3 and the harness (6), times Q1 at the int8
 paths' costliest shapes (`Q1_COMPARE`), and prints the kernel rows;
-`--q1-compare` times Q1 alone there and `--b2f32-compare` B2's fp32 build
-alone at SDXL's VAE shapes (`B2F32_COMPARE`), each printing one JSON line
-of rows; `--package-root DIR` imports the package (and builds its kernels)
+`--q1-compare` times Q1 alone there, `--b2f32-compare` B2's fp32 build
+alone at SDXL's VAE shapes (`B2F32_COMPARE`) and `--bwd160-compare` B3 and
+B4 at `BACKWARD_SHAPES` (the d = 160 rows against the plain backward and
+beside SDPA's backward), each printing one JSON line of rows;
+`--package-root DIR` imports the package (and builds its kernels)
 from another checkout, e.g. a parent commit unpacked under `build/`, so
 that two versions of the kernels are timed in one call by the same code.
 Kernel times are per launch: 20 launches captured in one CUDA graph, the
@@ -540,11 +542,11 @@ def phase_card():
     return card
 
 
-def phase_build():
+def phase_build(names=None):
     from invertible_cd_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
-    reports = fa.build()
+    reports = fa.build(fa.LIBRARIES if names is None else names)
     print(f"build: {time.perf_counter() - t0:.1f} s for {sorted(reports) or 'nothing (cached)'}")
     for name, out in reports.items():
         for line in out.splitlines():
@@ -659,6 +661,22 @@ def phase_kernels(card: str):
     return rows
 
 
+def backward_flops(kernel: str, batch: int, sq: int, sk: int, h: int, d: int) -> float:
+    """FLOPs of B3 (three products: S, dP, dQ) or B4 (four: S^T, dP^T, dV,
+    dK) at one shape."""
+    return 2.0 * {"flash_bwd_dq": 3, "flash_bwd_dkdv": 4}[kernel] * batch * h * sq * sk * d
+
+
+def backward_bound(kernel: str, batch: int, sq: int, sk: int, h: int, d: int) -> dict:
+    """`bound` of B3 or B4 at one shape: its products, one exponential a
+    (query, key) (each recomputes P), and its bf16 tensors read or written
+    once each plus the fp32 lse."""
+    g = batch * h
+    nbytes = {"flash_bwd_dq": 2.0 * g * d * (4 * sq + 2 * sk) + 4.0 * g * sq,    # q o do dq | k v
+              "flash_bwd_dkdv": 2.0 * g * d * (3 * sq + 4 * sk) + 4.0 * g * sq}  # q o do | k v dk dv
+    return bound(backward_flops(kernel, batch, sq, sk, h, d), g * sq * sk, nbytes[kernel])
+
+
 def phase_backward_kernels(card: str):
     """B3 and B4 at the eight B1 shapes, at the generate's batch (the train
     step's shapes) and at batch 1 (NTI's): against the plain explicit backward
@@ -716,13 +734,8 @@ def phase_backward_kernels(card: str):
         plain_ms = cuda_ms(lambda: fa.attention_backward_plain(q, k, v, o, lse, do))
         library_ms = cuda_ms(
             lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True))
-        g = batch * h
-        # bf16 tensors read or written once each, plus the fp32 lse
-        nbytes = {"flash_bwd_dq": 2.0 * g * d * (4 * sq + 2 * sk) + 4.0 * g * sq,    # q o do dq | k v
-                  "flash_bwd_dkdv": 2.0 * g * d * (3 * sq + 4 * sk) + 4.0 * g * sq}  # q o do | k v dk dv
-        products = {"flash_bwd_dq": 3, "flash_bwd_dkdv": 4}
         for kernel, grads in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkdv", ("dk", "dv"))):
-            flops = 2.0 * products[kernel] * g * sq * sk * d
+            flops = backward_flops(kernel, batch, sq, sk, h, d)
             rows.append({
                 "name": f"{kernel}[b={batch},sq={sq},sk={sk},h={h},d={d}]",
                 "kernel": kernel,
@@ -735,7 +748,7 @@ def phase_backward_kernels(card: str):
                 "rel_err": max(errs[n][0] / errs[n][1] for n in grads),
                 "ms": times[kernel],
                 "plain_ms": plain_ms,
-                **bound(flops, g * sq * sk, nbytes[kernel]),  # each recomputes P
+                **backward_bound(kernel, batch, sq, sk, h, d),
                 "library_ms": library_ms,
             })
             r = rows[-1]
@@ -2376,6 +2389,65 @@ def phase_b2f32_compare():
         for r in rows]}))
 
 
+def phase_bwd160_compare():
+    """B3 and B4 at every shape of `BACKWARD_SHAPES`, timed by the package
+    imported (this checkout, or another one under --package-root). At the
+    eight d = 160 shapes (the train step's at batch 4, NTI's at 1) each is
+    held to the plain backward on the same inputs (2e-2 * max|ref|, a repeat
+    bit for bit), with the backward of torch SDPA timed beside it as the
+    yardstick; the other shapes' rows carry the kernels' times alone, to show
+    that their routes kept them. One JSON line of the rows (launches: not
+    counted)."""
+    import torch
+    import torch.nn.functional as F
+
+    from invertible_cd_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    rows = []
+    print("B3 and B4 at BACKWARD_SHAPES (d = 160 checked against the plain backward):")
+    for batch, sq, sk, h, d in BACKWARD_SHAPES:
+        def rnd(s, scale=1.0):
+            return (scale * torch.randn((batch, s, h, d), generator=gen, device="cuda")).to(
+                torch.bfloat16)
+        q, k, v, do = rnd(sq, QK_SCALE), rnd(sk, QK_SCALE), rnd(sk, V_SCALE), rnd(sq)
+        o, lse = fa.flash_forward_lse(q, k, v)
+        calls = {"flash_bwd_dq": lambda: (fa.flash_backward_dq(q, k, v, o, lse, do),),
+                 "flash_bwd_dkdv": lambda: fa.flash_backward_dkdv(q, k, v, o, lse, do)}
+        checked = d == 160
+        if checked:
+            plain = fa.attention_backward_plain(
+                q.float(), k.float(), v.float(), o.float(), lse, do.float())
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qt, kt, vt)
+            dot = do.transpose(1, 2)
+            library_ms = cuda_ms(
+                lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dot, retain_graph=True))
+        for kernel, refs in (("flash_bwd_dq", (0,)), ("flash_bwd_dkdv", (1, 2))):
+            row = {"name": f"{kernel}[b={batch},sq={sq},sk={sk},h={h},d={d}]",
+                   "ms": graph_ms(calls[kernel]), **backward_bound(kernel, batch, sq, sk, h, d)}
+            if checked:
+                got = calls[kernel]()
+                torch.cuda.synchronize()
+                rel = max((x.float() - plain[i]).abs().max().item() / plain[i].abs().max().item()
+                          for x, i in zip(got, refs))
+                same = all(torch.equal(a, b) for a, b in zip(got, calls[kernel]()))
+                check(rel <= GRAD_TOL and same,
+                      f"{row['name']}: err / max|ref| {rel} > {GRAD_TOL}, or a repeat gave other bits")
+                row.update(rel_err=rel, library_ms=library_ms)
+            rows.append(row)
+            print(f"  {row['name']:<52} {row['ms']:.4f} ms  bound {row['bound_ms']:.4f} ms"
+                  + (f"  sdpa bwd {library_ms:.3f} ms  err/max|ref| {row['rel_err']:.2e}"
+                     if checked else ""))
+        del q, k, v, do, o, lse, calls
+        if checked:
+            del plain, qt, kt, vt, sdpa_out, dot
+        torch.cuda.empty_cache()
+    print(json.dumps({"bwd160_compare": [
+        {k: r[k] for k in ("name", "ms", "bound_ms", "library_ms", "rel_err") if k in r}
+        for r in rows]}))
+
+
 def phase_int8(card: str, pipe):
     """int8 W8A8 inference on the generate path's SD1.5 bundle: every mode at
     batch 4 then 1, calibration, invert and edit under int8, exact launches
@@ -3891,6 +3963,9 @@ def parse_args(argv=None):
                    help="build and time Q1 at the int8 paths' costliest shapes (Q1_COMPARE) only")
     p.add_argument("--b2f32-compare", action="store_true",
                    help="build and time B2's fp32 build at SDXL's VAE shapes (B2F32_COMPARE) only")
+    p.add_argument("--bwd160-compare", action="store_true",
+                   help="build and time B3 and B4 at BACKWARD_SHAPES only, the d = 160 rows "
+                        "checked against the plain backward and beside SDPA's backward")
     p.add_argument("--package-root", default=None,
                    help="import invertible_cd_tpu_torch from this checkout (e.g. an unpacked "
                         "parent commit, to time two versions of the kernels in one call)")
@@ -3914,12 +3989,15 @@ def main(argv=None) -> int:
 
         print(f"package: {os.path.dirname(invertible_cd_tpu_torch.__file__)}")
         card = phase_card()
-        phase_build()
+        phase_build(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv") if args.bwd160_compare else None)
         if args.q1_compare:
             phase_q1_compare()
             return 0
         if args.b2f32_compare:
             phase_b2f32_compare()
+            return 0
+        if args.bwd160_compare:
+            phase_bwd160_compare()
             return 0
         rows = phase_kernels(card) + phase_backward_kernels(card)
         harness_rows = phase_harness(card, rows)

@@ -56,20 +56,52 @@
 // dK or dV, so no query masking is needed. Keys past Sk are zero K and V
 // rows; they touch only their own dK/dV rows, which are never stored.
 //
-// Head dims above 80 (DP = 160, 256: the 256- and 64-token shapes, where
-// the earlier design already beats SDPA's backward) keep the earlier
-// mma.sync loop as a static route by head dim; it computes delta itself.
+// Padded head dim 160 (80 < d <= 160: SD1.5's 256- and 64-token layers).
+// Every such shape is a few microseconds of work (0.3-5.5 us at its bound),
+// so the serial chain of a block and the launches bound it; the earlier
+// mma.sync design (64 keys of 4 warps, each query tile staged synchronously,
+// delta recomputed from O by every key block) took 0.018-0.051 ms whatever
+// the batch. Both accumulators of 64 keys take 160 registers at DP = 160,
+// with S^T and dP^T past 255: the DP 80 design would spill. So here
+// (flash_bwd_dkdv_pair) the two warpgroups of a block share its 64 keys and
+// each owns one accumulator:
+//   * warpgroup 0 computes S^T = K Q^T, P^T, and dV += P^T dO; warpgroup 1
+//     computes dP^T = V dO^T, takes P^T from warpgroup 0 through 16 KB of
+//     shared memory (each thread the fp32 values its peer holds, behind one
+//     named barrier a tile), and dK += dS^T Q. Both issue the same wgmma
+//     sequence on operands picked by warpgroup, so no product sits under a
+//     branch; 192 registers, no spills;
+//   * the two first products run side by side on the tensor cores, as do
+//     the two second ones: four products a tile, none computed twice;
+//   * the query split of b4_plan covers every shape whose grid of 64-key
+//     blocks is under about one block an SM, not only Sk <= 128;
+//   * it is launched as a programmatic dependent of b4_rows (launch_after),
+//     so its K and V copies run while the pre-pass ends, and waits for the
+//     rows before it copies them; the split sum is launched so too;
+//   * dK and dV leave through the free ring in 16-byte pieces along rows.
+// The pre-pass's one thread a row waited for 20 loads in turn at d = 160
+// (7 us; now 2); those three changes took 4.5, 0.5-2.6 and 1.3-3.6 us off
+// the d = 160 rows (H100 80GB HBM3, 700 W, per launch in a CUDA graph).
+// Tried and dropped: a 4-stage ring (no change: 21.9 against 22.0 us at
+// batch 4, 256 x 256, NVIDIA H100 80GB HBM3, 700 W). At 128 blocks a
+// one-tile block takes 11 us against 7 us at 8 blocks: the copies through
+// L2 into the SMs hold it (each Q/dO tile is copied by every key block of
+// its head), for which a tensor-memory copy multicast over a cluster of the
+// key blocks is the next step.
+// Head dim 256 (no path launches it) keeps the earlier mma.sync loop; it
+// computes delta itself.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace icd {
 
-// ---- Hopper route, padded head dims 48, 64 and 80 ----
+// ---- Hopper route, padded head dims 48, 64 and 80 (160: the pair route below) ----
 constexpr int kB4Warpgroups = 2;             // consumer warpgroups a block
 constexpr int kB4Keys = 64 * kB4Warpgroups;  // keys a block
 constexpr int kB4Rows = 64;                  // query rows a tile
 constexpr int kB4Stages = 3;                 // Q/dO tiles in the ring, loaded two ahead
-constexpr int kB4CrossKeys = 128;            // Sk at or below this splits the query tiles
+constexpr int kB4CrossKeys = 128;            // Sk at or below this splits the query tiles (DP <= 80)
+constexpr int kB4PairKeys = 64;              // keys a block at DP 160 (both warpgroups)
 
 // One ring stage: the Q tile, the dO tile, then (lse2, delta) of its rows.
 template <int DP>
@@ -82,24 +114,15 @@ constexpr size_t b4_smem_bytes() {
   return sizeof(bf16) * 2 * kB4Keys * DP + kB4Stages * b4_stage_bytes<DP>();
 }
 
-// How the query tiles of each key tile are cut: `tiles` per block, `splits`
-// blocks. One block a key tile unless Sk <= kB4CrossKeys; then the tiles
-// are spread so that the grid is about one block an SM.
-struct B4Plan {
-  int tiles;
-  int splits;
-};
-
-inline B4Plan b4_plan(int bh, int sq, int sk) {
+// How the query tiles of each key block are cut (split_plan): at DP <= 80
+// one block a key tile unless Sk <= kB4CrossKeys, where the tiles are spread
+// so that the grid is about one block an SM; at DP 160 (64-key blocks)
+// wherever the grid is under that.
+inline SplitPlan b4_plan(int bh, int sq, int sk, int d) {
   const int nt = (sq + kB4Rows - 1) / kB4Rows;
+  if (d > 80) return split_plan((long long)((sk + kB4PairKeys - 1) / kB4PairKeys) * bh, nt);
   if (sk > kB4CrossKeys) return {nt, 1};
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long long blocks = (long long)((sk + kB4Keys - 1) / kB4Keys) * bh;
-  const long long spread = (nt * blocks + sms - 1) / sms;  // one block an SM (208 registers)
-  const int tiles = spread > 1 ? (int)spread : 1;
-  return {tiles, (nt + tiles - 1) / tiles};
+  return split_plan((long long)((sk + kB4Keys - 1) / kB4Keys) * bh, nt);
 }
 
 // Workspace bytes: (lse2, delta) per row padded to whole tiles, then, when
@@ -107,41 +130,67 @@ inline B4Plan b4_plan(int bh, int sq, int sk) {
 inline size_t b4_workspace_bytes(int batch, int heads, int sq, int sk, int d) {
   const int bh = batch * heads;
   const size_t rows = (size_t)bh * ((sq + kB4Rows - 1) / kB4Rows) * kB4Rows;
-  const B4Plan plan = b4_plan(bh, sq, sk);
+  const SplitPlan plan = b4_plan(bh, sq, sk, d);
   const size_t part = plan.splits > 1 ? 2 * (size_t)plan.splits * bh * sk * d : 0;
   return sizeof(float2) * rows + sizeof(float) * part;
 }
 
 // (lse * log2 e, rowsum(dO * O)) of every query row, rows padded to whole
-// tiles with (0, 0); one thread a row.
+// tiles with (0, 0). At DP <= 80 one thread a row loops over its 8-column
+// chunks into one running sum (at 4096 tokens the loop beat both forms
+// below by 1-3 us, and summing each chunk apart (dot8) by 1.2 us); at
+// DP 160, where that thread waited for 20 loads in turn (7 us against 2 at
+// 256 tokens), RT = 8 threads a row each take every eighth chunk with their
+// loads issued together.
+template <int DP, int RT>
 __global__ void b4_rows(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                         const float* __restrict__ lse, float2* __restrict__ rows, int heads,
                         int sq, int sq_pad, int d, int bh_count) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)bh_count * sq_pad) return;
-  const int bh = (int)(idx / sq_pad);
-  const int r = (int)(idx - (size_t)bh * sq_pad);
-  float2 out = make_float2(0.f, 0.f);
+  constexpr int CH = (DP / 8 + RT - 1) / RT;  // chunks a thread
+  if constexpr (DP > 80) griddep_launch_dependents();  // the pair kernel may start, loading K and V
+  const size_t idx = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) / RT;
+  const int part = threadIdx.x % RT;
+  const bool live = idx < (size_t)bh_count * sq_pad;
+  const int bh = live ? (int)(idx / sq_pad) : 0;
+  const int r = live ? (int)(idx - (size_t)bh * sq_pad) : sq;
+  float sum = 0.f;
   if (r < sq) {
     const int b = bh / heads;
     const int h = bh - b * heads;
     const size_t off = ((size_t)b * sq + r) * heads * d + (size_t)h * d;
-    float sum = 0.f;
-    for (int c = 0; c < d; c += 8) {
-      const uint4 x4 = *reinterpret_cast<const uint4*>(dout + off + c);
-      const uint4 y4 = *reinterpret_cast<const uint4*>(o + off + c);
-      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&x4);
-      const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&y4);
+    if constexpr (RT == 1) {
+      for (int c = 0; c < d; c += 8) {
+        const uint4 x4 = *reinterpret_cast<const uint4*>(dout + off + c);
+        const uint4 y4 = *reinterpret_cast<const uint4*>(o + off + c);
+        const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&x4);
+        const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&y4);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 xf = __bfloat1622float2(x[i]);
-        const float2 yf = __bfloat1622float2(y[i]);
-        sum += xf.x * yf.x + xf.y * yf.y;
+        for (int i = 0; i < 4; ++i) {
+          const float2 xf = __bfloat1622float2(x[i]);
+          const float2 yf = __bfloat1622float2(y[i]);
+          sum += xf.x * yf.x + xf.y * yf.y;
+        }
       }
+    } else {
+      uint4 x4[CH], y4[CH];
+#pragma unroll
+      for (int i = 0; i < CH; ++i) {
+        const int c = (part + RT * i) * 8;
+        x4[i] = y4[i] = make_uint4(0u, 0u, 0u, 0u);
+        if (c < d) {
+          x4[i] = *reinterpret_cast<const uint4*>(dout + off + c);
+          y4[i] = *reinterpret_cast<const uint4*>(o + off + c);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < CH; ++i) sum += dot8(x4[i], y4[i]);
     }
-    out = make_float2(lse[(size_t)bh * sq + r] * kLog2e, sum);
   }
-  rows[idx] = out;
+#pragma unroll
+  for (int m = 1; m < RT; m *= 2) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+  if (live && part == 0) {
+    rows[idx] = r < sq ? make_float2(lse[(size_t)bh * sq + r] * kLog2e, sum) : make_float2(0.f, 0.f);
+  }
 }
 
 // Rows g and g+8 of fp32 accumulator tiles, unscaled, into a (rows, d) fp32
@@ -312,10 +361,13 @@ flash_bwd_dkdv_b4(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // dK = scale * sum of the partial dK, dV = sum of the partial dV, in split
-// order; one thread a pair of columns of one (b, h, key).
+// order; one thread a pair of columns of one (b, h, key). kAfter: launched
+// with launch_after (DP 160).
+template <bool kAfter>
 __global__ void b4_sum_splits(const float* __restrict__ part, bf16* __restrict__ dk,
                               bf16* __restrict__ dv, int splits, int bh_count, int heads,
                               int sk, int d, float scale) {
+  if constexpr (kAfter) griddep_wait();  // the partials are written
   const size_t n = (size_t)bh_count * sk * d;
   const size_t e = 2 * ((size_t)blockIdx.x * blockDim.x + threadIdx.x);
   if (e >= n) return;
@@ -340,41 +392,241 @@ __global__ void b4_sum_splits(const float* __restrict__ part, bf16* __restrict__
   *reinterpret_cast<uint32_t*>(dv + off) = pack_bf16(sv_sum.x, sv_sum.y);
 }
 
+// ---- DP 160: two warpgroups share a block's 64 keys ----
+// One ring stage as above, then the hand-off of P^T: 128 threads x 8 float4.
+template <int DP>
+constexpr size_t b4_pair_smem_bytes() {
+  return sizeof(bf16) * 2 * kB4PairKeys * DP + kB4Stages * b4_stage_bytes<DP>() +
+         sizeof(float4) * 128 * (kB4Rows / 8);
+}
+
+// grid (64-key blocks, B*H, splits), 256 threads. Warpgroup 0 owns dV:
+// S^T = K Q^T, P^T, dV += P^T dO; warpgroup 1 owns dK: dP^T = V dO^T, then,
+// with warpgroup 0's P^T from shared memory, dS^T and dK += dS^T Q. The two
+// run the same products on their own operands (descriptors picked by
+// warpgroup), so each holds one 64 x DP accumulator. `part` as in
+// flash_bwd_dkdv_b4.
+template <int DP>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkdv_pair(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float2* __restrict__ rows, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, float* __restrict__ part, int heads, int sq,
+                    int sq_pad, int sk, int d, int tiles, float scale, float scale_log2) {
+  constexpr int NT = 256;                   // threads
+  constexpr int NQ = kB4Rows / 8;           // 8-query column tiles of S^T and dP^T
+  constexpr int NO = DP / 8;                // 8-column tiles of the dK or dV accumulator
+  constexpr uint32_t kGroup = DP * 16;      // bytes between 8-row groups of a tile
+  constexpr int kTile = kB4Rows * DP;       // elements of one Q or dO tile
+  constexpr size_t kStage = b4_stage_bytes<DP>();
+  constexpr int kHandoff = 1;               // named barrier of the P^T hand-off
+  constexpr int LDO = DP + 8;               // row stride of the staged output tiles
+  static_assert(2 * sizeof(float) * kB4PairKeys * LDO <= kB4Stages * kStage,
+                "both output tiles are staged in the ring");
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + kB4PairKeys * DP;
+  unsigned char* ring = reinterpret_cast<unsigned char*>(sV + kB4PairKeys * DP);
+  float4* sP = reinterpret_cast<float4*>(ring + kB4Stages * kStage);
+  auto stage_q = [&](int st) { return reinterpret_cast<bf16*>(ring + st * kStage); };
+  auto stage_do = [&](int st) { return stage_q(st) + kTile; };
+  auto stage_rows = [&](int st) { return reinterpret_cast<float2*>(stage_q(st) + 2 * kTile); };
+
+  const int bh = blockIdx.y;
+  const int b = bh / heads;
+  const int h = bh - b * heads;
+  const int k0 = blockIdx.x * kB4PairKeys;
+  const int t0 = blockIdx.z * tiles;
+  const int nt = min(sq_pad / kB4Rows - t0, tiles);
+  const size_t rs = (size_t)heads * d;  // row stride of (B, S, H, D)
+  const bf16* qb = q + (size_t)b * sq * rs + (size_t)h * d;
+  const bf16* dob = dout + (size_t)b * sq * rs + (size_t)h * d;
+  const float2* rowb = rows + (size_t)bh * sq_pad;
+
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;                 // 0: dV, 1: dK
+  const int wt = tid % 128;                 // thread in the warpgroup
+  const int warp = wt / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+
+  const size_t koff = ((size_t)b * sk + k0) * rs + (size_t)h * d;
+  load_tile_async<DP>(sK, k + koff, rs, kB4PairKeys, sk - k0, d, tid, NT);
+  load_tile_async<DP>(sV, v + koff, rs, kB4PairKeys, sk - k0, d, tid, NT);
+  auto load_tile = [&](int j) {
+    const int st = j % kB4Stages;
+    const int q0 = (t0 + j) * kB4Rows;
+    load_tile_async<DP>(stage_q(st), qb + (size_t)q0 * rs, rs, kB4Rows, sq - q0, d, tid, NT);
+    load_tile_async<DP>(stage_do(st), dob + (size_t)q0 * rs, rs, kB4Rows, sq - q0, d, tid, NT);
+    if (tid < kB4Rows / 2) cp_async16(stage_rows(st) + 2 * tid, rowb + q0 + 2 * tid, true);
+  };
+  griddep_wait();  // launched with launch_after: b4_rows has written the rows
+#pragma unroll
+  for (int j = 0; j < kB4Stages - 1; ++j) {
+    if (j < nt) load_tile(j);
+    cp_async_commit();  // one group a tile, empty past the last (K and V ride in the first)
+  }
+  griddep_launch_dependents();  // the sum of split partials may start launching
+
+  // descriptors, by warpgroup: the first product's A (K or V, K-major) and
+  // B (stage 0 of Q or dO, K-major: LBO along the head dim, SBO along the
+  // rows); the second product's B (stage 0 of dO or Q, MN-major: LBO along
+  // the queries, SBO along the head dim)
+  const uint64_t desc_a = smem_desc(wg ? sV : sK, 128, kGroup);
+  const uint64_t desc_b = smem_desc(wg ? stage_do(0) : stage_q(0), 128, kGroup);
+  const uint64_t desc_bn = smem_desc(wg ? stage_q(0) : stage_do(0), kGroup, 128);
+  constexpr uint64_t kStageStep = kStage / 16;
+  constexpr uint64_t kRowStep = 2 * kGroup / 16;
+
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int j = 0; j < nt; ++j) {
+    cp_async_wait<kB4Stages - 2>();  // tile j (and K, V) landed, for this thread's copies
+    fence_proxy_async();
+    __syncthreads();                 // for every thread's; tile j-1's stage and sP are free
+    if (j + kB4Stages - 1 < nt) load_tile(j + kB4Stages - 1);
+    cp_async_commit();
+
+    const int st = j % kB4Stages;
+    const uint64_t stage = (uint64_t)st * kStageStep;
+    float x[NQ][4];  // S^T (warpgroup 0) or dP^T (warpgroup 1)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) wgmma_ss(x, desc_a + kk * 16, desc_b + stage + kk * 16, kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+
+    // P^T or dS^T as bf16 A operands (k-step n / 2); this thread's query
+    // columns are 8n + 2t and 8n + 2t + 1, rows keys g and g + 8. The
+    // thread of warpgroup 1 holds dP^T at the places its peer in
+    // warpgroup 0 holds S^T, and takes P^T from it in fp32.
+    const float2* sr = stage_rows(st);
+    uint32_t a[NQ / 2][4];
+    if (wg == 0) {
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const float4 y = *reinterpret_cast<const float4*>(sr + n * 8 + 2 * t);  // l0 d0 l1 d1
+        const float p0 = fast_exp2(fmaf(x[n][0], scale_log2, -y.x));
+        const float p1 = fast_exp2(fmaf(x[n][1], scale_log2, -y.z));
+        const float p2 = fast_exp2(fmaf(x[n][2], scale_log2, -y.x));
+        const float p3 = fast_exp2(fmaf(x[n][3], scale_log2, -y.z));
+        sP[n * 128 + wt] = make_float4(p0, p1, p2, p3);
+        a[n / 2][(n % 2) * 2] = pack_bf16(p0, p1);
+        a[n / 2][(n % 2) * 2 + 1] = pack_bf16(p2, p3);
+      }
+      named_arrive(kHandoff, NT);
+    } else {
+      named_sync(kHandoff, NT);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const float4 y = *reinterpret_cast<const float4*>(sr + n * 8 + 2 * t);
+        const float4 p = sP[n * 128 + wt];
+        a[n / 2][(n % 2) * 2] = pack_bf16(p.x * (x[n][0] - y.y), p.y * (x[n][1] - y.w));
+        a[n / 2][(n % 2) * 2 + 1] = pack_bf16(p.z * (x[n][2] - y.y), p.w * (x[n][3] - y.w));
+      }
+    }
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NQ / 2; ++kk) wgmma_rs(acc, a[kk], desc_bn + stage + kk * kRowStep, 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+  cp_async_wait<0>();
+
+  // each warpgroup's tile leaves through its half of the ring, then in
+  // 16-byte pieces along the rows
+  __syncthreads();  // every product has read its tiles
+  const int key0 = warp * 16 + g;  // this thread's keys in the block: key0 and key0 + 8
+  if (part == nullptr) {
+    bf16* so = reinterpret_cast<bf16*>(ring) + wg * kB4PairKeys * LDO;
+    stage_out(so, LDO, acc, wg ? scale : 1.f, key0, t);
+    __syncthreads();
+    bf16* out = (wg ? dk : dv) + ((size_t)b * sk + k0) * rs + (size_t)h * d;
+    copy_rows_out(out, rs, so, LDO, kB4PairKeys, sk - k0, d, wt, 128);
+  } else {
+    float* so = reinterpret_cast<float*>(ring) + wg * kB4PairKeys * LDO;
+    stage_out(so, LDO, acc, 1.f, key0, t);
+    __syncthreads();
+    const size_t block = (size_t)sk * d;  // one (split, b, h) of the partials: dK's, then dV's
+    float* out = part + ((size_t)blockIdx.z * gridDim.y + bh) * block +
+                 (wg ? 0 : (size_t)gridDim.z * gridDim.y * block) + (size_t)k0 * d;
+    copy_rows_out(out, (size_t)d, so, LDO, kB4PairKeys, sk - k0, d, wt, 128);
+  }
+}
+
+// The main kernel by padded head dim (only the chosen one is instantiated).
+template <int DP>
+auto b4_kernel() {
+  if constexpr (DP > 80) {
+    return flash_bwd_dkdv_pair<DP>;
+  } else {
+    return flash_bwd_dkdv_b4<DP>;
+  }
+}
+
+// The row pre-pass, the main kernel (flash_bwd_dkdv_b4 at DP <= 80,
+// flash_bwd_dkdv_pair at DP 160) and, for split query tiles, the sum.
 template <int DP>
 int launch_b4(const void* q, const void* k, const void* v, const void* o, const void* dout,
               const void* lse, void* dk, void* dv, void* work, int batch, int heads, int sq,
               int sk, int d, float scale, void* stream) {
-  const size_t smem = b4_smem_bytes<DP>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dkdv_b4<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr bool kPair = DP > 80;
+  constexpr int kKeys = kPair ? kB4PairKeys : kB4Keys;
+  const auto kernel = b4_kernel<DP>();
+  const size_t smem = kPair ? b4_pair_smem_bytes<DP>() : b4_smem_bytes<DP>();
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
   const cudaStream_t s = (cudaStream_t)stream;
   const int bh = batch * heads;
   const int sq_pad = (sq + kB4Rows - 1) / kB4Rows * kB4Rows;
-  const B4Plan plan = b4_plan(bh, sq, sk);
+  const SplitPlan plan = b4_plan(bh, sq, sk, d);
   float2* rows = static_cast<float2*>(work);
   float* part = plan.splits > 1 ? reinterpret_cast<float*>(rows + (size_t)bh * sq_pad) : nullptr;
 
   const size_t nrows = (size_t)bh * sq_pad;
-  b4_rows<<<(unsigned)((nrows + 255) / 256), 256, 0, s>>>(
+  constexpr int kRowThreads = kPair ? 8 : 1;
+  b4_rows<DP, kRowThreads><<<(unsigned)((nrows * kRowThreads + 255) / 256), 256, 0, s>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       rows, heads, sq, sq_pad, d, bh);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((sk + kB4Keys - 1) / kB4Keys, bh, plan.splits);
-  flash_bwd_dkdv_b4<DP><<<grid, 128 * kB4Warpgroups, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), rows, static_cast<bf16*>(dk), static_cast<bf16*>(dv), part,
-      heads, sq, sq_pad, sk, d, plan.tiles, scale, scale * kLog2e);
-  err = cudaGetLastError();
+  dim3 grid((sk + kKeys - 1) / kKeys, bh, plan.splits);
+  const bf16* args_q = static_cast<const bf16*>(q);
+  const bf16* args_k = static_cast<const bf16*>(k);
+  const bf16* args_v = static_cast<const bf16*>(v);
+  const bf16* args_do = static_cast<const bf16*>(dout);
+  if constexpr (kPair) {  // its K and V copies run while b4_rows ends
+    err = launch_after(kernel, grid, dim3(128 * kB4Warpgroups), smem, s, args_q, args_k, args_v,
+                       args_do, (const float2*)rows, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                       part, heads, sq, sq_pad, sk, d, plan.tiles, scale, scale * kLog2e);
+  } else {
+    kernel<<<grid, 128 * kB4Warpgroups, smem, s>>>(
+        args_q, args_k, args_v, args_do, rows, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        part, heads, sq, sq_pad, sk, d, plan.tiles, scale, scale * kLog2e);
+    err = cudaGetLastError();
+  }
   if (err != cudaSuccess || part == nullptr) return (int)err;
   const size_t pairs = (size_t)bh * sk * d / 2;
-  b4_sum_splits<<<(unsigned)((pairs + 255) / 256), 256, 0, s>>>(
+  const dim3 sum_grid((unsigned)((pairs + 255) / 256));
+  if constexpr (kPair) {
+    return (int)launch_after(b4_sum_splits<true>, sum_grid, dim3(256), 0, s, (const float*)part,
+                             static_cast<bf16*>(dk), static_cast<bf16*>(dv), plan.splits, bh,
+                             heads, sk, d, scale);
+  }
+  b4_sum_splits<false><<<sum_grid, 256, 0, s>>>(
       part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), plan.splits, bh, heads, sk, d, scale);
   return (int)cudaGetLastError();
 }
 
-// ---- the mma.sync route, padded head dims 160 and 256 ----
+// ---- the mma.sync route, padded head dim 256 ----
 constexpr int kB4MmaKeys = 64;  // keys per block
 constexpr int kB4MmaRows = 64;  // query rows per tile
 
@@ -549,9 +801,9 @@ int launch_b4_mma(const void* q, const void* k, const void* v, const void* o, co
 }  // namespace icd
 
 // Bytes of the workspace `icd_flash_bwd_dkdv` needs at this shape on the
-// current device (0 for head dims above 80).
+// current device (0 for head dims above 160).
 extern "C" size_t icd_flash_bwd_dkdv_workspace(int batch, int heads, int sq, int sk, int d) {
-  return d <= 80 ? icd::b4_workspace_bytes(batch, heads, sq, sk, d) : 0;
+  return d <= 160 ? icd::b4_workspace_bytes(batch, heads, sq, sk, d) : 0;
 }
 
 // `work`: icd_flash_bwd_dkdv_workspace bytes (16-byte aligned), or unused.
@@ -563,7 +815,7 @@ extern "C" int icd_flash_bwd_dkdv(const void* q, const void* k, const void* v, c
   if (d <= 48) return launch_b4<48>(q, k, v, o, dout, lse, dk, dv, work, batch, heads, sq, sk, d, scale, stream);
   if (d <= 64) return launch_b4<64>(q, k, v, o, dout, lse, dk, dv, work, batch, heads, sq, sk, d, scale, stream);
   if (d <= 80) return launch_b4<80>(q, k, v, o, dout, lse, dk, dv, work, batch, heads, sq, sk, d, scale, stream);
-  if (d <= 160) return launch_b4_mma<160>(q, k, v, o, dout, lse, dk, dv, batch, heads, sq, sk, d, scale, stream);
+  if (d <= 160) return launch_b4<160>(q, k, v, o, dout, lse, dk, dv, work, batch, heads, sq, sk, d, scale, stream);
   if (d <= 256) return launch_b4_mma<256>(q, k, v, o, dout, lse, dk, dv, batch, heads, sq, sk, d, scale, stream);
   return (int)cudaErrorInvalidValue;
 }

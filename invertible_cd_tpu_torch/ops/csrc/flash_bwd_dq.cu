@@ -31,12 +31,14 @@
 //     threads two tiles ahead, one barrier a tile; P = exp2(S * c - lse2) is
 //     one FFMA and one ex2.approx.ftz a logit, c = log2(e) / sqrt(d), from
 //     the saved logsumexp: no running max, the loop carries only dQ;
-//   * delta is computed in the prologue straight from dO and O in global
-//     memory (two threads a row), under the first tiles' copies; it is not
-//     written out: B4 computes its own, so either kernel runs without the
-//     other.
+//   * delta: a thread loads O for its two rows (a quarter of each) before
+//     the tiles' copies, and once dO has landed each quad sums its rows
+//     against the staged dO tile, before the key loop; it is not written
+//     out: B4 computes its own, so either kernel runs without the other;
+//   * dQ leaves through shared memory (the free K/V ring) in 16-byte
+//     pieces along the rows.
 // A thread takes 116 registers at DP = 48, so two blocks share an SM as in
-// B1, and 148 at DP = 80, one block an SM. DP = 64 is SDXL's head dim (640
+// B1, and 145 at DP = 80, one block an SM. DP = 64 is SDXL's head dim (640
 // channels over 10 heads, 1280 over 20); its rows are 128 bytes, and the
 // layout (8x8 core matrices, no swizzle: LBO 128 bytes, SBO DP * 16) and the
 // descriptors are written in DP, so only the dispatch and the occupancy
@@ -46,53 +48,80 @@
 // zero). Query rows past Sq have zero Q and dO rows; their dQ is never
 // stored.
 //
-// Head dims above 80 (DP = 160, 256: the 256- and 64-token shapes, where
-// the earlier design already beats SDPA's backward) keep the earlier
-// mma.sync loop as a static route by head dim.
+// Padded head dim 160 (80 < d <= 160: SD1.5's 256- and 64-token layers,
+// over 256/64 keys and the 77-key tail). Every such shape is a few
+// microseconds of work (0.3-4.7 us at its bound), so what bounds it is the
+// serial chain of one block and the launches, not a rate: the earlier
+// mma.sync design (64-row blocks of 4 warps, K and V staged synchronously)
+// took 0.017-0.040 ms whatever the batch. Timestamps inside a one-tile
+// block (64 queries, 64 keys) showed where that chain goes on an H100: its
+// copies of Q, dO, K and V and the loads of O, ~120 KB into one SM at ~15
+// bytes a cycle, took 7700 cycles, the products 1700, and issuing the
+// scattered dQ stores 2900. The same template at DP = 160, then:
+//   * one warpgroup a block (64 query rows, 128 threads): dQ takes 80
+//     registers, S and dP 32 each (185 in all); the grid doubles against
+//     128-row blocks, and a 64-token layer has no idle second warpgroup;
+//   * a 64-key tile, or one 80-key tile where 64 < Sk <= 80 (wgmma
+//     m64n80k16 for S and dP, five k-steps of dS K; 205 registers): the
+//     77-key tail is one tile, not a full one and a 13-key one;
+//   * where the grid is under about one block an SM (the 256-key shapes
+//     below batch 4), the key tiles are split over blocks (split_plan); each
+//     split writes fp32 partial dQ to the wrapper's workspace
+//     (icd_flash_bwd_dq_workspace) and b3_sum_splits, launched as a
+//     programmatic dependent (launch_after), adds them in split order; all
+//     one launch. No atomics: repeats are bit-identical;
+//   * delta's dO comes from the staged tile and dQ leaves through shared
+//     memory, as above (one 20 KB read and 2000-odd cycles less a block).
+// Tried and dropped (NVIDIA H100 80GB HBM3, 700 W, per launch in a CUDA
+// graph): two 64-key tiles at Sk = 77 (0.9-2.4 us slower: the second tile
+// splits or runs in turn) and 128-row blocks of two warpgroups at DP = 160
+// (0.6-4.3 us slower at every shape). What holds it now is the copies into
+// the SM (cp.async through L2): a tensor-memory copy, multicast to the
+// blocks that share K and V, is the next step.
+// Head dim 256 (no path launches it) keeps the earlier mma.sync loop.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace icd {
 
-// ---- Hopper route, padded head dims 48, 64 and 80 ----
-constexpr int kB3Rows = 128;   // query rows per block: two warpgroups of 64
-constexpr int kB3Keys = 64;    // keys per tile
-constexpr int kB3Stages = 3;   // K/V tiles in the ring, loaded two ahead
-
-template <int DP>
-__host__ __device__ constexpr int b3_min_blocks() {
-  return DP <= 64 ? 2 : 1;
-}
-
-template <int DP>
+// ---- Hopper route, padded head dims 48, 64, 80 and 160 ----
+// WG warpgroups of 64 query rows a block, KT keys a tile, STAGES K/V tiles
+// in the ring (loaded STAGES - 1 ahead)
+template <int DP, int WG, int KT, int STAGES>
 constexpr size_t b3_smem_bytes() {
-  return sizeof(bf16) * ((size_t)2 * kB3Rows * DP + (size_t)kB3Stages * 2 * kB3Keys * DP) +
-         sizeof(float2) * kB3Rows;
+  return sizeof(bf16) * ((size_t)2 * 64 * WG * DP + (size_t)STAGES * 2 * KT * DP);
 }
 
-template <int DP>
-__global__ void __launch_bounds__(256, b3_min_blocks<DP>())
+// grid (query blocks, B*H, splits); split z walks key tiles [z * tiles,
+// min((z + 1) * tiles, all)). `part` == nullptr: one split, dQ written as
+// bf16; otherwise the split's fp32 partial dQ, unscaled, at
+// part + z * B*Sq*H*d in dQ's (B, Sq, H, d) layout.
+template <int DP, int WG, int KT, int STAGES>
+__global__ void __launch_bounds__(128 * WG, DP <= 64 ? 2 : 1)
 flash_bwd_dq_b3(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ o,
                 const bf16* __restrict__ dout, const float* __restrict__ lse,
-                bf16* __restrict__ dq, int heads, int sq, int sk, int d, float scale,
-                float scale_log2) {
-  constexpr int KT = kB3Keys;
+                bf16* __restrict__ dq, float* __restrict__ part, int heads, int sq, int sk, int d,
+                int tiles, float scale, float scale_log2) {
+  constexpr int NT = 128 * WG;              // threads
+  constexpr int ROWS = 64 * WG;             // query rows a block
   constexpr int NS = KT / 8;                // 8-key column tiles of S and dP
   constexpr int NO = DP / 8;                // 8-column tiles of the dQ accumulator
   constexpr uint32_t kGroup = DP * 16;      // bytes between 8-row groups of a tile
   constexpr int kTile = KT * DP;            // elements of one K or V tile
+  constexpr int LDO = DP + 8;               // row stride of the staged output tile
+  static_assert(sizeof(float) * ROWS * LDO <= sizeof(bf16) * 2 * STAGES * kTile,
+                "the output tile is staged in the K/V ring");
 
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + kB3Rows * DP;
-  bf16* sK = sdO + kB3Rows * DP;
-  bf16* sV = sK + kB3Stages * kTile;
-  float2* sRow = reinterpret_cast<float2*>(sV + kB3Stages * kTile);  // (lse2, delta)
+  bf16* sdO = sQ + ROWS * DP;
+  bf16* sK = sdO + ROWS * DP;
+  bf16* sV = sK + STAGES * kTile;
 
   const int b = blockIdx.y / heads;
   const int h = blockIdx.y - b * heads;
-  const int q0 = blockIdx.x * kB3Rows;
+  const int q0 = blockIdx.x * ROWS;
   const size_t rs = (size_t)heads * d;  // row stride of (B, S, H, D)
   const size_t qoff = ((size_t)b * sq + q0) * rs + (size_t)h * d;
   const bf16* kb = k + (size_t)b * sk * rs + (size_t)h * d;
@@ -104,53 +133,64 @@ flash_bwd_dq_b3(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lane = tid % 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int nt = (sk + KT - 1) / KT;
+  const int rloc = wg * 64 + warp * 16 + g;              // this thread's rows: rloc and rloc + 8
+  const int j0 = blockIdx.z * tiles;                     // this split's first key tile
+  const int nt = min((sk + KT - 1) / KT - j0, tiles);    // and its count
+
+  // lse2 of this thread's rows, and their O in 8-column chunks t, t + 4, ...
+  // for delta, loaded before the tiles' copies so that they arrive first
+  constexpr int NC = (DP / 8 + 3) / 4;  // O chunks a row a thread
+  float lse2[2];
+  uint4 o4[2][NC];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + rloc + 8 * r;
+    lse2[r] = row < sq ? lse[(size_t)blockIdx.y * sq + row] * kLog2e : 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = (t + 4 * i) * 8;
+      o4[r][i] = make_uint4(0u, 0u, 0u, 0u);
+      if (row < sq && c < d) {
+        o4[r][i] = *reinterpret_cast<const uint4*>(o + qoff + (size_t)(rloc + 8 * r) * rs + c);
+      }
+    }
+  }
 
   auto load_kv = [&](int j) {
-    const int st = j % kB3Stages;
-    load_tile_async<DP>(sK + st * kTile, kb + (size_t)j * KT * rs, rs, KT, sk - j * KT, d, tid, 256);
-    load_tile_async<DP>(sV + st * kTile, vb + (size_t)j * KT * rs, rs, KT, sk - j * KT, d, tid, 256);
+    const int st = j % STAGES;
+    const int k0 = (j0 + j) * KT;
+    load_tile_async<DP>(sK + st * kTile, kb + (size_t)k0 * rs, rs, KT, sk - k0, d, tid, NT);
+    load_tile_async<DP>(sV + st * kTile, vb + (size_t)k0 * rs, rs, KT, sk - k0, d, tid, NT);
   };
-  load_tile_async<DP>(sQ, q + qoff, rs, kB3Rows, sq - q0, d, tid, 256);
-  load_tile_async<DP>(sdO, dout + qoff, rs, kB3Rows, sq - q0, d, tid, 256);
+  load_tile_async<DP>(sQ, q + qoff, rs, ROWS, sq - q0, d, tid, NT);
+  load_tile_async<DP>(sdO, dout + qoff, rs, ROWS, sq - q0, d, tid, NT);
 #pragma unroll
-  for (int j = 0; j < kB3Stages - 1; ++j) {
+  for (int j = 0; j < STAGES - 1; ++j) {
     if (j < nt) load_kv(j);
     cp_async_commit();  // one group a tile, empty past the last, so the counts stay aligned
   }
-
-  // lse2 and delta of the block's rows, two threads a row, each over every
-  // other 8-column chunk, while the copies run
-  {
-    const int r = tid >> 1;
-    const int row = q0 + r;
-    float sum = 0.f;
-    if (row < sq) {
-      const size_t off = qoff + (size_t)r * rs;
-      for (int c = (tid & 1) * 8; c < d; c += 16) {
-        const uint4 x4 = *reinterpret_cast<const uint4*>(dout + off + c);
-        const uint4 y4 = *reinterpret_cast<const uint4*>(o + off + c);
-        const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&x4);
-        const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&y4);
+  // delta of rows rloc and rloc + 8 from the staged dO (zero past Sq and d)
+  // and the O chunks: a quarter of each row a thread, summed over the quad;
+  // here, not in the loop, so that the O chunks are dead before it
+  cp_async_wait<STAGES - 2>();  // Q, dO (and tile 0) landed, for this thread's copies
+  __syncthreads();              // for every thread's
+  griddep_launch_dependents();  // the sum of split partials may start launching
+  float delta[2];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float2 xf = __bfloat1622float2(x[i]);
-          const float2 yf = __bfloat1622float2(y[i]);
-          sum += xf.x * yf.x + xf.y * yf.y;
-        }
-      }
+  for (int r = 0; r < 2; ++r) {
+    const int rr = rloc + 8 * r;
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c8 = t + 4 * i;
+      if (c8 * 8 >= DP) continue;
+      const uint4 x4 = *reinterpret_cast<const uint4*>(sdO + (rr >> 3) * (DP * 8) + c8 * 64 + (rr & 7) * 8);
+      sum += dot8(x4, o4[r][i]);
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    if ((tid & 1) == 0) {
-      sRow[r] = make_float2(row < sq ? lse[(size_t)blockIdx.y * sq + row] * kLog2e : 0.f, sum);
-    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    delta[r] = sum;
   }
-  __syncthreads();
-  const int rloc = wg * 64 + warp * 16 + g;  // this thread's rows: rloc and rloc + 8
-  const float2 row_a = sRow[rloc];
-  const float2 row_b = sRow[rloc + 8];
-  const float lse2[2] = {row_a.x, row_b.x};
-  const float delta[2] = {row_a.y, row_b.y};
 
   // descriptors: this warpgroup's Q and dO (A, K-major: LBO along the head
   // dim, SBO along the rows); stage 0 of K and V as the B of S and dP
@@ -169,13 +209,12 @@ flash_bwd_dq_b3(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   for (int j = 0; j < nt; ++j) {
-    cp_async_wait<kB3Stages - 2>();  // tile j (and Q, dO) landed, for this thread's copies
+    cp_async_wait<STAGES - 2>();  // tile j (and Q, dO) landed, for this thread's copies
     fence_proxy_async();
-    __syncthreads();                 // for every thread's; and tile j-1's stage is free
-    if (j + kB3Stages - 1 < nt) load_kv(j + kB3Stages - 1);
+    __syncthreads();              // for every thread's; and tile j-1's stage is free
+    if (j + STAGES - 1 < nt) load_kv(j + STAGES - 1);
     cp_async_commit();
-
-    const uint64_t stage = (uint64_t)(j % kB3Stages) * kStageStep;
+    const uint64_t stage = (uint64_t)(j % STAGES) * kStageStep;
     float s[NS][4];
     float dp[NS][4];
     wgmma_fence();
@@ -189,8 +228,8 @@ flash_bwd_dq_b3(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(dp);
 
     // dS as bf16 A operands (k-step n / 2): rows g and g + 8, keys
-    // j * 64 + 8n + 2t and + 1; keys past Sk masked on the ragged last tile
-    const int k0 = j * KT;
+    // k0 + 8n + 2t and + 1; keys past Sk masked on the ragged last tile
+    const int k0 = (j0 + j) * KT;
     const bool ragged = k0 + KT > sk;
     uint32_t da[KT / 16][4];
 #pragma unroll
@@ -216,29 +255,93 @@ flash_bwd_dq_b3(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(acc);
   }
   cp_async_wait<0>();
+  __syncthreads();  // every product has read its tiles: the K/V ring takes the output tile
 
-  const float mul[2] = {scale, scale};
-  store_rows_scaled<NO>(dq + qoff - (size_t)q0 * rs, rs, acc, mul, q0 + rloc, sq, 0, d, t);
+  if (part == nullptr) {
+    bf16* so = sK;
+    stage_out(so, LDO, acc, scale, rloc, t);
+    __syncthreads();
+    copy_rows_out(dq + qoff, rs, so, LDO, ROWS, sq - q0, d, tid, NT);
+  } else {
+    float* so = reinterpret_cast<float*>(sK);
+    stage_out(so, LDO, acc, 1.f, rloc, t);
+    __syncthreads();
+    float* pq = part + (size_t)blockIdx.z * (gridDim.y / heads) * sq * rs;  // this split's (B, Sq, H, d)
+    copy_rows_out(pq + qoff, rs, so, LDO, ROWS, sq - q0, d, tid, NT);
+  }
 }
 
-template <int DP>
+// dQ = scale * the sum of the splits' partials, in split order; one thread
+// a pair of elements of the (B, Sq, H, d) layout.
+__global__ void b3_sum_splits(const float* __restrict__ part, bf16* __restrict__ dq, int splits,
+                              size_t n, float scale) {
+  griddep_wait();  // launched with launch_after: the partials are written
+  const size_t e = 2 * ((size_t)blockIdx.x * blockDim.x + threadIdx.x);
+  if (e >= n) return;
+  float2 sum = make_float2(0.f, 0.f);
+  for (int z = 0; z < splits; ++z) {
+    const float2 a = *reinterpret_cast<const float2*>(part + z * n + e);
+    sum.x += a.x;
+    sum.y += a.y;
+  }
+  *reinterpret_cast<uint32_t*>(dq + e) = pack_bf16(sum.x * scale, sum.y * scale);
+}
+
+// The routes by padded head dim: DP 48/64/80 take 128-row blocks of two
+// warpgroups, 64-key tiles, three stages and never split; DP 160 takes
+// 64-row blocks of one warpgroup and splits its key tiles where the grid is
+// under about one block an SM; Sk in (64, 80] is one 80-key tile there.
+struct B3Route {
+  int wg;  // warpgroups (64 query rows each) a block
+  int kt;  // keys a tile
+};
+
+inline B3Route b3_route(int sk, int d) {
+  if (d <= 80) return {2, 64};
+  return {1, sk > 64 && sk <= 80 ? 80 : 64};
+}
+
+inline SplitPlan b3_plan(int batch, int heads, int sq, int sk, int d) {
+  const B3Route r = b3_route(sk, d);
+  const int nt = (sk + r.kt - 1) / r.kt;
+  if (d <= 80) return {nt, 1};
+  const int rows = 64 * r.wg;
+  return split_plan((long long)((sq + rows - 1) / rows) * batch * heads, nt);
+}
+
+// Workspace bytes: fp32 partial dQ (splits, B, Sq, H, d) where the key tiles
+// are split, none otherwise.
+inline size_t b3_workspace_bytes(int batch, int heads, int sq, int sk, int d) {
+  if (d > 160) return 0;
+  const SplitPlan plan = b3_plan(batch, heads, sq, sk, d);
+  return plan.splits > 1 ? sizeof(float) * plan.splits * batch * sq * heads * d : 0;
+}
+
+template <int DP, int WG, int KT, int STAGES>
 int launch_b3(const void* q, const void* k, const void* v, const void* o, const void* dout,
-              const void* lse, void* dq, int batch, int heads, int sq, int sk, int d,
+              const void* lse, void* dq, void* work, int batch, int heads, int sq, int sk, int d,
               float scale, void* stream) {
-  const size_t smem = b3_smem_bytes<DP>();
+  const size_t smem = b3_smem_bytes<DP, WG, KT, STAGES>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_b3<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_bwd_dq_b3<DP, WG, KT, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return (int)attr;
-  dim3 grid((sq + kB3Rows - 1) / kB3Rows, batch * heads);
-  flash_bwd_dq_b3<DP><<<grid, 256, smem, (cudaStream_t)stream>>>(
+  const cudaStream_t s = (cudaStream_t)stream;
+  const SplitPlan plan = b3_plan(batch, heads, sq, sk, d);
+  float* part = plan.splits > 1 ? static_cast<float*>(work) : nullptr;
+  dim3 grid((sq + 64 * WG - 1) / (64 * WG), batch * heads, plan.splits);
+  flash_bwd_dq_b3<DP, WG, KT, STAGES><<<grid, 128 * WG, smem, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<bf16*>(dq), heads, sq, sk, d, scale,
-      scale * kLog2e);
-  return (int)cudaGetLastError();
+      static_cast<const float*>(lse), static_cast<bf16*>(dq), part, heads, sq, sk, d, plan.tiles,
+      scale, scale * kLog2e);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || part == nullptr) return (int)err;
+  const size_t n = (size_t)batch * sq * heads * d;
+  return (int)launch_after(b3_sum_splits, dim3((unsigned)((n / 2 + 255) / 256)), dim3(256), 0, s,
+                           (const float*)part, static_cast<bf16*>(dq), plan.splits, n, scale);
 }
 
-// ---- the mma.sync route, padded head dims 160 and 256 ----
+// ---- the mma.sync route, padded head dim 256 ----
 constexpr int kB3MmaRows = 64;  // query rows per block
 constexpr int kB3MmaKeys = 64;  // keys per tile
 
@@ -390,14 +493,26 @@ int launch_b3_mma(const void* q, const void* k, const void* v, const void* o, co
 
 }  // namespace icd
 
+// Bytes of the workspace `icd_flash_bwd_dq` needs at this shape on the
+// current device (0 where it does not split its key tiles).
+extern "C" size_t icd_flash_bwd_dq_workspace(int batch, int heads, int sq, int sk, int d) {
+  return icd::b3_workspace_bytes(batch, heads, sq, sk, d);
+}
+
+// `work`: icd_flash_bwd_dq_workspace bytes (16-byte aligned), or unused.
 extern "C" int icd_flash_bwd_dq(const void* q, const void* k, const void* v, const void* o,
-                                const void* dout, const void* lse, void* dq, int batch,
-                                int heads, int sq, int sk, int d, float scale, void* stream) {
+                                const void* dout, const void* lse, void* dq, void* work,
+                                int batch, int heads, int sq, int sk, int d, float scale,
+                                void* stream) {
   using namespace icd;
-  if (d <= 48) return launch_b3<48>(q, k, v, o, dout, lse, dq, batch, heads, sq, sk, d, scale, stream);
-  if (d <= 64) return launch_b3<64>(q, k, v, o, dout, lse, dq, batch, heads, sq, sk, d, scale, stream);
-  if (d <= 80) return launch_b3<80>(q, k, v, o, dout, lse, dq, batch, heads, sq, sk, d, scale, stream);
-  if (d <= 160) return launch_b3_mma<160>(q, k, v, o, dout, lse, dq, batch, heads, sq, sk, d, scale, stream);
+  if (d <= 48) return launch_b3<48, 2, 64, 3>(q, k, v, o, dout, lse, dq, work, batch, heads, sq, sk, d, scale, stream);
+  if (d <= 64) return launch_b3<64, 2, 64, 3>(q, k, v, o, dout, lse, dq, work, batch, heads, sq, sk, d, scale, stream);
+  if (d <= 80) return launch_b3<80, 2, 64, 3>(q, k, v, o, dout, lse, dq, work, batch, heads, sq, sk, d, scale, stream);
+  if (d <= 160) {
+    if (b3_route(sk, d).kt == 80)
+      return launch_b3<160, 1, 80, 2>(q, k, v, o, dout, lse, dq, work, batch, heads, sq, sk, d, scale, stream);
+    return launch_b3<160, 1, 64, 3>(q, k, v, o, dout, lse, dq, work, batch, heads, sq, sk, d, scale, stream);
+  }
   if (d <= 256) return launch_b3_mma<256>(q, k, v, o, dout, lse, dq, batch, heads, sq, sk, d, scale, stream);
   return (int)cudaErrorInvalidValue;
 }

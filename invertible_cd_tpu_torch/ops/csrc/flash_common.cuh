@@ -1,7 +1,7 @@
 // Pieces shared by the flash-attention kernels, forward B1 (flash_fwd.cu) and
 // B2 (flash_fwd_streamed.cu) and backward B3 (flash_bwd_dq.cu) and B4
 // (flash_bwd_dkdv.cu): bf16 tensor-core products, tile loads, the fp32
-// online-softmax update and the row stores.
+// online-softmax update, the row stores and the backward's split plan.
 //
 // All kernels take bf16 q (B, Sq, H, D) and k/v (B, Sk, H, D), contiguous,
 // the layout the model's projections produce (no head transpose); o, dO and
@@ -43,6 +43,21 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The dot product of two 8-element bf16 vectors (16 bytes each) in fp32.
+// By value: a reference to memory would read the pairs by 4-byte loads.
+__device__ __forceinline__ float dot8(uint4 a, uint4 b) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+  float sum = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 xf = __bfloat1622float2(x[e]);
+    const float2 yf = __bfloat1622float2(y[e]);
+    sum += xf.x * yf.x + xf.y * yf.y;
+  }
+  return sum;
 }
 
 // c += a * b, one m16n8k16 tile.
@@ -216,6 +231,85 @@ __device__ __forceinline__ void store_lse(float* lse, const float (&m)[2], const
     const int row = row0 + 8 * r;
     if (row < sq) lse[row] = kLn2 * (m[r] + log2f(fmaxf(l[r], 1e-30f)));
   }
+}
+
+// An accumulator tile leaves through shared memory: rows g and g+8 of the
+// fp32 tiles, times `mul`, into a row-major tile of T (bf16 or float) with
+// row stride ld (DP + 8: conflict-free for these writes) by stage_out, then
+// copy_rows_out stores it in 16-byte pieces along the rows (a thread's
+// scattered 4-byte stores, d / 4 a row pair, held the issue for
+// thousands of cycles).
+template <typename T, int NT>
+__device__ __forceinline__ void stage_out(T* s, int ld, const float (&acc)[NT][4], float mul,
+                                           int row0, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      T* p = s + (row0 + 8 * r) * ld + n * 8 + 2 * t;
+      if constexpr (sizeof(T) == 2) {
+        *reinterpret_cast<uint32_t*>(p) = pack_bf16(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
+      } else {
+        *reinterpret_cast<float2*>(p) = make_float2(acc[n][2 * r] * mul, acc[n][2 * r + 1] * mul);
+      }
+    }
+  }
+}
+
+// Rows [0, rows) of a staged tile (row stride ld), columns [0, d), to
+// out + r * row_stride, for rows below `valid`; thread `tid` of `nthreads`.
+template <typename T>
+__device__ __forceinline__ void copy_rows_out(T* out, size_t row_stride, const T* s, int ld,
+                                              int rows, int valid, int d, int tid, int nthreads) {
+  constexpr int E = 16 / sizeof(T);  // elements a 16-byte piece
+  const int pieces = d / E;
+  for (int idx = tid; idx < rows * pieces; idx += nthreads) {
+    const int r = idx / pieces;
+    const int c = (idx - r * pieces) * E;
+    if (r < valid) {
+      *reinterpret_cast<uint4*>(out + (size_t)r * row_stride + c) =
+          *reinterpret_cast<const uint4*>(s + r * ld + c);
+    }
+  }
+}
+
+// Launches `kernel` with programmatic stream serialization: it may start
+// while the kernel before it on `stream` runs, and must call griddep_wait
+// (hopper.cuh) before it reads anything that kernel writes. Only for a
+// kernel whose predecessor is its own launcher's (B3's and B4's passes).
+template <typename... Exp, typename... Act>
+cudaError_t launch_after(void (*kernel)(Exp...), dim3 grid, dim3 block, size_t smem,
+                         cudaStream_t stream, Act&&... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<Act&&>(args)...);
+}
+
+// How a block's loop of `nt` tiles is cut when the grid has `blocks`
+// blocks: `tiles` a split, `splits` blocks a loop, so that the grid is
+// about one block an SM of the current device (one split where it is that
+// already). B3 splits its key tiles, B4 its query tiles; each split writes
+// fp32 partial sums that a second pass adds in split order.
+struct SplitPlan {
+  int tiles;
+  int splits;
+};
+
+inline SplitPlan split_plan(long long blocks, int nt) {
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long spread = (nt * blocks + sms - 1) / sms;
+  const int tiles = spread > 1 ? (int)spread : 1;
+  return {tiles, (nt + tiles - 1) / tiles};
 }
 
 }  // namespace icd

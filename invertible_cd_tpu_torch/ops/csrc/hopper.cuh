@@ -228,6 +228,26 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t desc_a, uint
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// d (64 x 80, fp32) (+)= A (64 x 16, shared, K-major) * B (80 x 16, shared, K-major)^T
+__device__ __forceinline__ void wgmma_ss(float (&d)[10][4], uint64_t desc_a, uint64_t desc_b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, %40, %41, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d (64 x 48, fp32) (+)= A (64 x 16, registers) * B (16 x 48, shared, MN-major)
 __device__ __forceinline__ void wgmma_rs(float (&d)[6][4], const uint32_t (&a)[4],
                                          uint64_t desc_b, int accumulate) {
@@ -526,9 +546,29 @@ __device__ __forceinline__ void st_async_v4(uint32_t addr, float a, float b, flo
       :: "r"(addr), "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar) : "memory");
 }
 
+// Programmatic dependent launch: a kernel launched by launch_after waits in
+// griddep_wait until the kernel before it on the stream has finished and its
+// writes are visible (what it does before may not read them); a kernel lets
+// the next one start launching, into the SMs it leaves free, with
+// griddep_launch_dependents.
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
 // Barrier `id` among the first `count` threads of the block (count a
 // multiple of 32).
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// This thread's arrival on barrier `id` without waiting (a producer's half
+// of a hand-off whose consumers wait with named_sync on the same count);
+// its shared-memory writes before it are visible to them after their wait.
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 }  // namespace icd

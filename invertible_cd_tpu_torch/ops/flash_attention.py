@@ -77,7 +77,7 @@ _ENTRY_POINTERS: Dict[str, int] = {
     "icd_flash_fwd_streamed_f32": 5,    # q k v o workspace
     "icd_flash_fwd_streamed_f32_lse": 6,  # q k v o lse workspace
     "icd_flash_fwd_streamed_f32_prepass": 3,  # k v workspace
-    "icd_flash_bwd_dq": 7,              # q k v o do lse dq
+    "icd_flash_bwd_dq": 8,              # q k v o do lse dq workspace
     "icd_flash_bwd_dkdv": 9,            # q k v o do lse dk dv workspace
 }  # B5's entry points are registered by `flash_variant.py`
 
@@ -419,19 +419,22 @@ def flash_forward_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 
 
 def flash_backward_dq(q, k, v, o, lse, do) -> torch.Tensor:
-    """Kernel B3: dQ of softmax(q k^T / sqrt(d)) v given o, lse and dO.
-    CPU tensors take `attention_backward_plain`."""
+    """Kernel B3: dQ of softmax(q k^T / sqrt(d)) v given o, lse and dO (for
+    split key tiles its summing pass included: one launch). CPU tensors take
+    `attention_backward_plain`."""
     if q.device.type == "cpu":
         return attention_backward_plain(q, k, v, o, lse, do)[0]
     _check_backward(q, k, v, o, lse, do)
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", KERNELS["flash_bwd_dq"][1], q, k, (q, k, v, o, do, lse, dq))
+    work = _workspace("flash_bwd_dq", q, k)
+    _launch("flash_bwd_dq", KERNELS["flash_bwd_dq"][1], q, k, (q, k, v, o, do, lse, dq, work))
     return dq
 
 
 def _workspace(name: str, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Kernel `name`'s scratch on q's device, sized by the kernel's own plan
-    (its C function `<entry>_workspace`): B4's per query row (lse * log2 e,
+    (its C function `<entry>_workspace`): B3's fp32 partial dQ where the key
+    tiles are split (none otherwise); B4's per query row (lse * log2 e,
     delta) and, where the query tiles are split, fp32 partial dK and dV;
     B2's fp32 partial outputs and (m, l) where the key tiles are split
     (none otherwise); B2 fp32's (d = 512) K rounded to TF32, V transposed

@@ -30,7 +30,9 @@ ATOL, RTOL = 2e-5, 1e-4
 # kernels pad, then ragged queries with the 77-key tail and with several
 # ragged key tiles, through the kernels' masked branches; then the shapes
 # B4's routes split on: many query tiles with a ragged last one over the
-# 77-key tail (the split route), and Sk = 129, one key past it
+# 77-key tail (the split route), and Sk = 129, one key past it; then the
+# padded head dim 160 of the 256- and 64-token layers (B3's and B4's d = 160
+# route), over the 77-key tail and self-attention
 SHAPES = [
     (256, 256, 2, 40, 128, 128),
     (256, 256, 1, 80, 128, 128),
@@ -38,6 +40,8 @@ SHAPES = [
     (200, 300, 2, 40, 128, 128),
     (1000, 77, 1, 40, 128, 128),
     (256, 129, 1, 40, 128, 128),
+    (256, 77, 1, 160, 128, 128),
+    (64, 64, 1, 160, 128, 128),
 ]
 
 

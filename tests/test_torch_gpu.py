@@ -251,6 +251,17 @@ BACKWARD_SHAPES = [
 ] + [
     (1, 130, 200, 2, 64),     # DP 64 ragged on both sides
     (2, 100, 77, 3, 56),      # head dim padded 56 -> 64, split
+] + [  # the DP 160 route's edges (80 < d <= 160): B3 splits key tiles, B4 query tiles
+    (1, 1, 300, 4, 160),      # one query row; B3 splits 5 key tiles
+    (1, 300, 1, 4, 160),      # one key; B4 splits 5 query tiles
+    (1, 63, 65, 2, 88),       # B3's one 80-key tile (64 < Sk <= 80), head dim padded 88 -> 160
+    (1, 65, 63, 2, 128),      # B3's one 64-key tile; B4 splits 2 query tiles
+    (4, 77, 77, 8, 128),      # B3's 80-key tile; B4 splits 2 query tiles of 77 rows
+    (4, 256, 300, 8, 88),     # neither splits (at least 128 blocks of 5 tiles)
+    (4, 300, 256, 8, 160),    # neither splits
+    (1, 300, 300, 8, 128),    # both split: 3 splits of 2, 2 and 1 tiles
+    (4, 1, 1, 8, 160),        # one row, one key
+    (1, 256, 77, 8, 88),      # B3's 80-key tile; B4 splits 4 query tiles
 ]
 
 
@@ -286,6 +297,18 @@ def test_b1_lse_b3_b4_match_plain(cuda, b, sq, sk, h, d):
     for name, got, ref_p, ref_a in zip(("dq", "dk", "dv"), (dq, dk, dv), plain, auto):
         assert got.shape == ref_p.shape and got.dtype == torch.bfloat16
         assert bool(torch.isfinite(got).all()), name
+        if sk == 1 and name in ("dq", "dk"):
+            # one key: P = 1 and dS = dP - delta = 0, so dQ and dK are zero in
+            # exact arithmetic and both references are rounding noise; hold
+            # them to the size they would take with delta = 0 (dS = dP)
+            dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf.detach())
+            wrong = (torch.einsum("bhqk,bkhd->bqhd", dp, kf.detach()) if name == "dq"
+                     else torch.einsum("bhqk,bqhd->bkhd", dp, qf.detach()))
+            size = d**-0.5 * wrong.abs().max().item()
+            for ref in (ref_p, ref_a):
+                err = (got.float() - ref).abs().max().item()
+                assert err <= TOL * size, f"{name} with one key: {err:.3e} > {TOL} * {size:.3e}"
+            continue
         assert _rel(got, ref_p) <= TOL, f"{name} vs plain backward: {_rel(got, ref_p):.3e}"
         assert _rel(got, ref_a) <= TOL, f"{name} vs autograd: {_rel(got, ref_a):.3e}"
 
@@ -295,16 +318,18 @@ def test_b1_lse_b3_b4_match_plain(cuda, b, sq, sk, h, d):
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
-def test_b4_split_route_repeats_bit_for_bit(cuda):
-    """Sk <= 128 splits the query tiles of each (batch, head) over several
-    blocks whose fp32 partials a second pass adds in a fixed order: three
-    runs give the same bits, and each counts as one launch of B4."""
-    b, sq, sk, h, d = 4, 1024, 77, 8, 40
+@pytest.mark.parametrize("b,sq,sk,h,d", [(4, 1024, 77, 8, 40), (1, 256, 256, 8, 160),
+                                         (1, 256, 77, 8, 160), (1, 300, 300, 2, 128)])
+def test_b4_split_route_repeats_bit_for_bit(cuda, b, sq, sk, h, d):
+    """Where the grid is small (at DP 80 and below Sk <= 128, at DP 160 any
+    Sk) B4 splits the query tiles of each (batch, head) over several blocks
+    whose fp32 partials a second pass adds in a fixed order: three runs give
+    the same bits, and each counts as one launch of B4."""
     q, k, v = _qkv(cuda, b, sq, sk, h, d, seed=7)
     do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(8),
                      device=cuda).to(torch.bfloat16)
     o, lse = fa.flash_forward_lse(q, k, v)
-    rows_only = 8 * b * h * sq  # (lse2, delta) per row, sq a whole number of tiles
+    rows_only = 8 * b * h * -(-sq // 64) * 64  # (lse2, delta) per row, padded to whole tiles
     assert fa._workspace("flash_bwd_dkdv", q, k).numel() > rows_only  # the partials are there: split
     before = fa.launches("flash_bwd_dkdv")
     runs = [fa.flash_backward_dkdv(q, k, v, o, lse, do) for _ in range(3)]
@@ -316,6 +341,57 @@ def test_b4_split_route_repeats_bit_for_bit(cuda):
     ref_o, ref_lse = fa.attention_plain_lse(qf, kf, vf)
     _, dk_ref, dv_ref = fa.attention_backward_plain(qf, kf, vf, ref_o, ref_lse, do.float())
     assert _rel(runs[0][0], dk_ref) <= TOL and _rel(runs[0][1], dv_ref) <= TOL
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d", [(1, 256, 256, 8, 160), (2, 256, 256, 8, 160),
+                                         (1, 300, 300, 2, 128), (1, 1, 300, 4, 88)])
+def test_b3_split_route_repeats_bit_for_bit(cuda, b, sq, sk, h, d):
+    """At DP 160 B3 splits the key tiles of a small grid over several blocks
+    whose fp32 partial dQ a second pass adds in split order: three runs give
+    the same bits, and each counts as one launch of B3."""
+    q, k, v = _qkv(cuda, b, sq, sk, h, d, seed=12)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(13),
+                     device=cuda).to(torch.bfloat16)
+    o, lse = fa.flash_forward_lse(q, k, v)
+    assert fa._workspace("flash_bwd_dq", q, k).numel() > 0  # the partials are there: split
+    before = fa.launches("flash_bwd_dq")
+    runs = [fa.flash_backward_dq(q, k, v, o, lse, do) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert fa.launches("flash_bwd_dq") == before + 3
+    for dq in runs[1:]:
+        assert torch.equal(dq, runs[0])
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    ref_o, ref_lse = fa.attention_plain_lse(qf, kf, vf)
+    dq_ref = fa.attention_backward_plain(qf, kf, vf, ref_o, ref_lse, do.float())[0]
+    assert _rel(runs[0], dq_ref) <= TOL
+
+
+@pytest.mark.parametrize("name,b,sq,sk,h,d", [
+    ("flash_bwd_dq", 1, 256, 256, 8, 160), ("flash_bwd_dq", 1, 300, 300, 2, 128),
+    ("flash_bwd_dkdv", 1, 256, 77, 8, 160), ("flash_bwd_dkdv", 1, 300, 300, 2, 128),
+    ("flash_bwd_dkdv", 4, 1024, 77, 8, 40)])
+def test_backward_workspace_covers_what_the_kernel_writes(cuda, name, b, sq, sk, h, d):
+    """A split route writes its partial sums (and B4 its rows) into the
+    workspace its C `<entry>_workspace` sizes: a guard band past that size
+    keeps its bytes, and the gradients equal the wrapper's."""
+    q, k, v = _qkv(cuda, b, sq, sk, h, d, seed=14)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(15),
+                     device=cuda).to(torch.bfloat16)
+    o, lse = fa.flash_forward_lse(q, k, v)
+    nbytes = fa._workspace(name, q, k).numel()
+    guard = 1 << 16
+    work = torch.full((nbytes + guard,), 0xA5, dtype=torch.uint8, device=cuda)
+    if name == "flash_bwd_dq":
+        outs = (torch.empty_like(q),)
+        want = (fa.flash_backward_dq(q, k, v, o, lse, do),)
+    else:
+        outs = (torch.empty_like(k), torch.empty_like(v))
+        want = fa.flash_backward_dkdv(q, k, v, o, lse, do)
+    fa._launch(name, fa.KERNELS[name][1], q, k, (q, k, v, o, do, lse, *outs, work))
+    torch.cuda.synchronize()
+    assert bool((work[nbytes:] == 0xA5).all()), "the kernel wrote past its workspace"
+    for got, w in zip(outs, want):
+        assert torch.equal(got, w)
 
 
 def test_autograd_function_launches_backward_kernels(cuda):
