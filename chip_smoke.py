@@ -88,9 +88,10 @@ nothing of JAX. Phases, each of which must pass:
              image (CFG 1.0, run on the doubled batch as JAX does),
              `ddim_generate` from its inversion at CFG 7.5, the controlled
              pair under the edit's controller at 50 steps (CFG batch 4), NPI's
-             reconstruction and `null_text_inversion` at the reference's
-             defaults (10 inner iterations at most, epsilon 1e-5) with its
-             reconstruction. Checks shapes, finite images in [0, 1], exact
+             reconstruction and `null_text_inversion` (5 inner iterations
+             at most, half the reference's default of 10, so that the
+             script fits its time limit with phase 5d; epsilon 1e-5) with
+             its reconstruction. Checks shapes, finite images in [0, 1], exact
              launches per (kernel, Sq, Sk, d) and batch derived from the
              config, the grid, the spec and NTI's inner iterations as the run
              reports them (32 x B1 a UNet call; an NTI step of k iterations
@@ -223,6 +224,30 @@ nothing of JAX. Phases, each of which must pass:
              prompts, the eval-enabled CLI against its three bare steps run
              just before it, and the time of each eval hook inside it) and
              peak memory with the scorers resident;
+  5d. distribution (after 5, on phase 4's bundle, before 5c): the
+             distribution layer (`invertible_cd_tpu_torch.parallel`) on the
+             one card. (a) World size 1 over NCCL in this process: one train
+             step through `make_train_step(..., mesh=make_mesh())` at batch
+             2 against the step without a mesh from the same state and
+             generator, bit for bit (adapters, both optimizer states,
+             metrics), exact launches, both timed twice; a burst of 4
+             through `BatchingExecutor(mesh=make_mesh(dp=1))` bit for bit the
+             executor's without a mesh, exact launches. (b) Two ranks sharing
+             the card over gloo (`--dist-worker`, two subprocesses, each
+             building the seeded bundle): one step, one row a rank, against
+             the one-process step at batch 2 from the same draws (the
+             update within DIST_STEP_TOL and the gradients within
+             DIST_GRAD_TOL relative L2, each logged metric within
+             DIST_METRIC_TOL relative), both ranks' adapters and metrics
+             bit for bit, the gloo all_reduce of one student's gradients
+             timed alone; a dp = 2 served burst of 4, each row bit for bit
+             its rank's direct generate at batch 2; exact launches per rank.
+             (c) `python -m torch.distributed.run --nproc_per_node 1` of the
+             train CLI (`--synthetic_data --fsdp 1`, one step at batch 2,
+             NCCL): exit 0, one checkpoint and both exports, its resident
+             base bytes. (d) One JSON line: the phase's times, peak memory
+             (this process and each rank), launches by batch, the card. No
+             dp or fsdp speed: the machine has one card;
   6. harness (run between phases 3 and 4): `cli.exp_softmax.main` runs
              kernel B5's five softmax variants at the tool's headline shape
              (G=128, S=4096, D=64) and the port's (G=32, S=4096, D=40),
@@ -235,7 +260,8 @@ nothing of JAX. Phases, each of which must pass:
              its own plain version; B1 at 4096/40 is set beside B5 `exp2`
              at G=32 (the same work on the same wgmma loop, on a (G, S, D)
              layout instead of (B, S, 8, D));
-  7. prints the kernels' JSON line, then the device JSON as the last line.
+  7. prints each phase's wall seconds and the script's so far as one JSON
+     line, the kernels' JSON line, then the device JSON as the last line.
      A kernel row's `launches` are those of its (Sq, Sk, d) in the generate
      at its batch, plus, for the batch-4 rows, the three counted train
      steps (batch 2), for the batch-1 rows the counted `invert`, and for
@@ -252,6 +278,9 @@ nothing of JAX. Phases, each of which must pass:
      direct steps at its batch; plus phase 5c's counted eval runs at the
      batch each kernel ran at (its FID sweeps at 8, the batch-8 rows' only
      launches; the train CLI's steps with phase 5's, on the batch-4 rows);
+     plus phase 5d's counted runs: (a)'s mesh step with phase 5's, on the
+     batch-4 rows, and its burst at 4; (b)'s two ranks' steps at 1 and their
+     served rows at 2 (the ranks count in their own processes and report);
      B5's rows carry the harness's; Q1's rows the counted int8 runs of
      phase 4f (the generates at batch 4 and 1, invert and edit) and of the
      SDXL int8 generate, at each row's launch shape.
@@ -262,6 +291,9 @@ paths' costliest shapes (`Q1_COMPARE`), and prints the kernel rows;
 alone at SDXL's VAE shapes (`B2F32_COMPARE`) and `--bwd160-compare` B3 and
 B4 at `BACKWARD_SHAPES` (the d = 160 rows against the plain backward and
 beside SDPA's backward), each printing one JSON line of rows;
+`--dist-fault none|sum` runs phase 5d(b)'s two ranks alone with the
+trainer's gradient reduction skipped or summed (`plant_reduction_fault`)
+and prints what the step's gates read, checking nothing;
 `--package-root DIR` imports the package (and builds its kernels)
 from another checkout, e.g. a parent commit unpacked under `build/`, so
 that two versions of the kernels are timed in one call by the same code.
@@ -1572,9 +1604,10 @@ def phase_serve(card: str, pipe):
     return by_batch
 
 
-# the DDIM baselines (phase 4d): NTI at the reference's defaults
+# the DDIM baselines (phase 4d): NTI at the reference's epsilon, and half its
+# inner iterations (10), which keeps the script inside its time limit
 DDIM_CFG = 7.5
-NTI_INNER_STEPS = 10
+NTI_INNER_STEPS = 5
 NTI_EPSILON = 1e-5
 # the tiny bundle's NTI on the card: a 10-step grid, 3 inner iterations an
 # outer step (its DDIM paths keep the 50-step grid)
@@ -3035,6 +3068,20 @@ def states_equal(a, b) -> bool:
     return a == b
 
 
+def sd15_step_launches(steps: int) -> collections.Counter:
+    """B1, B3 and B4 launches per (kernel, Sq, Sk, d) of `steps` SD1.5
+    train steps (derived in `phase_training`): 11 UNet forwards and 4
+    differentiated student calls a step."""
+    want = collections.Counter()
+    for tokens, layers in LAYERS_PER_CALL.items():
+        d = HEAD_DIM[tokens]
+        for sk in (tokens, 77):
+            want[("flash_fwd", tokens, sk, d)] = 11 * layers * steps
+            want[("flash_bwd_dq", tokens, sk, d)] = 4 * layers * steps
+            want[("flash_bwd_dkdv", tokens, sk, d)] = 4 * layers * steps
+    return want
+
+
 def phase_training(card: str, pipe):
     """The training path: the CLI's three steps, then the same step through
     `make_train_step` on the generate path's UNet weights with the launch
@@ -3128,13 +3175,7 @@ def phase_training(card: str, pipe):
     # = 11 forwards of B1; 4 differentiated student calls go backward through
     # B3 and B4. Each call has LAYERS_PER_CALL self layers and as many cross
     # layers (Sk = 77) at each token count.
-    want = collections.Counter()
-    for tokens, layers in LAYERS_PER_CALL.items():
-        d = {4096: 40, 1024: 80, 256: 160, 64: 160}[tokens]
-        for sk in (tokens, 77):
-            want[("flash_fwd", tokens, sk, d)] = 11 * layers * TRAIN_STEPS
-            want[("flash_bwd_dq", tokens, sk, d)] = 4 * layers * TRAIN_STEPS
-            want[("flash_bwd_dkdv", tokens, sk, d)] = 4 * layers * TRAIN_STEPS
+    want = sd15_step_launches(TRAIN_STEPS)
     totals = {name: sum(n for key, n in shape_launches.items() if key[0] == name) // TRAIN_STEPS
               for name in fa.KERNELS}
     print(f"  launches per train step: {totals}")
@@ -3249,6 +3290,423 @@ def phase_training(card: str, pipe):
           f"{rel_l2(grads['plain'], grads['materialised']):.3e}, kernel vs plain-function path "
           f"{rel_l2(grads['kernel'], grads['plain']):.3e}")
     return shape_launches
+
+
+# ---- phase 5d: distribution ----
+# Two ranks' step (one row each, gradients averaged) against the one-process
+# step at batch 2, bf16 on the card, where a row's bits depend on its batch.
+# The first Adam step moves each entry by about lr * sign(g), so an entry
+# whose gradient sign differs between the two computations moves 2 lr apart:
+# 0.9% of them gave 0.1415 relative L2 of the update on an H100 80GB HBM3 at
+# 700 W (gradients 1.04e-2, logged metrics at most 2.3e-3 relative). The
+# same run with the gradient reduction taken out of the trainer (each rank
+# updating from its own row) read 0.864 on the update, 0.217 on the
+# gradients and 5.4e-2 on a grad norm, and the ranks' adapters differed;
+# with a sum in place of the mean it read 0.150 on the update (Adam's first
+# step is scale-invariant, so the update gate cannot see it), 0.158 on the
+# gradients (the global-norm clip undoes the doubling where a norm exceeds
+# its limit) and 1.0 on the grad norms. The update gate catches a wrong
+# sign or a lost reduction; the gradient and metric gates a wrong scale.
+DIST_STEP_TOL = 0.3   # relative L2 of the adapter update
+DIST_GRAD_TOL = 5e-2  # relative L2 of the gradients (Adam's first moment)
+DIST_METRIC_TOL = 1e-2  # relative difference of each logged loss and grad norm
+DIST_SERVE = [("a photo of a corgi on the beach", 7), ("a red fox", 2**40 + 3),
+              ("a bowl of ramen", -5), ("a lighthouse at dusk", 0)]
+DIST_WORKER_TIMEOUT = 420
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def serve_launches_per_batch() -> collections.Counter:
+    """B1 and B2 launches of one served SD1.5 batch (a 4-hop generate)."""
+    want = collections.Counter()
+    for tokens, layers in LAYERS_PER_CALL.items():
+        for sk in (tokens, 77):
+            want[("flash_fwd", tokens, sk, HEAD_DIM[tokens])] = 4 * layers
+    want[("flash_fwd_streamed", 4096, 4096, 512)] = 1
+    return want
+
+
+def dist_train_setup(pipe):
+    """The train step's inputs of phase 5d, the same in every process that
+    builds the seeded SD1.5 bundle: the reverse UNet's weights as teacher
+    and as an fp32 base, seeded non-zero r = 64 adapters for both students
+    (so both factors get gradients), a seeded global batch of TRAIN_BATCH."""
+    import torch
+
+    from invertible_cd_tpu_torch.diffusion.solver import make_train_solver
+    from invertible_cd_tpu_torch.models.lora import seeded_lora
+    from invertible_cd_tpu_torch.training import ICDTrainState, LossConfig, TrainConfig
+    from invertible_cd_tpu_torch.training.trainer import init_optimizer
+
+    unet = pipe.unets["reverse"]
+    teacher = unet.state_dict()
+    base = {k: v.float() for k, v in teacher.items()}
+    solver = make_train_solver(
+        pipe.schedule.alphas_cumprod, num_endpoints=4, num_forward_endpoints=4,
+        endpoints="0,259,519,779", forward_endpoints="259,519,779,999", device="cuda")
+    tcfg = TrainConfig(loss=LossConfig(w_embed_dim=unet.cfg.time_cond_proj_dim))
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    lora_r, lora_f = seeded_lora(base, gen, tcfg.lora_rank), seeded_lora(base, gen, tcfg.lora_rank)
+    for ab in (*lora_r.values(), *lora_f.values()):
+        ab["up"].mul_(0.1)
+    state = ICDTrainState(0, lora_r, lora_f, init_optimizer(lora_r, tcfg), init_optimizer(lora_f, tcfg))
+    g = torch.Generator(device="cuda").manual_seed(2000)
+    batch = {"latents": torch.randn((TRAIN_BATCH, 64, 64, 4), generator=g, device="cuda"),
+             "context": 0.1 * torch.randn((TRAIN_BATCH, 77, 768), generator=g, device="cuda")}
+    return unet, base, teacher, solver, tcfg, state, batch
+
+
+def dist_step_generator():
+    import torch
+
+    return torch.Generator(device="cuda").manual_seed(5)
+
+
+def adapters_flat(state, part=None):
+    """Both students' adapters (or their optimizer's `part`, e.g. "mu") as
+    one flat fp32 vector."""
+    import torch
+
+    trees = ((state.lora_reverse, state.lora_forward) if part is None
+             else (state.opt_reverse[part], state.opt_forward[part]))
+    return torch.cat([t.float().flatten() for tree in trees for ab in tree.values()
+                      for t in ab.values()])
+
+
+def plant_reduction_fault(fault: str):
+    """Replace the trainer's gradient reduction for this process: "none"
+    leaves each rank's gradients its own, "sum" sums them without dividing.
+    The logged losses are still averaged."""
+    from invertible_cd_tpu_torch.training import trainer
+
+    real, calls = trainer.all_reduce_mean, []
+
+    def faulty(tensors, mesh):
+        calls.append(None)
+        if len(calls) > 2:  # the third call of a step averages the losses
+            return real(tensors, mesh)
+        if fault == "none":
+            return list(tensors)
+        return [t * mesh.rows for t in real(tensors, mesh)]
+    trainer.all_reduce_mean = faulty
+
+
+def dist_worker(rank: int, port: int, out_dir: str, fault=None) -> int:
+    """One of phase 5d's two ranks on the one card, over gloo: the seeded
+    SD1.5 bundle, one train step on this rank's row of the global batch
+    (with `fault`, under `plant_reduction_fault`), then its rows of a dp = 2
+    served burst (rank 0 runs the executor, rank 1 the follower loop).
+    Writes `rank<r>.json`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from invertible_cd_tpu_torch.ops import flash_attention as fa
+    from invertible_cd_tpu_torch.parallel import (
+        all_gather_objects, all_reduce_mean, initialize_distributed, make_mesh,
+        process_local_batch_slice, shard_batch)
+    from invertible_cd_tpu_torch.pipelines.pipeline import InvertibleCD
+    from invertible_cd_tpu_torch.serving import BatchingExecutor, request_latents, serve_follower
+    from invertible_cd_tpu_torch.training import make_train_step
+
+    t_start = time.perf_counter()
+    if fault:
+        plant_reduction_fault(fault)
+    torch.cuda.set_device(0)
+    initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo", device="cuda:0")
+    mesh = make_mesh(device="cuda")
+    pipe = InvertibleCD.sd15(device="cuda", dtype=torch.bfloat16, seed=0)
+    unet, base, teacher, solver, tcfg, state, batch = dist_train_setup(pipe)
+    out = {"rank": rank, "rows": mesh.rows}
+
+    # ---- this rank's step: counts reset just before, read just after ----
+    step_fn = make_train_step(unet, base, teacher, solver, pipe.schedule, tcfg, mesh)
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    new, metrics = step_fn(state, shard_batch(batch, mesh), dist_step_generator())
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    out["step_launches"] = [[list(k), n] for k, n in fa.LAUNCH_SHAPES.items()]
+    # ---------------------------------------------------------------------
+    out["metrics"] = {k: float(v) for k, v in metrics.items()}
+    mine = adapters_flat(new)
+    theirs = mine.clone()
+    dist.broadcast(theirs, src=0)  # gloo broadcasts CUDA tensors
+    out["adapters_equal_rank0"] = bool(torch.equal(mine, theirs))
+    # what one student's gradient reduction costs over gloo (through the host)
+    grads = torch.zeros(mine.numel() // 2, device="cuda")
+    dist.barrier()
+    t0 = time.perf_counter()
+    all_reduce_mean([grads], mesh)
+    torch.cuda.synchronize()
+    out["allreduce_one_student_s"] = time.perf_counter() - t0
+    del grads
+    if rank == 0:  # the one-process step on the global batch, from the same draws
+        ref, ref_metrics = make_train_step(unet, base, teacher, solver, pipe.schedule, tcfg)(
+            state, batch, dist_step_generator())
+        old = adapters_flat(state)
+        d_got, d_ref = mine - old, adapters_flat(ref) - old
+        out["update_rel_l2"] = ((d_got - d_ref).norm() / d_ref.norm()).item()
+        out["same_sign_moves"] = (torch.sign(d_got) == torch.sign(d_ref)).float().mean().item()
+        mu, mu_ref = adapters_flat(new, "mu"), adapters_flat(ref, "mu")
+        out["mu_rel_l2"] = ((mu - mu_ref).norm() / mu_ref.norm()).item()
+        out["metric_rel"] = {k: abs(out["metrics"][k] - float(v)) / max(abs(float(v)), 1e-12)
+                             for k, v in ref_metrics.items()}
+        del ref, d_got, d_ref, mu, mu_ref
+    del new, mine, theirs, step_fn
+    torch.cuda.empty_cache()
+
+    # ---- the served burst: counts reset just before, read just after ----
+    prompts = [p for p, _ in DIST_SERVE]
+    seeds = [s for _, s in DIST_SERVE]
+    dist.barrier()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    if rank == 0:
+        with BatchingExecutor(pipe, batch_size=len(DIST_SERVE), max_delay=1.0, mesh=mesh) as ex:
+            futs = [ex.submit(p, seed=s) for p, s in DIST_SERVE]
+            served = np.stack([f.result(timeout=600) for f in futs])
+            out["serve_stats"] = ex.stats()
+    else:
+        out["served_batches"] = serve_follower(pipe, mesh)
+    torch.cuda.synchronize()
+    out["serve_s"] = time.perf_counter() - t0
+    out["serve_launches"] = [[list(k), n] for k, n in fa.LAUNCH_SHAPES.items()]
+    # ---------------------------------------------------------------------
+    lo, n = process_local_batch_slice(len(DIST_SERVE), mesh)
+    direct, _ = pipe.generate(prompts[lo:lo + n], latent=request_latents(pipe, seeds[lo:lo + n]),
+                              guidance=pipe.default_guidance())
+    parts = all_gather_objects(direct.cpu().numpy(), mesh)
+    if rank == 0:
+        want = np.concatenate(parts)
+        out["served_bit_for_bit"] = bool(np.array_equal(served, want))
+        out["served_max_abs_diff"] = float(np.abs(served - want).max())
+        out["served_finite_01"] = bool(np.isfinite(served).all() and served.min() >= 0
+                                       and served.max() <= 1)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["wall_s"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def counter_of(pairs) -> collections.Counter:
+    return collections.Counter({tuple(k): n for k, n in pairs})
+
+
+def run_dist_workers(fault=None) -> list:
+    """Phase 5d(b)'s two ranks (`dist_worker`, two processes of this script
+    over gloo on the one card); each rank's JSON, in rank order."""
+    import tempfile
+
+    extra = ["--dist-fault", fault] if fault else []
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker",
+                                   str(r), str(port), tmp] + extra, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=DIST_WORKER_TIMEOUT)[0].decode(errors="replace"))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"(b) rank {r} exited {p.returncode}:\n{log[-4000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    return ranks
+
+
+def phase_dist_fault(fault: str):
+    """`--dist-fault`: phase 5d(b)'s two ranks with the trainer's gradient
+    reduction faulted (`plant_reduction_fault`), to show what the step's
+    gates read under the fault; prints rank 0's readings, checks nothing."""
+    r0, r1 = run_dist_workers(fault)
+    print(json.dumps({"dist_fault": fault, "tolerances": {
+        "update": DIST_STEP_TOL, "gradients": DIST_GRAD_TOL, "metrics": DIST_METRIC_TOL},
+        **{k: r0[k] for k in ("update_rel_l2", "same_sign_moves", "mu_rel_l2", "metric_rel")},
+        "adapters_equal_on_both_ranks": r1["adapters_equal_rank0"],
+        "metrics_equal_on_both_ranks": r0["metrics"] == r1["metrics"]}))
+
+
+def phase_distributed(card: str, pipe):
+    """Phase 5d: the distribution layer (`invertible_cd_tpu_torch.parallel`)
+    on the one card. (a) world size 1 over NCCL in this process; (b) two
+    ranks sharing the card over gloo, as two processes; (c) the train CLI
+    under torchrun; (d) the phase's time and peak memory. Returns the
+    counted launches by batch: (a)'s step under BATCH (as phase 5's steps)
+    and its burst at 4, (b)'s steps at 1 and its served rows at 2."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from invertible_cd_tpu_torch.ops import flash_attention as fa
+    from invertible_cd_tpu_torch.parallel import make_mesh
+    from invertible_cd_tpu_torch.serving import BatchingExecutor
+    from invertible_cd_tpu_torch.training import make_train_step
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    report = {"phase": "5d distribution", "card": card}
+    launches = collections.defaultdict(collections.Counter)
+
+    # ---- (a) world size 1 over NCCL, in this process ----
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(device="cuda")
+        check(mesh.device_mesh is not None and mesh.shape == {"dp": 1, "fsdp": 1, "sp": 1, "tp": 1},
+              f"world-1 mesh {mesh}")
+        unet, base, teacher, solver, tcfg, state, batch = dist_train_setup(pipe)
+        plain_fn = make_train_step(unet, base, teacher, solver, pipe.schedule, tcfg)
+        mesh_fn = make_train_step(unet, base, teacher, solver, pipe.schedule, tcfg, mesh)
+        runs, ms = {}, {"plain": [], "mesh": []}
+        for name, fn in (("plain", plain_fn), ("mesh", mesh_fn), ("plain", plain_fn),
+                         ("mesh", mesh_fn)):  # the first of each compared, the mesh one counted
+            torch.cuda.synchronize()
+            first = name not in runs
+            if first and name == "mesh":
+                fa.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = fn(state, batch, dist_step_generator())
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            if first:
+                runs[name] = out
+                if name == "mesh":
+                    step_launches = collections.Counter(fa.LAUNCH_SHAPES)
+            del out
+        check(step_launches == sd15_step_launches(1), f"(a) mesh step launches {dict(step_launches)}")
+        launches[BATCH] += step_launches
+        (plain, m_plain), (meshed, m_mesh) = runs["plain"], runs["mesh"]
+        same = all(states_equal(getattr(plain, f), getattr(meshed, f))
+                   for f in ("lora_reverse", "lora_forward", "opt_reverse", "opt_forward"))
+        check(same, "(a) the world-1 NCCL step differs from the plain step")
+        check({k: float(v) for k, v in m_plain.items()} == {k: float(v) for k, v in m_mesh.items()},
+              "(a) the world-1 NCCL step's metrics differ")
+        report["a_step_ms"] = ms
+        print(f"distribution (a): world size 1 over NCCL, batch {TRAIN_BATCH}: the mesh step equals "
+              f"the plain step bit for bit (adapters, optimizer states, metrics); step ms plain "
+              f"{ms['plain']}, mesh {ms['mesh']} ({card})")
+        del plain, meshed, runs, plain_fn, mesh_fn, base, teacher, state
+        torch.cuda.empty_cache()
+
+        served = {}
+        for name, m in (("plain", None), ("mesh", make_mesh(dp=1, device="cuda"))):
+            with BatchingExecutor(pipe, batch_size=len(DIST_SERVE), max_delay=1.0, mesh=m) as ex:
+                fa.reset_launch_counts()
+                futs = [ex.submit(p, seed=s) for p, s in DIST_SERVE]
+                served[name] = np.stack([f.result(timeout=600) for f in futs])
+                stats = ex.stats()
+            check(stats["batches"] == 1, f"(a) {name} burst stats {stats}")
+            if name == "mesh":
+                burst_launches = collections.Counter(fa.LAUNCH_SHAPES)
+        check(burst_launches == serve_launches_per_batch(), f"(a) served launches {dict(burst_launches)}")
+        launches[len(DIST_SERVE)] += burst_launches
+        check(np.array_equal(served["mesh"], served["plain"]),
+              "(a) the dp = 1 mesh executor's images differ from the executor's")
+        check_images(list(served["mesh"]), (512, 512, 3), "(a) served")
+        print(f"  (a) BatchingExecutor(mesh=make_mesh(dp=1)): a burst of {len(DIST_SERVE)} bit for bit "
+              f"the executor's without a mesh; launches exact")
+    finally:
+        dist.destroy_process_group()
+    report["a_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+
+    # ---- (b) two ranks on the one card over gloo ----
+    t0 = time.perf_counter()
+    r0, r1 = ranks = run_dist_workers()
+    report["b_wall_s"] = time.perf_counter() - t0
+    for rk in ranks:
+        check(rk["rows"] == 2 and rk["adapters_equal_rank0"],
+              f"(b) rank {rk['rank']}: adapters differ from rank 0's")
+        check(counter_of(rk["step_launches"]) == sd15_step_launches(1),
+              f"(b) rank {rk['rank']} step launches {rk['step_launches']}")
+        check(counter_of(rk["serve_launches"]) == serve_launches_per_batch(),
+              f"(b) rank {rk['rank']} served launches {rk['serve_launches']}")
+        check(all(math.isfinite(v) for v in rk["metrics"].values()), f"(b) metrics {rk['metrics']}")
+        launches[1] += counter_of(rk["step_launches"])
+        launches[len(DIST_SERVE) // 2] += counter_of(rk["serve_launches"])
+    check(r0["metrics"] == r1["metrics"], "(b) the ranks' logged metrics differ")
+    check(r0["serve_stats"]["batches"] == 1 and r1["served_batches"] == 1,
+          f"(b) served batches {r0['serve_stats']} / {r1['served_batches']}")
+    check(r0["served_finite_01"] and r0["served_bit_for_bit"],
+          f"(b) served rows differ from the ranks' direct generates by {r0['served_max_abs_diff']}")
+    print(f"distribution (b): two ranks on one card over gloo: adapters bit for bit on both ranks; "
+          f"update vs the one-process step at batch {TRAIN_BATCH}: relative L2 {r0['update_rel_l2']:.3e} "
+          f"(tol {DIST_STEP_TOL}), same-sign moves {r0['same_sign_moves']:.4f}, gradients (Adam's mu) "
+          f"relative L2 {r0['mu_rel_l2']:.3e} (tol {DIST_GRAD_TOL}); metric relative differences "
+          + ", ".join(f"{k} {v:.2e}" for k, v in sorted(r0["metric_rel"].items()))
+          + f" (tol {DIST_METRIC_TOL})")
+    print(f"  (b) dp = 2 served burst of {len(DIST_SERVE)}: each row bit for bit its rank's direct "
+          f"generate at batch {len(DIST_SERVE) // 2}; launches exact on both ranks; step s "
+          f"{r0['step_s']:.2f} / {r1['step_s']:.2f} (one student's gradient all_reduce over gloo "
+          f"alone {r0['allreduce_one_student_s']:.2f}), serve s {r0['serve_s']:.2f}, peak GiB "
+          f"{r0['peak_gib']:.2f} / {r1['peak_gib']:.2f}, rank wall s {r0['wall_s']:.1f} / {r1['wall_s']:.1f}")
+    check(r0["update_rel_l2"] <= DIST_STEP_TOL and r0["mu_rel_l2"] <= DIST_GRAD_TOL
+          and max(r0["metric_rel"].values()) <= DIST_METRIC_TOL,
+          f"(b) two-rank step off: update {r0['update_rel_l2']} (tol {DIST_STEP_TOL}), gradients "
+          f"{r0['mu_rel_l2']} (tol {DIST_GRAD_TOL}), metrics {r0['metric_rel']} (tol {DIST_METRIC_TOL})")
+    keys = ("step_s", "allreduce_one_student_s", "serve_s", "peak_gib", "wall_s")
+    report["b"] = {k: r0[k] for k in ("update_rel_l2", "same_sign_moves", "mu_rel_l2", "metric_rel")
+                   + keys}
+    report["b"]["rank1"] = {k: r1[k] for k in keys}
+
+    # ---- (c) the train CLI under torchrun, one process, NCCL ----
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+             "--master_port", str(free_port()), "-m", "invertible_cd_tpu_torch.cli.train_icd",
+             "--model", "sd15", "--synthetic_data", "--fsdp", "1", "--batch_size", str(TRAIN_BATCH),
+             "--max_steps", "1", "--validation_steps", "0", "--output_dir", out_dir],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=DIST_WORKER_TIMEOUT)
+        report["c_wall_s"] = time.perf_counter() - t0
+        check(proc.returncode == 0, f"(c) torchrun train CLI exited {proc.returncode}:\n"
+                                    f"{(proc.stdout + proc.stderr)[-4000:]}")
+        check(os.path.exists(os.path.join(out_dir, "checkpoints", "1", "state.pt"))
+              and sorted(os.listdir(os.path.join(out_dir, "checkpoints"))) == ["1"],
+              "(c) the CLI wrote no single checkpoint")
+        check(os.path.exists(os.path.join(out_dir, "export_1", "unet_lora", "lora_weights.safetensors"))
+              and os.path.exists(os.path.join(out_dir, "export_1", "forward_unet_lora",
+                                              "lora_weights.safetensors")),
+              "(c) the CLI wrote no export")
+        resident = [line for line in proc.stdout.splitlines() if line.startswith("resident base")]
+        check(len(resident) == 1, f"(c) resident bytes not printed once: {proc.stdout[-2000:]}")
+        report["c_resident_base_gib"] = int(resident[0].split()[3]) / 2**30
+    print(f"  (c) torchrun --nproc_per_node 1 train CLI (--fsdp 1, NCCL), 1 step at batch "
+          f"{TRAIN_BATCH}: exit 0, one checkpoint and one export, {resident[0]}; "
+          f"{report['c_wall_s']:.1f} s")
+
+    # ---- (d) the phase ----
+    report["peak_gib_this_process"] = torch.cuda.max_memory_allocated() / 2**30
+    report["phase_s"] = time.perf_counter() - t_phase
+    report["launches"] = {str(b): {k[0]: 0 for k in c} for b, c in launches.items()}
+    for b, c in launches.items():
+        for k, n in c.items():
+            report["launches"][str(b)][k[0]] += n
+    print(json.dumps(report))
+    return launches
 
 
 # ---- phase 5c: eval and metrics ----
@@ -3966,10 +4424,28 @@ def parse_args(argv=None):
     p.add_argument("--bwd160-compare", action="store_true",
                    help="build and time B3 and B4 at BACKWARD_SHAPES only, the d = 160 rows "
                         "checked against the plain backward and beside SDPA's backward")
+    p.add_argument("--dist-worker", nargs=3, metavar=("RANK", "PORT", "OUT_DIR"), default=None,
+                   help=argparse.SUPPRESS)  # one of phase 5d's two ranks (`dist_worker`)
+    p.add_argument("--dist-fault", choices=("none", "sum"), default=None,
+                   help="run phase 5d's two ranks only, with the trainer's gradient reduction "
+                        "skipped (none) or summed (sum), and print what the step's gates read")
     p.add_argument("--package-root", default=None,
                    help="import invertible_cd_tpu_torch from this checkout (e.g. an unpacked "
                         "parent commit, to time two versions of the kernels in one call)")
     return p.parse_args(argv)
+
+
+SCRIPT_START = time.perf_counter()
+PHASE_WALL_S = {}  # each phase's wall seconds, in the order run
+
+
+def timed(name: str, phase, *args):
+    """`phase(*args)`, its wall time kept in PHASE_WALL_S."""
+    t0 = time.perf_counter()
+    try:
+        return phase(*args)
+    finally:
+        PHASE_WALL_S[name] = time.perf_counter() - t0
 
 
 def main(argv=None) -> int:
@@ -3984,12 +4460,17 @@ def main(argv=None) -> int:
         return 1
     if args.package_root:
         sys.path.insert(0, os.path.abspath(args.package_root))
+    if args.dist_worker:
+        rank, port, out_dir = args.dist_worker
+        return dist_worker(int(rank), int(port), out_dir, args.dist_fault)
     try:
         import invertible_cd_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
         print(f"package: {os.path.dirname(invertible_cd_tpu_torch.__file__)}")
         card = phase_card()
-        phase_build(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv") if args.bwd160_compare else None)
+        phase_build(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv") if args.bwd160_compare
+                    else ("flash_fwd", "flash_fwd_streamed", "flash_bwd_dq", "flash_bwd_dkdv")
+                    if args.dist_fault else None)
         if args.q1_compare:
             phase_q1_compare()
             return 0
@@ -3999,24 +4480,29 @@ def main(argv=None) -> int:
         if args.bwd160_compare:
             phase_bwd160_compare()
             return 0
-        rows = phase_kernels(card) + phase_backward_kernels(card)
-        harness_rows = phase_harness(card, rows)
+        if args.dist_fault:
+            phase_dist_fault(args.dist_fault)
+            return 0
+        rows = timed("kernels", phase_kernels, card) + timed("backward kernels",
+                                                              phase_backward_kernels, card)
+        harness_rows = timed("harness", phase_harness, card, rows)
         if args.kernels_only:
             phase_q1_compare()
             print(json.dumps({"kernels": rows + harness_rows}))
             return 0
-        pipe, generate_launches = phase_main_path(card)
-        edit_launches = phase_edit(card, pipe)
-        serve_launches = phase_serve(card, pipe)
-        baseline_launches = phase_baselines(card, pipe)
-        q1_rows = phase_int8(card, pipe)
-        sdxl_launches, xl_q1_rows = phase_sdxl(card)
+        pipe, generate_launches = timed("generate", phase_main_path, card)
+        edit_launches = timed("edit", phase_edit, card, pipe)
+        serve_launches = timed("serve", phase_serve, card, pipe)
+        baseline_launches = timed("baselines", phase_baselines, card, pipe)
+        q1_rows = timed("int8", phase_int8, card, pipe)
+        sdxl_launches, xl_q1_rows = timed("sdxl", phase_sdxl, card)
         torch.cuda.empty_cache()  # the SDXL bundle is gone
-        train_launches = phase_training(card, pipe)
-        eval_launches, eval_train_launches = phase_eval(card, pipe)
+        train_launches = timed("train", phase_training, card, pipe)
+        dist_launches = timed("distribution", phase_distributed, card, pipe)
+        eval_launches, eval_train_launches = timed("eval", phase_eval, card, pipe)
         del pipe
         torch.cuda.empty_cache()  # the SD1.5 bundle is gone
-        xl_train_launches = phase_xl_training(card)
+        xl_train_launches = timed("sdxl training", phase_xl_training, card)
     except Exception:  # report every phase failure and exit non-zero
         traceback.print_exc()
         return 1
@@ -4029,7 +4515,8 @@ def main(argv=None) -> int:
     # generate and invert (batch 1) and edited pair (batch 2) with the
     # bf16-VAE opt-in's decodes, three train steps (batch 2) for the rows
     # at the generate's main batch, and the SDXL training phase's counted CLI
-    # and direct steps for the rows at its batch
+    # and direct steps for the rows at its batch, and the distribution
+    # phase's counted runs at the batch each ran at ((a)'s step with phase 5's)
     none = collections.Counter()
     for row in rows:
         key = (row["kernel"],) + tuple(row["shape"])
@@ -4039,6 +4526,7 @@ def main(argv=None) -> int:
                            + baseline_launches.get(row["batch"], none)[key]
                            + sdxl_launches.get(row["batch"], none)[key]
                            + eval_launches.get(row["batch"], none)[key]
+                           + dist_launches.get(row["batch"], none)[key]
                            + (train_launches[key] + eval_train_launches[key]
                               if row["batch"] == BATCH else 0)
                            + (xl_train_launches[key] if row["batch"] == XL_TRAIN_BATCH else 0))
@@ -4049,6 +4537,8 @@ def main(argv=None) -> int:
     if missing:
         print(f"chip_smoke: kernels not launched on their path: {missing}", file=sys.stderr)
         return 1
+    print(json.dumps({"phase_wall_s": PHASE_WALL_S,
+                      "script_s": time.perf_counter() - SCRIPT_START}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,8 +29,10 @@ not given). A model config's keys are flags too (`generate.add_model_args`,
 checked against the bundle; `--tau1`, reported where it differs from
 `--tau`). `--quantize` as in `cli.generate` (the DDIM inversion and
 reconstruction of the baselines quantised too; NTI's optimisation stays
-float, as in the JAX package). Not ported yet: host striding over several
-processes.
+float, as in the JAX package). Over several processes (`torchrun`, one card
+each) rank r edits rows r, r + N, ..., writing each under its global index,
+and rank 0 writes `results.json` with every rank's rows and metrics
+gathered (JAX's processes each write their own stride's).
 
     python -m invertible_cd_tpu_torch.cli.edit --model tiny --device cpu --quantize int8 \\
         --image in.png --source "a cat" --target "a dog" --out runs/edit_int8
@@ -50,8 +52,10 @@ import torch
 from . import apply_config_file
 from .generate import (
     METRICS_NOTE, _generator, add_grid_args, add_model_args, add_quantize_arg, add_scorer_args,
-    add_weights_args, build_evaluators, build_pipeline, mean_or_none, quantized, save_image)
+    add_weights_args, build_evaluators, build_pipeline, cli_mesh, mean_or_none, quantized,
+    save_image)
 from ..data import load_benchmark
+from ..parallel import all_gather_in_order, is_main, stride
 from ..edit import make_controller
 from ..pipelines import nti as nti_mod
 from ..pipelines import sampler as S
@@ -276,14 +280,16 @@ def main(argv=None, _pipe=None):
         args.guidance_scale = 8.0 if args.baseline != "none" else 19.0
     if args.tau1 is not None and args.tau1 != args.tau:
         print(f"--tau1 {args.tau1} is a generation setting: editing keeps --tau {args.tau}")
+    mesh = cli_mesh(args)
     os.makedirs(args.out, exist_ok=True)
     pipe = _pipe if _pipe is not None else build_pipeline(args)
     with quantized(pipe, args.quantize):
-        run(args, pipe)
+        run(args, pipe, mesh)
 
 
-def run(args, pipe):
-    """The edit CLI's work on a built bundle."""
+def run(args, pipe, mesh=None):
+    """The edit CLI's work on a built bundle (this rank's stride of the rows
+    with `mesh`)."""
     pix = pipe.latent_size[0] * 2 ** (len(pipe.vae.cfg.block_out_channels) - 1)
 
     if args.benchmark:
@@ -301,21 +307,27 @@ def run(args, pipe):
         rows = kept
 
     evals = build_evaluators(args, pipe.device) if args.calc_metrics else None
-    results, per_row_metrics = [], []
-    for i, (path, source, target, blend) in enumerate(rows):
+    mine = {}
+    for i in stride(len(rows), mesh):
+        path, source, target, blend = rows[i]
         img = load_512(path, left=args.crop_left, right=args.crop_right, top=args.crop_top,
                        bottom=args.crop_bottom, size=pix)
         rec, edited = edit_one(pipe, args, img, source, target, blend)
         out_path = os.path.join(args.out, f"{i:05d}_edited.jpg")
         save_image(edited, out_path)
         save_image(rec, out_path.replace("_edited", "_rec"))
-        results.append({"file": out_path, "source": source, "target": target})
+        mine[i] = ({"file": out_path, "source": source, "target": target}, None)
         if evals is not None:
             # the reference's editing bundle (`edit.py:465-486`, metrics.calc_all)
-            per_row_metrics.append(evals.calc_all(
+            mine[i] = (mine[i][0], evals.calc_all(
                 np.asarray(img, np.float32)[None] / 255.0,
                 np.asarray(edited, np.float32)[None] / 255.0, [source], [target]))
         print(f"[{i + 1}/{len(rows)}] {source!r} -> {target!r}")
+    done = all_gather_in_order(mine, mesh)
+    if not is_main(mesh):
+        return
+    results = [r for r, _ in done]
+    per_row_metrics = [m for _, m in done if m is not None]
     summary = {"results": results}
     if per_row_metrics:
         summary["metrics"] = {k: mean_or_none(per_row_metrics, k) for k in per_row_metrics[0]}

@@ -35,8 +35,17 @@ and each one given is checked against the bundle (`check_model_args`), which
 they do not change. `--quantize int8|int8_vae|int8_static` runs the UNet
 and/or the VAE in int8 (`pipelines.pipeline.QUANT_MODES`, kernel Q1 on the
 card); `int8_static` first calibrates the bundle once
-(`collect_quant_stats`). Not ported yet: host striding over several
-processes.
+(`collect_quant_stats`).
+
+Over several processes (`torchrun --nproc_per_node N -m
+invertible_cd_tpu_torch.cli.generate ...`, one card each: `cuda:{LOCAL_RANK}`)
+rank r runs batches r, r + N, ... of the sweep, each from the seed a single
+process would give it, and writes their files under their global indices,
+so the files are those of a one-process run. Under `--calc_metrics` the
+per-image scores and the FID's images are gathered and rank 0 alone writes
+`metrics.json` / `reconstruction_metrics.json`, as it writes
+`manifest.json`. (JAX strides single prompts over its processes, and each
+process scores its own stride into the same files.)
 """
 from __future__ import annotations
 
@@ -53,6 +62,7 @@ import torch
 from . import apply_config_file
 from ..data import load_benchmark
 from ..diffusion.solver import make_solver_grid
+from ..parallel import all_gather_in_order, initialize_distributed, is_main, local_device, make_mesh, stride
 from ..pipelines import sampler as S
 from ..pipelines.pipeline import (
     QUANT_MODES, InvertibleCD, UNET_KEYS, load_512, resolve_device, to_uint8)
@@ -246,7 +256,7 @@ def build_pipeline(args):
     from ..pipelines.sdxl import InvertibleCDXL
     from ..testing import tiny_bundle
 
-    device = resolve_device(args.device)
+    device = resolve_device(local_device(args.device))
     dtype = torch.float32 if device.type == "cpu" else torch.bfloat16
     rev, fwd = TIMESTEPS["sdxl" if args.model == "sdxl" else "sd15"]
     grid = make_solver_grid(
@@ -299,14 +309,22 @@ def _generator(pipe, seed: int) -> torch.Generator:
     return torch.Generator(device=pipe.device).manual_seed(seed)
 
 
-def reconstruct_images(pipe, args, g):
+def cli_mesh(args):
+    """The dp mesh over the processes torchrun started (one process: no
+    process group), the backend following `--device`."""
+    initialize_distributed(device=args.device)
+    return make_mesh(device=torch.device(args.device).type)
+
+
+def reconstruct_images(pipe, args, g, mesh=None):
     """Invert/reconstruct mode: invert each real benchmark image under its
     caption (forward CD at --inv_guidance_scale, its noise from `--seed + i`,
     or the 50-step DDIM inversion with --no-cons_inversion), regenerate
     from the inverted latent with the generation settings, and save
     real_images/ + generated_images/ pairs and reconstruction_metrics.json
     (with --calc_metrics: the inversion bundle's DINOv2, PSNR and LPIPS
-    averaged over batches, and `recon_fid` against --fid_stats)."""
+    averaged over batches, and `recon_fid` against --fid_stats). With
+    `mesh`, each rank runs its stride of the batches."""
     rows = load_benchmark(args.benchmark, kind="generation", max_count=args.max_cnt,
                           with_files=True)
     pix = pipe.latent_size[0] * 2 ** (len(pipe.vae.cfg.block_out_channels) - 1)
@@ -316,8 +334,10 @@ def reconstruct_images(pipe, args, g):
     os.makedirs(rec_dir, exist_ok=True)
     evals = build_evaluators(args, pipe.device) if args.calc_metrics else None
     fid_scorer = build_fid_scorer(args, pipe.device)
-    bundles, fid_images, n_done = [], [], 0
-    for i in range(0, len(rows), args.batch_size):
+    starts = list(range(0, len(rows), args.batch_size))
+    mine = {}
+    for k in stride(len(starts), mesh):
+        i = starts[k]
         batch = rows[i:i + args.batch_size]
         caps = [caption for _, caption in batch]
         reals = np.stack([load_512(os.path.join(args.image_root, name), size=pix)
@@ -334,14 +354,16 @@ def reconstruct_images(pipe, args, g):
         for j, (real, rec) in enumerate(zip(reals, recs)):
             save_image(real, os.path.join(real_dir, f"{i + j:06d}.jpg"))
             save_image(rec, os.path.join(rec_dir, f"{i + j:06d}.jpg"))
-        if fid_scorer is not None:
-            fid_images.extend(list(recs))
-        if evals is not None:
-            bundles.append(evals.calc_inversion(reals.astype(np.float32) / 255.0,
-                                                recs.astype(np.float32) / 255.0))
-        n_done += len(batch)
-        print(f"[{n_done}/{len(rows)}] reconstructed")
-    summary = {"n_images": n_done}
+        mine[i] = {"n": len(batch), "fid": recs if fid_scorer is not None else None,
+                   "bundle": None if evals is None else evals.calc_inversion(
+                       reals.astype(np.float32) / 255.0, recs.astype(np.float32) / 255.0)}
+        print(f"[{i + len(batch)}/{len(rows)}] reconstructed")
+    done = all_gather_in_order(mine, mesh)
+    if not is_main(mesh):
+        return
+    bundles = [d["bundle"] for d in done if d["bundle"] is not None]
+    fid_images = [img for d in done if d["fid"] is not None for img in d["fid"]]
+    summary = {"n_images": sum(d["n"] for d in done)}
     if bundles:
         summary.update({k: mean_or_none(bundles, k) for k in bundles[0]})
     if fid_images:
@@ -356,14 +378,16 @@ def main(argv=None, _pipe=None):
     """Generate; `_pipe` (a bundle) replaces the one the flags would build
     (in `--quantize`'s mode for the run, its own restored after)."""
     args = parse_args(argv)
+    mesh = cli_mesh(args)
     os.makedirs(args.out, exist_ok=True)
     pipe = _pipe if _pipe is not None else build_pipeline(args)
     with quantized(pipe, args.quantize):
-        return run(args, pipe)
+        return run(args, pipe, mesh)
 
 
-def run(args, pipe):
-    """The generate CLI's work on a built bundle."""
+def run(args, pipe, mesh=None):
+    """The generate CLI's work on a built bundle (this rank's stride of it
+    with `mesh`)."""
     if args.benchmark:
         prompts = load_benchmark(args.benchmark, kind="generation", max_count=args.max_cnt)
     else:
@@ -374,13 +398,14 @@ def run(args, pipe):
         if not args.benchmark:
             sys.exit("--image_root needs --benchmark (a generation CSV with file_name + caption "
                      "columns)")
-        return reconstruct_images(pipe, args, g)
+        return reconstruct_images(pipe, args, g, mesh)
 
     evals = build_evaluators(args, pipe.device) if args.calc_metrics else None
     fid_scorer = build_fid_scorer(args, pipe.device)
-    clip_scores, ir_scores, fid_images = [], [], []  # uint8 frames for FID stay on the host
-    saved = []
-    for i in range(0, len(prompts), args.batch_size):
+    starts = list(range(0, len(prompts), args.batch_size))
+    mine = {}  # batch start -> its files and scores; uint8 frames for FID stay on the host
+    for k in stride(len(starts), mesh):
+        i = starts[k]
         batch = prompts[i:i + args.batch_size]
         t0 = time.perf_counter()
         if args.ddim_baseline:
@@ -390,23 +415,26 @@ def run(args, pipe):
         images = to_uint8(imgs)  # waits for the device
         print(f"[{i + len(batch)}/{len(prompts)}] generated {len(batch)} in "
               f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        files = []
         for j, img in enumerate(images):
             path = os.path.join(args.out, f"{i + j:06d}.jpg")
             save_image(img, path)
-            saved.append(path)
-        if fid_scorer is not None:
-            fid_images.extend(list(images))
+            files.append(path)
+        mine[i] = {"files": files, "fid": images if fid_scorer is not None else None}
         if evals is not None:
             # the reference's generation eval: CLIP image-text score and
             # ImageReward over the prompts (`generate.py:404-425`), per batch
-            s = evals.clip_image_text(imgs, batch)
-            if s is not None:
-                clip_scores.extend([s] * len(batch))
-            r = evals.image_reward(imgs, batch)
-            if r is not None:
-                ir_scores.extend([r] * len(batch))
+            mine[i]["clip"] = evals.clip_image_text(imgs, batch)
+            mine[i]["ir"] = evals.image_reward(imgs, batch)
+    done = all_gather_in_order(mine, mesh)
+    if not is_main(mesh):
+        return
+    saved = [path for d in done for path in d["files"]]
     print(f"saved {len(saved)} images to {args.out}")
     if args.calc_metrics:
+        clip_scores = [d["clip"] for d in done if d["clip"] is not None for _ in d["files"]]
+        ir_scores = [d["ir"] for d in done if d["ir"] is not None for _ in d["files"]]
+        fid_images = [img for d in done if d["fid"] is not None for img in d["fid"]]
         metrics = {"clip_score": float(np.mean(clip_scores)) if clip_scores else None,
                    "image_reward": float(np.mean(ir_scores)) if ir_scores else None,
                    "n_images": len(saved)}

@@ -13,8 +13,18 @@ concurrent client requests block on their own futures while the executor
 coalesces them into batches; the PNG comes from `utils.images.encode_png`.
 The bundle is `cli.generate.build_pipeline`'s, on `--device` (default
 cuda), in the int8 mode of `--quantize` (as `cli.generate`; a bundle
-passed to `make_server` is set to it too). Serving over several cards
-(`--dp`, `--sp`) is not ported yet.
+passed to `make_server` is set to it too).
+
+`--dp N` serves over N processes, one card each, started by torchrun:
+
+    torchrun --nproc_per_node 2 -m invertible_cd_tpu_torch.cli.serve --model sd15 \
+        --dp 2 --batch_sizes 2,8 --port 8000
+
+Rank 0 runs the HTTP server and the executor (`serving.BatchingExecutor`
+with `mesh=`), the other ranks `serving.serve_follower`; each batch's
+requests split over the ranks, so every batch size must divide over N.
+JAX's `--sp` (each latent's height split over cards) waits for ROADMAP
+item 17c.
 
     python -m invertible_cd_tpu_torch.cli.serve --model tiny --device cpu --quantize int8 --port 8765
 """
@@ -25,8 +35,9 @@ import json
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from .generate import add_grid_args, add_quantize_arg, add_weights_args, build_pipeline, set_quantize
+from ..parallel import initialize_distributed, make_mesh
 from ..pipelines.pipeline import to_uint8
-from ..serving import BatchingExecutor
+from ..serving import BatchingExecutor, serve_follower
 from ..utils.images import encode_png
 
 
@@ -45,25 +56,41 @@ def parse_args(argv=None):
     p.add_argument("--tau1", type=float, default=0.8)
     p.add_argument("--tau2", type=float, default=0.8)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--dp", type=int, default=0,
+                   help="serve over dp processes (torchrun, one card each): each batch's "
+                        "requests split over them (0 = one process, no mesh)")
     add_grid_args(p)
     add_quantize_arg(p)
     add_weights_args(p)
     return p.parse_args(argv)
 
 
-def make_server(args, pipe=None):
+def serving_mesh(args):
+    """The dp mesh of `--dp` over torchrun's processes, or None (`--dp 0`)."""
+    if not args.dp:
+        return None
+    initialize_distributed(device=args.device)
+    return make_mesh(dp=args.dp, device=args.device)
+
+
+def guidance_of(args, pipe):
+    return pipe.default_guidance(guidance_scale=args.guidance_scale, dynamic_guidance=True,
+                                 tau1=args.tau1, tau2=args.tau2)
+
+
+def make_server(args, pipe=None, mesh=None):
     """Build (ThreadingHTTPServer, BatchingExecutor); callers own both (the
     server's `shutdown` and `server_close`, the executor's `shutdown`).
     `pipe` replaces the bundle the flags would build; either serves in
-    `--quantize`'s mode."""
+    `--quantize`'s mode, over `mesh`'s dp ranks when given (this is rank
+    0)."""
     if pipe is None:
         pipe = build_pipeline(args)
     set_quantize(pipe, args.quantize)
-    g = pipe.default_guidance(guidance_scale=args.guidance_scale, dynamic_guidance=True,
-                              tau1=args.tau1, tau2=args.tau2)
     sizes = tuple(int(b) for b in args.batch_sizes.split(",")) if args.batch_sizes else None
     executor = BatchingExecutor(pipe, batch_size=args.batch_size, batch_sizes=sizes,
-                                max_delay=args.max_delay_ms / 1e3, guidance=g)
+                                max_delay=args.max_delay_ms / 1e3, guidance=guidance_of(args, pipe),
+                                mesh=mesh)
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *a):  # quiet by default
@@ -116,7 +143,13 @@ def make_server(args, pipe=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    server, executor = make_server(args)
+    mesh = serving_mesh(args)
+    if mesh is not None and mesh.rank != 0:
+        pipe = build_pipeline(args)
+        set_quantize(pipe, args.quantize)
+        serve_follower(pipe, mesh, guidance_of(args, pipe))
+        return
+    server, executor = make_server(args, mesh=mesh)
     print(f"serving on http://{args.host}:{server.server_address[1]} "
           f"(batch sizes {executor.batch_sizes})")
     try:

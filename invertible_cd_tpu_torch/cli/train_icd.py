@@ -30,12 +30,25 @@ latent MSE, and recon-FID when the FID files are given), and
 `--validation_steps` (image panels of the fixed validation prompts, and
 with `--inversion_validation_samples` the inversion triptychs), sent to
 TensorBoard when `torch.utils.tensorboard` imports and otherwise written as
-PNGs under `<output_dir>/logs/samples/` (`utils.logging`). JAX's `--split_step` has no counterpart (an eager step has
-no program to split); `--fsdp` waits for the distributed slice.
+PNGs under `<output_dir>/logs/samples/` (`utils.logging`). JAX's
+`--split_step` has no counterpart (an eager step has no program to split).
+
+Over several processes (`torchrun --nproc_per_node N -m
+invertible_cd_tpu_torch.cli.train_icd ...`, one card each) the step is data
+parallel (`training.make_train_step(..., mesh=)`): each rank takes
+`--batch_size / N` rows (the synthetic stream makes the global batch from
+its per-step seed and keeps the rank's rows; the image stream reads the
+rank's stride of the data), and the adapter gradients are averaged. With
+`--fsdp F` each rank also keeps only its shard of the frozen base and
+teacher weights between steps, and its rows still count: the batch must
+divide over all N ranks (JAX asks only that it divide over dp = N / F).
+Rank 0 prints, logs and writes the checkpoints and exports; the eval runs
+on every rank and gathers.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -49,6 +62,7 @@ from ..models.clip import CLIPTextConfig, CLIPTextModel
 from ..models.layers import cast_compute_weights, fan_in_init_
 from ..models.unet2d import UNet2DCondition, UNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig
+from ..parallel import initialize_distributed, is_main, local_device, make_mesh, shard_batch
 from ..pipelines.loading import load_bundle_params
 from ..pipelines.pipeline import InvertibleCD, resolve_device
 from ..pipelines.sdxl import InvertibleCDXL
@@ -101,6 +115,9 @@ def parse_args(argv=None):
     p.add_argument("--reverse_preserve_coef", type=float, default=1.5)
     p.add_argument("--no_forward_preserve", action="store_true")
     p.add_argument("--no_reverse_preserve", action="store_true")
+    p.add_argument("--embed_guidance", action="store_true", default=True,
+                   help="the students take the guidance scale as a w-embedding (always on, "
+                        "as in the JAX CLI)")
     p.add_argument("--discrete_w", default="0,7,11,15,19")
     p.add_argument("--checkpointing_steps", type=int, default=500)
     p.add_argument("--checkpoints_total_limit", type=int, default=5)
@@ -133,6 +150,9 @@ def parse_args(argv=None):
     p.add_argument("--resume_from_checkpoint", default=None, help='"latest" or a step number')
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="shard the frozen base/teacher weights over this many of the ranks "
+                        "(torchrun); the rows split over every rank")
     p.add_argument("--remat", action="store_true",
                    help="gradient checkpointing on the student UNets")
     p.add_argument("--bf16_params", action="store_true",
@@ -222,14 +242,16 @@ def build_encoder_pipe(args, device, unet=None):
     return pipe
 
 
-def batch_iterator(args, cfg, latent_size, device, start: int = 0, pipe=None):
-    """Training batches on `device`. Synthetic (--synthetic_data):
-    unit-normal latents (B, h, w, 4) and contexts at scale 0.1, batch i from
-    seed `seed * 100003 + i`, beginning with batch `start` (a resumed run
-    goes on where the saved one stopped); an SDXL config adds
+def batch_iterator(args, cfg, latent_size, device, start: int = 0, pipe=None, mesh=None):
+    """This rank's rows of the training batches, on `device`. Synthetic
+    (--synthetic_data): unit-normal latents (B, h, w, 4) and contexts at
+    scale 0.1, global batch i from seed `seed * 100003 + i`, beginning with
+    batch `start` (a resumed run goes on where the saved one stopped), the
+    rank's rows kept (`parallel.shard_batch`); an SDXL config adds
     `added_cond` (pooled text embeds at scale 0.1 and time ids [r, r, 0, 0,
     r, r] at r = --resolution). Real data: `make_train_iterator` over
-    --data_root (rank 0 of 1, seeded), its index stream started after the
+    --data_root (the rank's stride of the seeded index stream, B / ranks
+    images a batch), its index stream started after the
     `start` batches a resumed run has already taken (the JAX CLI starts it
     anew, replaying the first images), each batch's pixels encoded by `pipe`'s VAE
     in chunks (4 images for SDXL, 32 for SD1.5) and its captions by
@@ -256,15 +278,16 @@ def batch_iterator(args, cfg, latent_size, device, start: int = 0, pipe=None):
                         "time_ids": torch.tensor([[r, r, 0.0, 0.0, r, r]], device=device).repeat(
                             args.batch_size, 1),
                     }
-                yield batch
+                yield batch if mesh is None else shard_batch(batch, mesh)
                 i += 1
         return synth()
 
     from ..data.dataset import ImageCaptionDataset, make_train_iterator
 
     ds = ImageCaptionDataset(args.data_root, args.data_subset, args.resolution)
-    raw = make_train_iterator(ds, args.batch_size, rank=0, num_replicas=1, seed=args.seed,
-                              start=start)
+    rows, row = (1, 0) if mesh is None else (mesh.rows, mesh.row)
+    raw = make_train_iterator(ds, args.batch_size // rows, rank=row, num_replicas=rows,
+                              seed=args.seed, start=start)
     xl = args.model == "sdxl"
     chunk = 4 if xl else 32
 
@@ -317,11 +340,11 @@ class Eval:
     from the live adapters on the training base (`student_unet`: merged, or
     lazy with --lazy_lora); the val batch and the FID scorer are made once."""
 
-    def __init__(self, args, cfg, latent_size, unet, base, tcfg, solver, pipe_fn):
+    def __init__(self, args, cfg, latent_size, unet, base, tcfg, solver, pipe_fn, mesh=None):
         self.args, self.cfg, self.latent_size = args, cfg, latent_size
         self.unet, self.base, self.tcfg, self.solver = unet, base, tcfg, solver
         self.grid = grid_from_train_solver(solver)
-        self.pipe_fn = pipe_fn
+        self.pipe_fn, self.mesh = pipe_fn, mesh
         self._val, self._scorer = None, None
 
     def student(self, lora):
@@ -380,7 +403,7 @@ class Eval:
         return fid_of_student(self.pipe_fn(), state.lora_reverse, self.scorer(), prompts,
                               batch_size=8, lora_alpha=self.tcfg.lora_alpha,
                               reference_stats_path=self.args.fid_stats, base=self.base,
-                              lazy=self.tcfg.lazy_lora)
+                              lazy=self.tcfg.lazy_lora, mesh=self.mesh)
 
     def inversion(self, state) -> dict:
         """Latent recon-MSE of the round trip over the val set (chunks of at
@@ -407,7 +430,7 @@ class Eval:
                 invert_fn, reconstruct_fn, val["latents"], batch_size=size,
                 decode_fn=self.decode if fid_on else None, scorer=self.scorer() if fid_on else None,
                 reference_stats_path=args.fid_stats,
-                val_context=val["context"].to(val["latents"].dtype))
+                val_context=val["context"].to(val["latents"].dtype), mesh=self.mesh)
 
     def validation(self, logger, state, step: int) -> None:
         """Validation panels from the live reverse student (reference
@@ -513,6 +536,7 @@ def train_config(args, cfg: UNetConfig) -> TrainConfig:
             num_ddim_timesteps=args.num_ddim_timesteps,
             loss_type=args.loss_type,
             huber_c=args.huber_c,
+            embed_guidance=args.embed_guidance,
             w_embed_dim=cfg.time_cond_proj_dim or 0,
             forward_preserve_coef=args.forward_preserve_coef,
             reverse_preserve_coef=args.reverse_preserve_coef,
@@ -527,9 +551,18 @@ def main(argv=None):
     if not (args.synthetic_data or args.data_root):
         raise SystemExit("train_icd: no data; pass --data_root (an image folder) or "
                          "--synthetic_data (seeded random latents and contexts)")
-    device = resolve_device(args.device)
+    initialize_distributed(device=args.device)
+    mesh = make_mesh(fsdp=args.fsdp, device=torch.device(args.device).type)
+    if args.batch_size % mesh.rows:
+        raise SystemExit(
+            f"--batch_size {args.batch_size} is not divisible by the {mesh.rows} ranks its rows "
+            f"split over (dp={mesh.dp} x fsdp={mesh.fsdp}: under --fsdp the ranks that share "
+            f"the weights take rows too). Pick a batch size that is a multiple of {mesh.rows}.")
+    main_rank = is_main(mesh)
+    say = print if main_rank else (lambda *a, **k: None)
+    device = resolve_device(local_device(args.device))
     os.makedirs(args.output_dir, exist_ok=True)
-    logger = MetricLogger(os.path.join(args.output_dir, "logs"))
+    logger = MetricLogger(os.path.join(args.output_dir, "logs"), mesh)
     unet, cfg, base, latent_size = build_models(args, device)
     schedule = make_schedule(device=device)
     solver = make_train_solver(
@@ -550,9 +583,17 @@ def main(argv=None):
         step = (None if args.resume_from_checkpoint == "latest"
                 else int(args.resume_from_checkpoint))
         state = restore_checkpoint(ckpt_dir, state, step)
-        print(f"resumed from step {state.step}")
+        say(f"resumed from step {state.step}")
     teacher = base if args.lazy_lora else unet.state_dict()
-    step_fn = make_train_step(unet, base, teacher, solver, schedule, tcfg)
+    step_fn = make_train_step(unet, base, teacher, solver, schedule, tcfg, mesh)
+    if step_fn.weights is not None:
+        # the step holds this rank's shards; the whole weights exist only
+        # while a step or an eval runs
+        del teacher
+        base = None
+        unet.to("meta")
+    say(f"resident base weights: {step_fn.resident_bytes()} bytes per rank "
+        f"(dp={mesh.dp}, fsdp={mesh.fsdp})")
     # the encoder pipeline (text encoder(s) + VAE, the training UNet as its
     # teacher) for real data and the eval, built once at first use
     pipes = []
@@ -563,9 +604,24 @@ def main(argv=None):
         return pipes[0]
 
     data = batch_iterator(args, cfg, latent_size, device, start=state.step,
-                          pipe=None if args.synthetic_data else encoder_pipe())
-    ev = Eval(args, cfg, latent_size, unet, base, tcfg, solver, encoder_pipe)
+                          pipe=None if args.synthetic_data else encoder_pipe(), mesh=mesh)
+    ev = Eval(args, cfg, latent_size, unet, base, tcfg, solver, encoder_pipe, mesh)
     fid_ready = bool(args.fid_stats and args.fid_prompts and args.inception_weights)
+
+    @contextlib.contextmanager
+    def whole_weights():
+        """Under --fsdp, the base and the UNet's own (teacher) weights
+        gathered for the eval, and freed after it."""
+        if step_fn.weights is None:
+            yield
+            return
+        ev.base, teacher_w = step_fn.gather()
+        unet.load_state_dict(teacher_w, assign=True)
+        try:
+            yield
+        finally:
+            ev.base = None
+            unet.to("meta")
 
     t0 = time.time()
     start = state.step
@@ -578,25 +634,30 @@ def main(argv=None):
             last = {k: float(v) for k, v in metrics.items()}  # waits for the device
             last["steps_per_sec"] = (i + 1 - start) / max(time.time() - t0, 1e-9)
             logger.log(i + 1, last, prefix="train/")
-            print(f"step {i + 1}: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(last.items())))
-        if args.evaluation_steps and (i + 1) % args.evaluation_steps == 0 and fid_ready:
-            fid = ev.fid(state)
-            logger.log(i + 1, {"fid": fid}, prefix="eval/")
-            print(f"step {i + 1}: FID = {fid:.3f}")
-        if args.inversion_eval_steps and (i + 1) % args.inversion_eval_steps == 0:
-            out = ev.inversion(state)
-            logger.log(i + 1, out, prefix="eval/")
-            print(f"step {i + 1}: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(out.items())))
-        if args.validation_steps and (i + 1) % args.validation_steps == 0:
-            ev.validation(logger, state, i + 1)
-            if args.inversion_validation_samples:
-                ev.inversion_panels(logger, state, i + 1)
+            say(f"step {i + 1}: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(last.items())))
+        fid_due = args.evaluation_steps and (i + 1) % args.evaluation_steps == 0 and fid_ready
+        inversion_due = args.inversion_eval_steps and (i + 1) % args.inversion_eval_steps == 0
+        panels_due = args.validation_steps and (i + 1) % args.validation_steps == 0
+        if fid_due or inversion_due or panels_due:
+            with whole_weights():
+                if fid_due:
+                    fid = ev.fid(state)
+                    logger.log(i + 1, {"fid": fid}, prefix="eval/")
+                    say(f"step {i + 1}: FID = {fid:.3f}")
+                if inversion_due:
+                    out = ev.inversion(state)
+                    logger.log(i + 1, out, prefix="eval/")
+                    say(f"step {i + 1}: " + " ".join(f"{k}={v:.5f}" for k, v in sorted(out.items())))
+                if panels_due and main_rank:  # panels are rank 0's alone
+                    ev.validation(logger, state, i + 1)
+                    if args.inversion_validation_samples:
+                        ev.inversion_panels(logger, state, i + 1)
         if (i + 1) % args.checkpointing_steps == 0 or final:
-            save_checkpoint(ckpt_dir, state, keep=args.checkpoints_total_limit)
+            save_checkpoint(ckpt_dir, state, keep=args.checkpoints_total_limit, mesh=mesh)
             export_inference(os.path.join(args.output_dir, f"export_{i + 1}"), state,
-                             lora_alpha=tcfg.lora_alpha)
+                             lora_alpha=tcfg.lora_alpha, mesh=mesh)
     logger.close()
-    print("done")
+    say("done")
     return last
 
 if __name__ == "__main__":

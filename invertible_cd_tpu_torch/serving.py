@@ -17,7 +17,15 @@ kernel shapes, and one size always takes the same algorithms as long as
 `torch.backends.cudnn.benchmark` stays off (its default, which nothing in
 the package changes). A completion thread copies each batch's images to
 the host and resolves its futures while the worker dispatches the next
-batch. Mesh serving (`mesh=`) waits for the port's distribution layer.
+batch.
+
+Data-parallel serving (`mesh=`, `parallel.make_mesh(dp=...)`, one process
+per card): rank 0 runs the executor, and for each batch broadcasts its
+prompts and seeds to the mesh's dp ranks; every rank generates its
+contiguous `batch / dp` rows from their own seeds and rank 0 gathers the
+images through the host. The other ranks run `serve_follower`, which the
+executor's shutdown ends. Every batch size must divide over dp. Spatial
+partitioning (JAX's sp) waits for ROADMAP item 17c.
 
 Usage:
     pipe = InvertibleCD.sd15()
@@ -36,6 +44,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from .parallel import broadcast_object, gather_objects, process_local_batch_slice
 
 UINT64 = 2**64 - 1
 # at most this many batches wait for the completion thread; the worker
@@ -75,6 +85,52 @@ def _fail(batch, error: Exception) -> None:
         _resolve(fut, error=error)
 
 
+def request_latents(pipe, seeds: Sequence[int]) -> torch.Tensor:
+    """(N, h, w, 4) float32 latents on the pipeline's device, row i drawn
+    by a generator on that device seeded with `latent_seed(seeds[i])`."""
+    h, w = pipe.latent_size
+    device = pipe.device
+    return torch.stack([
+        torch.randn((h, w, 4), device=device,
+                    generator=torch.Generator(device=device).manual_seed(latent_seed(s)))
+        for s in seeds])
+
+
+def _mesh_rows(pipe, prompts, seeds, guidance, model, mesh):
+    """This rank's rows of a batch over the mesh's dp ranks, generated and
+    gathered through the host: the whole batch's images (a CPU tensor) on
+    rank 0, None on the others. A rank whose rows failed sends its error,
+    and rank 0 raises it after the gather (so no rank waits forever)."""
+    lo, n = process_local_batch_slice(len(prompts), mesh)
+    try:
+        images, _ = pipe.generate(prompts[lo:lo + n], latent=request_latents(pipe, seeds[lo:lo + n]),
+                                  guidance=guidance, model=model)
+        mine = images.cpu().numpy()
+    except Exception as e:  # noqa: BLE001 — rank 0 raises it
+        mine = e
+    parts = gather_objects(mine, mesh, "dp")
+    if parts is None:
+        return None
+    for part in parts:
+        if isinstance(part, Exception):
+            raise part
+    return torch.from_numpy(np.concatenate(parts))
+
+
+def serve_follower(pipe, mesh, guidance=None, model: str = "reverse") -> int:
+    """The loop of a mesh rank other than 0: generate this rank's rows of
+    each batch rank 0's executor broadcasts, until its shutdown. Returns the
+    number of batches served."""
+    guidance = guidance or pipe.default_guidance()
+    served = 0
+    while True:
+        msg = broadcast_object(None, mesh, "dp")
+        if msg is None:
+            return served
+        _mesh_rows(pipe, *msg, guidance, model, mesh)
+        served += 1
+
+
 class BatchingExecutor:
     """Coalesce concurrent generation requests into batches.
 
@@ -90,6 +146,9 @@ class BatchingExecutor:
       guidance: GuidanceConfig shared by every request
         (`pipe.default_guidance()` when None).
       model: student to sample from ("reverse" by default).
+      mesh: a `parallel.Mesh` to serve over its dp ranks (this process is
+        rank 0; the others run `serve_follower`). Every batch size must
+        divide over dp.
     """
 
     def __init__(
@@ -99,6 +158,7 @@ class BatchingExecutor:
         max_delay: float = 0.01,
         guidance=None,
         model: str = "reverse",
+        mesh=None,
         batch_sizes: Optional[Sequence[int]] = None,
     ):
         if batch_size < 1:
@@ -111,6 +171,18 @@ class BatchingExecutor:
         self.max_delay = max_delay
         self.guidance = guidance or pipe.default_guidance()
         self.model = model
+        self.mesh = mesh
+        if mesh is not None:
+            if mesh.fsdp > 1 or mesh.rank != 0:
+                raise ValueError("the executor runs on rank 0 of a dp mesh (fsdp 1); "
+                                 "the other ranks run serve_follower")
+            dp = mesh.dp
+            bad = [b for b in self.batch_sizes if dp > 1 and b % dp != 0]
+            if bad:
+                raise ValueError(
+                    f"batch sizes {bad} must divide over the mesh's "
+                    f"dp={dp} batch shards"
+                )
         self._queue: queue.Queue = queue.Queue()
         # Completion pipeline: the worker hands each batch's images, still
         # on the device, to the completion thread and goes on to the next
@@ -249,15 +321,17 @@ class BatchingExecutor:
         return batch
 
     def _latents(self, seeds: Sequence[int]) -> torch.Tensor:
-        """(N, h, w, 4) float32 latents on the pipeline's device, row i
-        drawn by a generator on that device seeded with
-        `latent_seed(seeds[i])`."""
-        h, w = self.pipe.latent_size
-        device = self.pipe.device
-        return torch.stack([
-            torch.randn((h, w, 4), device=device,
-                        generator=torch.Generator(device=device).manual_seed(latent_seed(s)))
-            for s in seeds])
+        """`request_latents` of this executor's pipeline."""
+        return request_latents(self.pipe, seeds)
+
+    def _generate(self, prompts, seeds) -> torch.Tensor:
+        """One batch's images: one `pipe.generate` call, or over the mesh
+        (the followers get the batch first)."""
+        if self.mesh is None:
+            return self.pipe.generate(prompts, latent=self._latents(seeds),
+                                      guidance=self.guidance, model=self.model)[0]
+        broadcast_object((prompts, seeds), self.mesh, "dp")
+        return _mesh_rows(self.pipe, prompts, seeds, self.guidance, self.model, self.mesh)
 
     def _hand_over(self, item) -> bool:
         """Queue a batch for the completion thread, blocking while
@@ -303,6 +377,8 @@ class BatchingExecutor:
         try:
             self._run_loop(rng)
         finally:
+            if self.mesh is not None:
+                broadcast_object(None, self.mesh, "dp")  # ends the followers' loops
             self._completion.put(None)  # unbounded: never blocks
 
     def _run_loop(self, rng):
@@ -338,9 +414,7 @@ class BatchingExecutor:
                 prompts = prompts + [prompts[-1]] * pad
                 seeds = seeds + [seeds[-1]] * pad
             try:
-                images, _ = self.pipe.generate(
-                    prompts, latent=self._latents(seeds), guidance=self.guidance,
-                    model=self.model)
+                images = self._generate(prompts, seeds)
                 done = None
                 if images.is_cuda:
                     done = torch.cuda.Event()

@@ -8,6 +8,8 @@ ints and bools), and rotation keeps the newest `keep` checkpoints.
 `export_inference` / `load_inference_lora` write and read both students'
 adapters in kohya's safetensors format, the reference's inference artifact
 (written by the `safetensors` package, read by `models.convert`'s reader).
+Under a mesh (`parallel.make_mesh`) rank 0 writes and every rank waits for
+it at a barrier, so each rank may restore right after.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Dict, List, Optional
 import torch
 
 from ..models.convert import convert_lora_from_kohya, export_lora_to_kohya, load_torch_file
+from ..parallel import barrier, is_main
 from .trainer import ICDTrainState
 
 _FILE = "state.pt"
@@ -39,9 +42,19 @@ def _as_dict(state: ICDTrainState) -> dict:
     return {f.name: getattr(state, f.name) for f in dataclasses.fields(state)}
 
 
-def save_checkpoint(ckpt_dir: str, state: ICDTrainState, keep: Optional[int] = 5) -> int:
+def save_checkpoint(ckpt_dir: str, state: ICDTrainState, keep: Optional[int] = 5,
+                    mesh=None) -> int:
     """Write a checkpoint at the state's step; rotate old ones. The file
-    appears under its final name only when it is complete."""
+    appears under its final name only when it is complete. With `mesh`, on
+    rank 0 only, and every rank returns once it is written."""
+    step = int(state.step)
+    if is_main(mesh):
+        _write_checkpoint(ckpt_dir, state, keep)
+    barrier(mesh)
+    return step
+
+
+def _write_checkpoint(ckpt_dir: str, state: ICDTrainState, keep: Optional[int]) -> None:
     step = int(state.step)
     step_dir = os.path.join(os.path.abspath(ckpt_dir), str(step))
     os.makedirs(step_dir, exist_ok=True)
@@ -51,7 +64,6 @@ def save_checkpoint(ckpt_dir: str, state: ICDTrainState, keep: Optional[int] = 5
     if keep is not None:
         for old in _steps(ckpt_dir)[:-keep]:
             shutil.rmtree(os.path.join(ckpt_dir, str(old)))
-    return step
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -89,22 +101,25 @@ def restore_checkpoint(
     return ICDTrainState(**tree)
 
 
-def export_inference(out_dir: str, state: ICDTrainState, lora_alpha: float = 8.0) -> Dict[str, str]:
+def export_inference(out_dir: str, state: ICDTrainState, lora_alpha: float = 8.0,
+                     mesh=None) -> Dict[str, str]:
     """Write both students' adapters as kohya-format LoRA safetensors:
     `<out_dir>/unet_lora/lora_weights.safetensors` (reverse) and
     `<out_dir>/forward_unet_lora/lora_weights.safetensors` (forward), the
-    JAX package's layout and keys. Returns name -> path."""
+    JAX package's layout and keys. Returns name -> path. With `mesh`, rank 0
+    writes and every rank returns once the files are there."""
     from safetensors.torch import save_file
 
     paths = {}
     for name, lora in (("unet_lora", state.lora_reverse), ("forward_unet_lora", state.lora_forward)):
         d = os.path.join(out_dir, name)
-        os.makedirs(d, exist_ok=True)
-        path = os.path.join(d, "lora_weights.safetensors")
-        # the file holds each tensor's storage: a view must be made contiguous
-        flat = {k: v.contiguous() for k, v in export_lora_to_kohya(lora, alpha=lora_alpha).items()}
-        save_file(flat, path)
-        paths[name] = path
+        path = paths[name] = os.path.join(d, "lora_weights.safetensors")
+        if is_main(mesh):
+            os.makedirs(d, exist_ok=True)
+            # the file holds each tensor's storage: a view must be made contiguous
+            flat = {k: v.contiguous() for k, v in export_lora_to_kohya(lora, alpha=lora_alpha).items()}
+            save_file(flat, path)
+    barrier(mesh)
     return paths
 
 

@@ -16,8 +16,16 @@ reference `training/src/sampling.py` (C24), `reverse_eval.py` (C23) and
 Latents keep the JAX package's NHWC layout at these functions' edges.
 JAX's `PRNGKey(seed + i)` / `PRNGKey(i)` become `torch.Generator`s seeded
 `seed + i` / `i` on the pipeline's device; the draws differ from JAX's, so
-the tests pass the latents in. One process: the reference's rank striding
-and gather wait for the distributed slice.
+the tests pass the latents in.
+
+With a mesh (`parallel.make_mesh`), `sample_for_fid` and `eval_inversion`
+stride their batches over the ranks (rank r takes batches r, r + n, ...,
+each seeded as in one process) and gather the results on every rank in
+batch order, as JAX's `process_allgather` gives every process the whole
+set: the gathered images equal the one-process sweep's. JAX strides single
+prompts and seeds a process's batches by their local index, so its
+multi-process images are not its one-process ones, and its gather is in
+process order; `eval_inversion` in JAX runs every chunk on every process.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ from ..diffusion.schedule import NoiseSchedule
 from ..diffusion.solver import SolverGrid, TrainSolver
 from ..models.lora import (
     call_with_lora, call_with_state, compute_dtypes, lora_modules, merged_state_dict)
+from ..parallel import all_gather_in_order, stride
 from ..pipelines import sampler as S
 
 
@@ -90,25 +99,29 @@ def to_uint8_truncated(images) -> np.ndarray:
 
 def sample_for_fid(generate_fn: Callable[[Sequence[str], torch.Generator], object],
                    prompts: Sequence[str], batch_size: int, seed: int = 0,
-                   max_count: Optional[int] = None, device="cuda") -> List[np.ndarray]:
+                   max_count: Optional[int] = None, device="cuda", mesh=None) -> List[np.ndarray]:
     """A prompt sweep -> uint8 images for FID (C23 `distributed_sampling`).
 
     `generate_fn(batch_prompts, generator) -> (B, H, W, 3) float [0, 1]`;
     batch i (its first prompt's index) draws from a generator seeded
     `seed + i` on `device`. The last batch runs at its own size (JAX pads it
-    to keep one compiled shape and drops the padded rows)."""
+    to keep one compiled shape and drops the padded rows). With `mesh`, each
+    rank runs its stride of the batches and every rank returns all images in
+    prompt order."""
     prompts = list(prompts)[: max_count or len(prompts)]
-    images: List[np.ndarray] = []
-    for i in range(0, len(prompts), batch_size):
+    starts = list(range(0, len(prompts), batch_size))
+    mine = {}
+    for k in stride(len(starts), mesh):
+        i = starts[k]
         gen = torch.Generator(device=device).manual_seed(seed + i)
-        images.extend(list(to_uint8_truncated(generate_fn(prompts[i:i + batch_size], gen))))
-    return images
+        mine[i] = to_uint8_truncated(generate_fn(prompts[i:i + batch_size], gen))
+    return [img for batch in all_gather_in_order(mine, mesh) for img in batch]
 
 
 def eval_inversion(invert_fn: Callable, reconstruct_fn: Callable, val_latents: torch.Tensor,
                    batch_size: int = 8, decode_fn: Optional[Callable] = None, scorer=None,
                    reference_images=None, reference_stats_path: Optional[str] = None,
-                   val_context: Optional[torch.Tensor] = None) -> Dict[str, float]:
+                   val_context: Optional[torch.Tensor] = None, mesh=None) -> Dict[str, float]:
     """Forward -> reverse round trip over a val set (C26 `eval_inversion`,
     forward_eval.py:259-342): the latent recon-MSE and, given `decode_fn`
     (NHWC latents -> float [0, 1] images) and a FID `scorer`, the FID of the
@@ -119,16 +132,25 @@ def eval_inversion(invert_fn: Callable, reconstruct_fn: Callable, val_latents: t
     `reconstruct_fn(noise_latents, generator[, context]) -> latents`, NHWC;
     chunk i (its first row's index) gets a generator seeded i on the
     latents' device, shared by both calls. With `val_context` (one context
-    per sample, sliced with the latents) both take the chunk's context."""
-    mses, recon_images = [], []
-    for i in range(0, val_latents.shape[0], batch_size):
+    per sample, sliced with the latents) both take the chunk's context.
+    With `mesh`, each rank runs its stride of the chunks, and the per-sample
+    errors and the reconstructions are gathered on every rank before the
+    means and the FID."""
+    starts = list(range(0, val_latents.shape[0], batch_size))
+    mine = {}
+    for k in stride(len(starts), mesh):
+        i = starts[k]
         chunk = val_latents[i:i + batch_size]
         gen = torch.Generator(device=chunk.device).manual_seed(i)
         ctx = () if val_context is None else (val_context[i:i + batch_size],)
         rec = reconstruct_fn(invert_fn(chunk, gen, *ctx), gen, *ctx)
-        mses.append(((rec.float() - chunk.float()) ** 2).mean(dim=(1, 2, 3)).cpu().numpy())
-        if decode_fn is not None and scorer is not None:
-            recon_images.extend(list(to_uint8_truncated(decode_fn(rec))))
+        mse = ((rec.float() - chunk.float()) ** 2).mean(dim=(1, 2, 3)).cpu().numpy()
+        images = (to_uint8_truncated(decode_fn(rec))
+                  if decode_fn is not None and scorer is not None else None)
+        mine[i] = (mse, images)
+    done = all_gather_in_order(mine, mesh)
+    mses = [mse for mse, _ in done]
+    recon_images = [img for _, images in done if images is not None for img in images]
     out = {"inversion_latent_mse": float(np.mean(np.concatenate(mses)))}
     if recon_images:
         out["inversion_fid"] = float(scorer.fid(recon_images, reference_images=reference_images,
@@ -175,14 +197,16 @@ def student_unet(unet: torch.nn.Module, base: Dict[str, torch.Tensor], lora: Dic
 def fid_of_student(pipe, lora: Dict, scorer, prompts: Sequence[str], batch_size: int = 8,
                    seed: int = 0, lora_alpha: float = 8.0, reference_images=None,
                    reference_stats_path: Optional[str] = None, max_count: Optional[int] = None,
-                   base: Optional[Dict[str, torch.Tensor]] = None, lazy: bool = False) -> float:
+                   base: Optional[Dict[str, torch.Tensor]] = None, lazy: bool = False,
+                   mesh=None) -> float:
     """FID of the live reverse student (reference `distributed_sampling` +
     `calculate_fid`, `train_icd_sd15_lora.py:1063-1082`): the adapters on
     `base` (default: the pipeline teacher's own weights) through the
     teacher module (`student_unet`) stand in for `pipe.unets["reverse"]`
     while the prompts are swept with `pipe.generate` at its default
-    guidance, and the pipeline's own reverse UNet is put back afterwards,
-    also on an error."""
+    guidance (over the ranks of `mesh`, each rank scoring the gathered
+    set), and the pipeline's own reverse UNet is put back afterwards, also
+    on an error."""
     teacher = pipe.unets["teacher"]
     student = student_unet(teacher, teacher.state_dict() if base is None else base, lora,
                            alpha=lora_alpha, lazy=lazy)
@@ -192,7 +216,8 @@ def fid_of_student(pipe, lora: Dict, scorer, prompts: Sequence[str], batch_size:
         def gen(batch, generator):
             return pipe.generate(list(batch), generator=generator)[0]
 
-        images = sample_for_fid(gen, prompts, batch_size, seed, max_count, device=pipe.device)
+        images = sample_for_fid(gen, prompts, batch_size, seed, max_count, device=pipe.device,
+                                mesh=mesh)
     finally:
         if old is None:
             del pipe.unets["reverse"]

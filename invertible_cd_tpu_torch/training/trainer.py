@@ -22,9 +22,21 @@ follows `optax.chain(clip_by_global_norm, adamw)` wrapped in
 `g if norm < max_norm else (g / norm) * max_norm`, bias correction by
 `1 - beta**count`, `eps` outside the root, decoupled weight decay.
 
-Waiting for a later slice: a data-parallel or sharded mesh. JAX's
-`split=True` (two compiled programs) has no counterpart: an eager step has
-no program to split.
+A step makes its random draws (the noise, the guidance scales, the four
+losses' timestep indices) up front, at the global batch size, and keeps its
+rows of them. With a mesh (`parallel.make_mesh`) the step is data parallel
+over the mesh's dp x fsdp ranks: each rank is given its own rows of the
+batch and a generator seeded alike on every rank (or the draws at the
+global batch); the adapter gradients (before the clip and the non-finite
+guard) and the logged losses are averaged over the ranks, so every rank
+applies the same update and the step is the one-process step on the
+concatenated batch. Under fsdp > 1 each rank holds only its
+`parallel.param_sharding` shard of every large base and teacher tensor
+between steps (`parallel.ShardedWeights`); a step gathers them whole at its
+start and frees them at its end, so during a step a rank holds the whole
+weights plus its shards (JAX's GSPMD gathers each weight where it is
+used). JAX's `split=True` (two compiled programs) has no counterpart: an
+eager step has no program to split.
 """
 from __future__ import annotations
 
@@ -38,9 +50,13 @@ from ..diffusion.schedule import NoiseSchedule
 from ..diffusion.solver import TrainSolver
 from ..models.lora import (
     call_with_lora, call_with_state, compute_dtypes, init_lora, lora_modules, merged_state_dict)
+from ..parallel import Mesh, ShardedWeights, all_reduce_mean
 from . import losses as L
 
 Lora = Dict[str, Dict[str, torch.Tensor]]
+# Under fsdp > 1 the step splits base and teacher tensors of at least this
+# many elements (`parallel.param_sharding`'s rule); smaller ones stay whole.
+FSDP_MIN_SIZE = 2**16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,6 +233,7 @@ def make_train_step(
     solver: TrainSolver,
     schedule: NoiseSchedule,
     cfg: TrainConfig,
+    mesh: Optional[Mesh] = None,
 ):
     """Build the train step.
 
@@ -238,12 +255,23 @@ def make_train_step(
       noise: (B, h, w, 4), optional,
       added_cond: SDXL's {"text_embeds": (B, P), "time_ids": (B, 6)},
         required by a UNet config with `addition_embed_dim`.
-    `generator` (on the batch's device) draws the noise, the guidance scales
-    and the four losses' timestep indices; `draws` may give any of them
-    instead, under the keys "noise", "w", "reverse_index", "forward_index",
-    "forward_preserve_index", "reverse_preserve_index". `state` is not
+    `generator` (on the batch's device) draws the noise (unless the batch
+    has it), the guidance scales and the four losses' timestep indices, in
+    that order; `draws` may give any of them instead, under the keys
+    "noise", "w", "reverse_index", "reverse_preserve_index",
+    "forward_index", "forward_preserve_index". `state` is not
     modified; metrics are 0-dim tensors on the device (ints for the skip
     counters).
+
+    With `mesh`, `batch` holds this rank's rows (B = the global batch /
+    `mesh.rows`), while `generator` and `draws` are at the global batch, the
+    same on every rank; the metrics are the global batch's. Under
+    `mesh.fsdp > 1` the step keeps only shards of `base` and `teacher`
+    (`step_fn.weights`, a `parallel.ShardedWeights` splitting tensors of at
+    least `FSDP_MIN_SIZE` elements; `step_fn.gather()` gives both whole),
+    and the caller may free its own copies. `step_fn.resident_bytes()` is
+    what the step holds of them between steps; during a step a rank holds
+    them whole besides its shards.
     """
     dtypes = compute_dtypes(unet)
     casts: Dict[tuple, torch.Tensor] = {}
@@ -259,7 +287,16 @@ def make_train_step(
         base = {key: compute_copy(key, t) for key, t in base.items()}
     else:
         base = {key: t.detach() for key, t in base.items()}
+    store = None
+    if mesh is not None and mesh.fsdp > 1:
+        store = ShardedWeights([base, teacher], mesh, FSDP_MIN_SIZE)
+        base = teacher = None
+        casts.clear()
     scale = cfg.lora_alpha / cfg.lora_rank
+
+    def gather():
+        """(base, teacher), whole."""
+        return tuple(store.gather()) if store is not None else (base, teacher)
 
     def apply_of(weights: Dict[str, torch.Tensor], context: torch.Tensor, added: Optional[Dict],
                  lora: Optional[Lora] = None, targets=None, remat: bool = False):
@@ -275,7 +312,7 @@ def make_train_step(
         return lambda x, t, w_emb: checkpoint(
             apply, x, t, w_emb, use_reentrant=False, preserve_rng_state=False)
 
-    def merged(lora: Lora) -> Dict[str, torch.Tensor]:
+    def merged(base: Dict[str, torch.Tensor], lora: Lora) -> Dict[str, torch.Tensor]:
         return merged_state_dict(
             base, lora, alpha=cfg.lora_alpha, rank=cfg.lora_rank, dtypes=dtypes)
 
@@ -285,10 +322,38 @@ def make_train_step(
     def detached(lora: Lora) -> Lora:
         return {key: {n: t.detach() for n, t in ab.items()} for key, ab in lora.items()}
 
+    rows, row = (mesh.rows, mesh.row) if mesh is not None else (1, 0)
+
+    def global_draws(draws: Dict, batch: Dict, generator) -> Dict:
+        """This rank's rows of the draws at the global batch (`rows` times
+        the rank's): those not given are drawn in the order the step uses
+        them (noise unless the batch has it, w, then the losses' indices in
+        the order the losses run)."""
+        x = batch["latents"]
+        b, device = x.shape[0], x.device
+        gb = b * rows
+        out = dict(draws)
+        gdev = generator.device if generator is not None else device
+        if "noise" not in out and batch.get("noise") is None:
+            out["noise"] = torch.randn((gb,) + tuple(x.shape[1:]), generator=generator,
+                                       device=gdev, dtype=x.dtype).to(device)
+        if "w" not in out:
+            out["w"] = sample_w(generator, gb, cfg, device)
+        n_ep = solver.forward_endpoints.shape[0]
+        for name, high, used in (
+                ("reverse_index", cfg.loss.num_ddim_timesteps, cfg.use_reverse_cd),
+                ("reverse_preserve_index", n_ep, cfg.use_reverse_preserve),
+                ("forward_index", cfg.loss.num_ddim_timesteps - 1, cfg.use_forward_cd),
+                ("forward_preserve_index", n_ep, cfg.use_forward_preserve)):
+            if used and name not in out:
+                out[name] = L.draw_index(generator, high, gb, device)
+        return {k: v[row * b:(row + 1) * b] for k, v in out.items()}
+
     def step_fn(state: ICDTrainState, batch: Dict, generator=None, draws: Optional[Dict] = None):
-        draws = draws or {}
+        draws = global_draws(draws or {}, batch, generator)
         latents = batch["latents"].permute(0, 3, 1, 2)  # the UNet runs NCHW
         device = latents.device
+        base, teacher = gather()
         context = batch["context"]
         uncond_context = batch.get("uncond_context", context)
         added = batch.get("added_cond")
@@ -296,14 +361,8 @@ def make_train_step(
         # (reference train_icd_xl_lora.py:900-903)
         added_u = None if added is None else dict(
             added, text_embeds=torch.zeros_like(added["text_embeds"]))
-        b = latents.shape[0]
-        noise = draws.get("noise", batch.get("noise"))
-        if noise is None:
-            gdev = generator.device if generator is not None else device
-            noise = torch.randn(batch["latents"].shape, generator=generator, device=gdev,
-                                dtype=latents.dtype).to(device)
-        noise = noise.permute(0, 3, 1, 2)
-        w = draws["w"] if "w" in draws else sample_w(generator, b, cfg, device)
+        noise = draws.get("noise", batch.get("noise")).permute(0, 3, 1, 2)
+        w = draws["w"]
 
         # leaves of this step's two graphs; the state's own tensors stay plain
         lora_r = _like(state.lora_reverse,
@@ -324,7 +383,7 @@ def make_train_step(
         else:
             # Each student is merged once; the frozen counterpart the other
             # objective sees is the same pre-step tensors, detached.
-            merged_r, merged_f = merged(lora_r), merged(lora_f)
+            merged_r, merged_f = merged(base, lora_r), merged(base, lora_f)
             student_r = apply_of(merged_r, context, added, remat=cfg.remat)
             student_f = apply_of(merged_f, context, added, remat=cfg.remat)
             frozen_r = apply_of({k: t.detach() for k, t in merged_r.items()}, context, added)
@@ -339,7 +398,7 @@ def make_train_step(
         metrics: Dict = {}
 
         def update(name, total, logs, lora, lora_state, opt_state):
-            grads = _like(lora, list(torch.autograd.grad(total, _flat(lora))))
+            grads = _like(lora, all_reduce_mean(torch.autograd.grad(total, _flat(lora)), mesh))
             new_lora, new_opt, norm = optimizer_update(grads, opt_state, lora_state, cfg)
             metrics.update(logs)
             metrics[f"{name}_total_loss"] = total.detach()
@@ -357,7 +416,7 @@ def make_train_step(
                 loss, lg = L.reverse_cd_loss(
                     as_loss_apply(student_r), None, as_loss_apply(teacher_apply), None,
                     latents, noise, w, generator, *common,
-                    uncond_apply=as_loss_apply(uncond_apply), index=draws.get("reverse_index"),
+                    uncond_apply=as_loss_apply(uncond_apply), index=draws["reverse_index"],
                 )
                 total = total + loss
                 logs.update(lg)
@@ -365,7 +424,7 @@ def make_train_step(
                 loss, lg = L.reverse_preserve_loss(
                     as_loss_apply(frozen_f), None, as_loss_apply(student_r), None,
                     latents, noise, generator, *common,
-                    endpoint_index=draws.get("reverse_preserve_index"),
+                    endpoint_index=draws["reverse_preserve_index"],
                 )
                 total = total + cfg.loss.reverse_preserve_coef * loss
                 logs.update(lg)
@@ -382,7 +441,7 @@ def make_train_step(
                 loss, lg = L.forward_cd_loss(
                     as_loss_apply(student_f), None, as_loss_apply(teacher_apply), None,
                     latents, noise, w, generator, *common,
-                    uncond_apply=as_loss_apply(uncond_apply), index=draws.get("forward_index"),
+                    uncond_apply=as_loss_apply(uncond_apply), index=draws["forward_index"],
                 )
                 total = total + loss
                 logs.update(lg)
@@ -390,13 +449,15 @@ def make_train_step(
                 loss, lg = L.forward_preserve_loss(
                     as_loss_apply(student_f), None, as_loss_apply(frozen_r), None,
                     latents, noise, generator, *common,
-                    endpoint_index=draws.get("forward_preserve_index"),
+                    endpoint_index=draws["forward_preserve_index"],
                 )
                 total = total + cfg.loss.forward_preserve_coef * loss
                 logs.update(lg)
             new_lora_f, new_opt_f = update(
                 "forward", total, logs, lora_f, state.lora_forward, state.opt_forward)
 
+        losses = [k for k in metrics if k.endswith("_loss")]
+        metrics.update(zip(losses, all_reduce_mean([metrics[k] for k in losses], mesh)))
         new_state = ICDTrainState(
             step=state.step + 1,
             lora_reverse=new_lora_r,
@@ -406,4 +467,16 @@ def make_train_step(
         )
         return new_state, metrics
 
+    def resident_bytes() -> int:
+        """Bytes of base and teacher weights the step holds between steps
+        (a tensor both hold counts once)."""
+        if store is not None:
+            return store.resident_bytes()
+        held = {(t.data_ptr(), t.dtype): t.numel() * t.element_size()
+                for d in (base, teacher) for t in d.values()}
+        return sum(held.values())
+
+    step_fn.weights = store
+    step_fn.gather = gather
+    step_fn.resident_bytes = resident_bytes
     return step_fn

@@ -1,0 +1,203 @@
+"""Runs of the PyTorch port over two gloo ranks on the CPU, for the parallel tests.
+
+`run_ranks(job, payload, tmp_path)` writes `payload` with `torch.save`,
+starts one process per rank (`python tests/_torch_dist.py ...`, with no
+JAX import), joins them into a gloo group on a free localhost port, and
+returns each rank's result of `JOBS[job](payload)` in rank order. The
+workers use one intra-op thread each, and do not import TensorBoard.
+"""
+import os
+import socket
+import subprocess
+import sys
+
+import torch
+import torch.distributed as dist
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_ranks(job: str, payload: dict, tmp_path, world: int = 2, timeout: float = 300) -> list:
+    tmp = str(tmp_path)
+    os.makedirs(tmp, exist_ok=True)
+    payload_path = os.path.join(tmp, f"{job}_payload.pt")
+    torch.save(payload, payload_path)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = str(s.getsockname()[1])
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    outs = [os.path.join(tmp, f"{job}_rank{r}.pt") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), job, payload_path, str(r), str(world), port,
+         outs[r]], cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0].decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+    return [torch.load(path, weights_only=False) for path in outs]
+
+
+# ---------------------------------------------------------------------------
+# jobs (run in the workers)
+# ---------------------------------------------------------------------------
+def _tiny_world(base):
+    from invertible_cd_tpu_torch.diffusion.schedule import make_schedule
+    from invertible_cd_tpu_torch.diffusion.solver import make_train_solver
+    from invertible_cd_tpu_torch.models.unet2d import UNet2DCondition, UNetConfig
+
+    unet = UNet2DCondition(UNetConfig.tiny()).eval().requires_grad_(False)
+    unet.load_state_dict(base)
+    schedule = make_schedule()
+    solver = make_train_solver(
+        schedule.alphas_cumprod, num_endpoints=4, num_forward_endpoints=4,
+        endpoints="0,259,519,779", forward_endpoints="259,519,779,999")
+    return unet, schedule, solver
+
+
+def _steps(payload, mesh_of) -> dict:
+    """Each of payload["steps"] ({name: dict(fsdp=, min_size=, tcfg=,
+    draws=, seed=)}) on the rank's rows of payload["batch"], with the
+    trainer's FSDP_MIN_SIZE set to min_size (default 2**16) for it. Under
+    fsdp > 1 the step's gather is watched: `gathered` is the bytes of the
+    tensors it made whole (held during the step beside the shards), `freed`
+    whether every one of them was gone when the step returned."""
+    import weakref
+
+    from invertible_cd_tpu_torch.parallel import shard_batch
+    from invertible_cd_tpu_torch.training import make_train_step, trainer
+
+    unet, schedule, solver = _tiny_world(payload["base"])
+    out = {}
+    default_min_size = trainer.FSDP_MIN_SIZE
+    for name, run in payload["steps"].items():
+        mesh = mesh_of(run["fsdp"])
+        trainer.FSDP_MIN_SIZE = run.get("min_size", default_min_size)
+        try:
+            step_fn = make_train_step(unet, payload["base"], payload["base"], solver, schedule,
+                                      run["tcfg"], mesh)
+        finally:
+            trainer.FSDP_MIN_SIZE = default_min_size
+        made = []  # weak references to the gathers' fresh tensors, and their bytes
+        if step_fn.weights is not None:
+            store, gather = step_fn.weights, step_fn.weights.gather
+
+            def watched_gather(store=store, gather=gather):
+                dicts = gather()
+                pieces = {id(t) for t in store.pieces.values()}
+                fresh = {id(t): t for d in dicts for t in d.values() if id(t) not in pieces}
+                made.extend((weakref.ref(t), t.numel() * t.element_size()) for t in fresh.values())
+                return dicts
+            store.gather = watched_gather
+        gen = None if run.get("seed") is None else torch.Generator().manual_seed(run["seed"])
+        batch = {k: v for k, v in payload["batch"].items() if k in run.get("keys", payload["batch"])}
+        new, metrics = step_fn(payload["state"], shard_batch(batch, mesh), gen, run.get("draws"))
+        out[name] = dict(state=new, metrics={k: float(v) for k, v in metrics.items()},
+                         resident=step_fn.resident_bytes(), rows=mesh.rows, row=mesh.row,
+                         gathered=sum(n for _, n in made),
+                         freed=all(ref() is None for ref, _ in made))
+    return out
+
+
+def job_train(payload) -> dict:
+    from invertible_cd_tpu_torch.parallel import make_mesh
+
+    meshes = {}
+    return _steps(payload, lambda fsdp: meshes.setdefault(fsdp, make_mesh(fsdp=fsdp, device="cpu")))
+
+
+def job_parallel(payload) -> dict:
+    """The train steps, the gathered eval, dp serving and the two-rank
+    generate and train CLIs."""
+    import numpy as np
+
+    from invertible_cd_tpu_torch.cli import generate, train_icd
+    from invertible_cd_tpu_torch.parallel import make_mesh
+    from invertible_cd_tpu_torch.serving import BatchingExecutor, serve_follower
+    from invertible_cd_tpu_torch.testing import tiny_bundle
+    from invertible_cd_tpu_torch.training.eval import eval_inversion, sample_for_fid
+
+    meshes = {}
+
+    def mesh_of(fsdp):
+        return meshes.setdefault(fsdp, make_mesh(fsdp=fsdp, device="cpu"))
+
+    out = {"steps": _steps(payload, mesh_of)}
+    mesh = mesh_of(1)
+    pipe = tiny_bundle(None)
+    ev = payload["eval"]
+    out["sample_for_fid"] = sample_for_fid(
+        lambda b, g: pipe.generate(list(b), generator=g)[0], ev["prompts"], ev["batch_size"],
+        seed=ev["seed"], device="cpu", mesh=mesh)
+    out["eval_inversion"] = eval_inversion(*ev_fns(), ev["latents"], batch_size=ev["batch_size"],
+                                           decode_fn=ev_decode, scorer=OrderScorer(),
+                                           val_context=ev["context"], mesh=mesh)
+    serve = payload["serve"]
+    if mesh.rank == 0:
+        with BatchingExecutor(pipe, batch_size=len(serve["prompts"]), max_delay=1.0,
+                              mesh=mesh) as ex:
+            futs = [ex.submit(p, seed=s) for p, s in zip(serve["prompts"], serve["seeds"])]
+            out["served"] = np.stack([f.result(timeout=120) for f in futs])
+            out["serve_stats"] = ex.stats()
+    else:
+        out["served_batches"] = serve_follower(pipe, mesh)
+    generate.main(payload["generate_argv"])
+    out["train_cli"] = train_icd.main(payload["train_argv"])
+    return out
+
+
+def ev_fns():
+    """Round-trip stand-ins whose outputs depend on the chunk's generator
+    and context."""
+    def invert_fn(chunk, gen, ctx):
+        return chunk + torch.randn(chunk.shape, generator=gen) + ctx.mean()
+
+    def reconstruct_fn(noisy, gen, ctx):
+        return 0.5 * noisy + torch.rand(noisy.shape, generator=gen) - ctx.mean()
+    return invert_fn, reconstruct_fn
+
+
+def ev_decode(latents):
+    return torch.sigmoid(latents[..., :3].repeat_interleave(2, 1).repeat_interleave(2, 2))
+
+
+class OrderScorer:
+    """A stand-in FID scorer whose value depends on every image and on
+    their order."""
+
+    def fid(self, images, reference_images=None, reference_stats_path=None):
+        import numpy as np
+
+        return float(sum((k + 1) * int(np.asarray(im, np.int64).sum()) for k, im in enumerate(images)))
+
+
+JOBS = {"train": job_train, "parallel": job_parallel}
+
+
+def main():
+    job, payload_path, rank, world, port, out_path = sys.argv[1:]
+    sys.path.insert(0, REPO)
+    torch.set_num_threads(1)
+    # the train CLI's logger would take TensorBoard, whose import can pull in
+    # TensorFlow (~17 s); the parallel tests read its JSONL rows only
+    sys.modules["torch.utils.tensorboard"] = None
+    from invertible_cd_tpu_torch.parallel import initialize_distributed
+
+    initialize_distributed(f"localhost:{port}", int(world), int(rank), device="cpu")
+    result = JOBS[job](torch.load(payload_path, weights_only=False))
+    torch.save(result, out_path)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

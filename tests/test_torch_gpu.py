@@ -994,3 +994,72 @@ def test_tiny_unet_int8_call_on_the_card_matches_the_cpu(cuda):
     assert len(inputs) == n_layers and launched == n_layers and differ == []
     diff = (eps["gpu"] - eps["cpu"]).abs()
     assert diff.mean() < 4e-2 and diff.max() < 4e-1, (diff.mean().item(), diff.max().item())
+
+
+# ---------------------------------------------------------------------------
+# distribution on the card
+# ---------------------------------------------------------------------------
+def test_world_one_nccl_step_equals_the_plain_step(cuda):
+    """One train step through a mesh over a world-size-1 NCCL group (the
+    gradients and losses all-reduced through NCCL, the draws made at the
+    global batch and sliced) equals the step without a mesh bit for bit:
+    the adapters, both optimizer states and every metric, with the same
+    kernel launches."""
+    import socket
+
+    import torch.distributed as dist
+
+    from invertible_cd_tpu_torch.diffusion.schedule import make_schedule
+    from invertible_cd_tpu_torch.diffusion.solver import make_train_solver
+    from invertible_cd_tpu_torch.models.layers import cast_compute_weights, fan_in_init_
+    from invertible_cd_tpu_torch.models.lora import seeded_lora
+    from invertible_cd_tpu_torch.models.unet2d import UNet2DCondition, UNetConfig
+    from invertible_cd_tpu_torch.parallel import make_mesh
+    from invertible_cd_tpu_torch.training import ICDTrainState, LossConfig, TrainConfig, make_train_step
+    from invertible_cd_tpu_torch.training.trainer import init_optimizer
+
+    cfg = UNetConfig(block_out_channels=(128, 256), cross_attn_blocks=(False, True),
+                     layers_per_block=1, num_heads=(2, 4), transformer_depth=(1, 1),
+                     cross_attention_dim=64, time_cond_proj_dim=8)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    with torch.device(cuda):
+        unet = UNet2DCondition(cfg)
+    fan_in_init_(unet, gen)
+    base = {k: v.float().clone() for k, v in unet.state_dict().items()}
+    unet = cast_compute_weights(unet, torch.bfloat16).eval().requires_grad_(False)
+    lora_r, lora_f = seeded_lora(base, gen, 8), seeded_lora(base, gen, 8)
+    b = 2
+    batch = {"latents": torch.randn((b, 32, 32, 4), generator=gen, device=cuda),
+             "context": 0.1 * torch.randn((b, 77, 64), generator=gen, device=cuda)}
+    schedule = make_schedule(device=cuda)
+    solver = make_train_solver(schedule.alphas_cumprod, num_endpoints=4, num_forward_endpoints=4,
+                               endpoints="0,259,519,779", forward_endpoints="259,519,779,999",
+                               device=cuda)
+    tcfg = TrainConfig(lora_rank=8, loss=LossConfig(w_embed_dim=8))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device="cuda")
+        assert mesh.device_mesh is not None and mesh.size == 1
+        out = []
+        for m in (None, mesh):
+            fn = make_train_step(unet, base, unet.state_dict(), solver, schedule, tcfg, m)
+            state = ICDTrainState(0, lora_r, lora_f, init_optimizer(lora_r, tcfg),
+                                  init_optimizer(lora_f, tcfg))
+            fa.reset_launch_counts()
+            new, metrics = fn(state, batch, torch.Generator(device=cuda).manual_seed(9))
+            torch.cuda.synchronize()
+            out.append((new, {k: float(v) for k, v in metrics.items()}, dict(fa.LAUNCH_SHAPES)))
+    finally:
+        dist.destroy_process_group()
+    (plain, m_plain, l_plain), (meshed, m_mesh, l_mesh) = out
+    assert m_mesh == m_plain and l_mesh == l_plain
+    assert sum(n for key, n in l_plain.items() if key[0] == "flash_bwd_dq") > 0
+    def tensors(state):
+        trees = [state.lora_reverse, state.lora_forward] + [
+            opt[part] for opt in (state.opt_reverse, state.opt_forward) for part in ("mu", "nu")]
+        return [t for tree in trees for ab in tree.values() for t in ab.values()]
+    a, c = tensors(plain), tensors(meshed)
+    assert len(a) == len(c) > 0 and all(torch.equal(x, y) for x, y in zip(a, c))

@@ -1,0 +1,428 @@
+"""The port's distribution layer (`invertible_cd_tpu_torch/parallel/`) on the CPU.
+
+Without processes: `make_mesh`'s shapes and errors, `shard_batch`'s and the
+executor's divisibility errors against the JAX package's own text, and
+`param_sharding` on the tiny bundle against JAX `param_sharding` on the
+8-device virtual mesh, axis for axis through the weight bridge.
+
+With one module-scoped run of two gloo ranks (`_torch_dist.run_ranks`, one
+process a rank, no JAX there), whose results the parametrised cases read:
+a dp = 2 step, an fsdp = 2 step and a dp = 2 step drawing from its
+generator, each against the one-process port step on the global batch;
+both ranks' adapters bit for bit; each rank's resident base bytes under
+fsdp, and the whole weights a step gathers, freed when it returns;
+`sample_for_fid` and `eval_inversion` gathered on every rank against
+the one-process sweep; dp = 2 serving against the one-process executor;
+the generate CLI's files at two ranks against one; the train CLI at
+`--fsdp 2` against one process.
+"""
+import dataclasses
+import filecmp
+import json
+import os
+import sys
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from invertible_cd_tpu import serving as jserving
+from invertible_cd_tpu.models import AutoencoderKL as JVAE
+from invertible_cd_tpu.models import CLIPTextConfig as JCLIPConfig
+from invertible_cd_tpu.models import CLIPTextModel as JCLIP
+from invertible_cd_tpu.models import UNet2DCondition as JUNet
+from invertible_cd_tpu.models import UNetConfig as JUNetConfig
+from invertible_cd_tpu.models import VAEConfig as JVAEConfig
+from invertible_cd_tpu.parallel import make_mesh as jmake_mesh
+from invertible_cd_tpu.parallel import param_sharding as jparam_sharding
+from invertible_cd_tpu.parallel import shard_batch as jshard_batch
+from invertible_cd_tpu_torch.cli import generate, train_icd
+from invertible_cd_tpu_torch.models import convert
+from invertible_cd_tpu_torch.models.layers import fan_in_init_
+from invertible_cd_tpu_torch.models.unet2d import UNet2DCondition, UNetConfig
+from invertible_cd_tpu_torch.parallel import (
+    Mesh, make_mesh, param_sharding, process_local_batch_slice, shard_batch)
+from invertible_cd_tpu_torch.serving import BatchingExecutor
+from invertible_cd_tpu_torch.testing import tiny_bundle
+from invertible_cd_tpu_torch.training import LossConfig, TrainConfig, init_train_state, make_train_step
+from invertible_cd_tpu_torch.training.eval import eval_inversion, sample_for_fid
+
+from _torch_dist import OrderScorer, _tiny_world, ev_decode, ev_fns, run_ranks
+from _torch_jax_params import traced_init
+
+TINY = ["--model", "tiny", "--device", "cpu"]
+B = 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's tiny models (see
+    `test_torch_baselines.py`)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard(monkeypatch):
+    """The train CLI's logger takes TensorBoard whenever it imports (see
+    `test_torch_training.py`)."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+
+
+# ---------------------------------------------------------------------------
+# layout, without processes
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("kw,error,match", [
+    ({}, None, None),
+    ({"fsdp": 1, "dp": 1}, None, None),
+    ({"dp": 2}, AssertionError, "mesh 2x1x1x1 != 1 devices"),
+    ({"fsdp": 2}, AssertionError, r"\(1, 2, 1, 1\)"),
+    ({"sp": 2}, NotImplementedError, "17c"),
+    ({"tp": 2}, NotImplementedError, "17c"),
+])
+def test_make_mesh_shapes_and_errors(kw, error, match):
+    """One process, no process group: a 1x1x1x1 mesh (JAX's on one
+    device), JAX's assertion texts, and sp / tp refused until item 17c."""
+    if error is None:
+        mesh = make_mesh(**kw)
+        assert mesh.shape == {"dp": 1, "fsdp": 1, "sp": 1, "tp": 1} and mesh.size == 1
+        assert (mesh.rank, mesh.rows, mesh.row, mesh.device_mesh) == (0, 1, 0, None)
+        return
+    with pytest.raises(error, match=match):
+        make_mesh(**kw)
+
+
+@pytest.mark.parametrize("dp,b", [(8, 6), (4, 6), (2, 3), (8, 12)])
+def test_shard_batch_error_matches_jax(dp, b):
+    """The same ValueError, word for word, as JAX's `shard_batch` on a dp
+    mesh of as many virtual devices."""
+    x = np.zeros((b, 2), np.float32)
+    with pytest.raises(ValueError) as want:
+        jshard_batch({"x": x}, jmake_mesh(dp=dp, devices=jax.devices()[:dp]))
+    with pytest.raises(ValueError) as got:
+        shard_batch({"x": torch.from_numpy(x)}, Mesh(dp=dp))
+    assert str(got.value) == str(want.value)
+
+
+def test_shard_batch_and_local_slice():
+    """Rank r of dp x fsdp keeps rows [r B/n, (r + 1) B/n) of every leaf."""
+    batch = {"a": torch.arange(8), "b": {"c": torch.arange(16).reshape(8, 2)}}
+    for rank, (dp, fsdp) in [(0, (2, 1)), (1, (2, 1)), (3, (2, 2)), (1, (1, 4))]:
+        mesh = Mesh(dp=dp, fsdp=fsdp, rank=rank)
+        start, size = process_local_batch_slice(8, mesh)
+        assert (start, size) == (rank * 8 // (dp * fsdp), 8 // (dp * fsdp))
+        got = shard_batch(batch, mesh)
+        assert torch.equal(got["a"], torch.arange(start, start + size))
+        assert torch.equal(got["b"]["c"], batch["b"]["c"][start:start + size])
+    assert process_local_batch_slice(8, Mesh()) == (0, 8)
+
+
+def test_executor_batch_sizes_must_divide_dp():
+    """A batch size that does not divide over dp raises JAX's ValueError."""
+    stub = types.SimpleNamespace(default_guidance=lambda: None)
+    with pytest.raises(ValueError) as want:
+        jserving.BatchingExecutor(stub, batch_sizes=(3, 4, 6), guidance=object(),
+                                  mesh=jmake_mesh(dp=4, devices=jax.devices()[:4]))
+    with pytest.raises(ValueError, match="must divide") as got:
+        BatchingExecutor(stub, batch_sizes=(3, 4, 6), guidance=object(), mesh=Mesh(dp=4))
+    assert str(got.value) == str(want.value)
+
+
+@pytest.fixture(scope="module")
+def flax_tiny_trees():
+    """The tiny bundle's UNet, VAE and CLIP text trees (JAX), shapes only."""
+    ucfg, vcfg, ccfg = JUNetConfig.tiny(), JVAEConfig.tiny(), JCLIPConfig.tiny()
+    return {
+        "unet": (traced_init(JUNet(ucfg), jnp.zeros((1, 8, 8, 4)), jnp.zeros((1,), jnp.int32),
+                             jnp.zeros((1, 77, ucfg.cross_attention_dim)),
+                             jnp.zeros((1, ucfg.time_cond_proj_dim))),
+                 convert.unet_state_dict_from_flax),
+        "vae": (traced_init(JVAE(vcfg), jnp.zeros((1, 16, 16, 3))), convert.vae_state_dict_from_flax),
+        "text": (traced_init(JCLIP(ccfg), jnp.zeros((1, 77), jnp.int32)),
+                 convert.clip_state_dict_from_flax),
+    }
+
+
+@pytest.mark.parametrize("fsdp,tp,min_size", [(2, 1, 256), (4, 1, 256), (8, 1, 1024), (2, 1, 2**16),
+                                              (2, 2, 256), (1, 4, 256)])
+@pytest.mark.parametrize("model", ["unet", "vae", "text"])
+def test_param_sharding_matches_jax(flax_tiny_trees, model, fsdp, tp, min_size):
+    """The port's `param_sharding` on the bridged state dict splits each
+    tensor over the same mesh axis, along the same tensor axis, as JAX's on
+    the Flax tree: every JAX leaf becomes a marker (its index along the
+    axis JAX splits, or zeros), carried through `models.convert`, and the
+    axis the port tensor varies along must be the port's choice."""
+    tree, to_torch = flax_tiny_trees[model]
+    jmesh = jmake_mesh(dp=8 // (fsdp * tp), fsdp=fsdp, tp=tp)
+    specs = jparam_sharding(tree, jmesh, min_size=min_size)
+
+    def marker(leaf, sharding, code):
+        spec = tuple(sharding.spec) + (None,) * (len(leaf.shape) - len(sharding.spec))
+        axes = [i for i, a in enumerate(spec) if a is not None]
+        out = np.zeros(leaf.shape, np.float32)
+        if axes:
+            idx = [1] * len(leaf.shape)
+            idx[axes[0]] = leaf.shape[axes[0]]
+            out = out + (np.arange(leaf.shape[axes[0]]).reshape(idx) if code is None
+                         else {"fsdp": 1.0, "tp": 2.0}[spec[axes[0]]])
+        return out
+    where = to_torch(jax.tree.map(lambda l, s: marker(l, s, None), tree, specs))
+    names = to_torch(jax.tree.map(lambda l, s: marker(l, s, "name"), tree, specs))
+    got = param_sharding(where, Mesh(dp=8 // (fsdp * tp), fsdp=fsdp, tp=tp), min_size=min_size)
+    assert got.keys() == where.keys()
+    split = 0
+    for key, t in where.items():
+        want = [None] * t.dim()
+        for axis in range(t.dim()):
+            if t.shape[axis] > 1 and bool((t.diff(dim=axis) != 0).any()):
+                want[axis] = {1.0: "fsdp", 2.0: "tp"}[float(names[key].max())]
+        assert got[key] == tuple(want), key
+        split += any(want)
+    if min_size < 2**16 and fsdp > 1:
+        assert split > len(where) // 4  # the small min_size splits real leaves
+
+
+# ---------------------------------------------------------------------------
+# two gloo ranks
+# ---------------------------------------------------------------------------
+def _tiny_base():
+    unet = UNet2DCondition(UNetConfig.tiny())
+    fan_in_init_(unet, torch.Generator().manual_seed(0))
+    return {k: v.clone() for k, v in unet.state_dict().items()}
+
+
+def _train_inputs():
+    base = _tiny_base()
+    tcfg = TrainConfig(lora_rank=4, loss=LossConfig(w_embed_dim=UNetConfig.tiny().time_cond_proj_dim))
+    state = init_train_state(torch.Generator().manual_seed(1), base, tcfg)
+    gen = torch.Generator().manual_seed(2)
+    for lora in (state.lora_reverse, state.lora_forward):  # non-zero adapters
+        for ab in lora.values():
+            ab["up"] = 0.03 * torch.randn(ab["up"].shape, generator=gen)
+    rng = np.random.default_rng(0)
+    batch = {"latents": torch.from_numpy(rng.normal(size=(B, 8, 8, 4)).astype(np.float32)),
+             "context": torch.from_numpy((0.1 * rng.normal(size=(B, 77, 32))).astype(np.float32)),
+             "noise": torch.from_numpy(rng.normal(size=(B, 8, 8, 4)).astype(np.float32))}
+    draws = {"w": torch.tensor([7.0, 15.0]), "reverse_index": torch.tensor([3, 41]),
+             "forward_index": torch.tensor([17, 0]), "forward_preserve_index": torch.tensor([2, 0]),
+             "reverse_preserve_index": torch.tensor([1, 3])}
+    steps = {
+        "dp": dict(fsdp=1, tcfg=tcfg, draws=draws),
+        "fsdp": dict(fsdp=2, tcfg=tcfg, draws=draws, min_size=256),
+        "dp_generator": dict(fsdp=1, tcfg=tcfg, seed=3, keys=("latents", "context")),
+        "fsdp_lazy": dict(fsdp=2, tcfg=dataclasses.replace(tcfg, lazy_lora=True), draws=draws,
+                          min_size=256),
+    }
+    return dict(base=base, state=state, batch=batch, steps=steps)
+
+
+SERVE = dict(prompts=["a red fox", "a cat", "prompt variant 2", "a dog"], seeds=[11, 2**40 + 3, -5, 0])
+EVAL = dict(prompts=[f"prompt {i}" for i in range(5)], batch_size=2, seed=4,
+            latents=torch.from_numpy(np.random.default_rng(5).normal(size=(5, 8, 8, 4)).astype(np.float32)),
+            context=torch.from_numpy(np.random.default_rng(6).normal(size=(5, 77, 32)).astype(np.float32)))
+
+
+def _generate_argv(out):
+    return TINY + ["--prompt", "a cat", "--prompt", "a dog", "--prompt", "a red fox",
+                   "--batch_size", "1", "--calc_metrics", "--out", out]
+
+
+def _train_argv(out):
+    return TINY + ["--synthetic_data", "--batch_size", "2", "--lora_rank", "4", "--max_steps", "2",
+                   "--log_every", "1", "--checkpointing_steps", "2", "--validation_steps", "0",
+                   "--inversion_eval_steps", "2", "--inversion_eval_samples", "3",
+                   "--output_dir", out]
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("two_ranks")
+    payload = _train_inputs()
+    payload.update(eval=EVAL, serve=SERVE, generate_argv=_generate_argv(str(tmp / "gen")),
+                   train_argv=_train_argv(str(tmp / "train")) + ["--fsdp", "2"])
+    return dict(ranks=run_ranks("parallel", payload, tmp), inputs=payload, tmp=tmp)
+
+
+@pytest.fixture(scope="module")
+def one_process(two_ranks):
+    """The one-process port step of each case on the global batch."""
+    p = two_ranks["inputs"]
+    unet, schedule, solver = _tiny_world(p["base"])
+    out = {}
+    for name, run in p["steps"].items():
+        step_fn = make_train_step(unet, p["base"], p["base"], solver, schedule, run["tcfg"])
+        gen = None if run.get("seed") is None else torch.Generator().manual_seed(run["seed"])
+        batch = {k: v for k, v in p["batch"].items() if k in run.get("keys", p["batch"])}
+        out[name] = step_fn(p["state"], batch, gen, run.get("draws"))
+    return out
+
+
+def _flat(lora):
+    return {f"{k}/{n}": t for k, ab in lora.items() for n, t in ab.items()}
+
+
+@pytest.mark.parametrize("name", ["dp", "fsdp", "dp_generator", "fsdp_lazy"])
+def test_two_rank_step_equals_one_process(two_ranks, one_process, name):
+    """Each rank's step on its row equals the one-process step on both rows
+    (the generator case draws noise, w and the indices at the global
+    batch): metrics within 1e-5 relative (measured: 2e-6); Adam's first
+    moments (0.1 x the clipped, averaged gradients) within rtol 1e-3 and
+    1e-4 x their largest entry, the tolerance the step is held to JAX by
+    (measured: 0.2 of it); the adapters' moves within 5e-8 where the
+    gradient is clear of Adam's epsilon (|mu| > 1e-6; measured 7.5e-9)."""
+    want_state, want_metrics = one_process[name]
+    old = two_ranks["inputs"]["state"]
+    for rank in two_ranks["ranks"]:
+        got = rank["steps"][name]
+        assert got["rows"] == 2
+        assert sorted(got["metrics"]) == sorted(want_metrics)
+        for key, value in want_metrics.items():
+            np.testing.assert_allclose(got["metrics"][key], float(value), rtol=1e-5, err_msg=key)
+        for student in ("reverse", "forward"):
+            mu = _flat(got["state"].__dict__[f"opt_{student}"]["mu"])
+            want_mu = _flat(getattr(want_state, f"opt_{student}")["mu"])
+            peak = max(float(m.abs().max()) for m in want_mu.values())
+            new = _flat(getattr(got["state"], f"lora_{student}"))
+            want_new = _flat(getattr(want_state, f"lora_{student}"))
+            start = _flat(getattr(old, f"lora_{student}"))
+            for key in want_mu:
+                np.testing.assert_allclose(mu[key].numpy(), want_mu[key].numpy(), rtol=1e-3,
+                                           atol=1e-4 * peak, err_msg=f"{student} mu {key}")
+                clear = want_mu[key].abs() > 1e-6
+                np.testing.assert_allclose((new[key] - start[key])[clear].numpy(),
+                                           (want_new[key] - start[key])[clear].numpy(),
+                                           atol=5e-8, rtol=0, err_msg=f"{student} {key}")
+
+
+@pytest.mark.parametrize("name", ["dp", "fsdp", "dp_generator", "fsdp_lazy"])
+def test_two_rank_adapters_identical_on_both_ranks(two_ranks, name):
+    """The averaged gradients are the same bits on both ranks, so are the
+    updated adapters and optimizer states, and the logged metrics."""
+    a, b = (rank["steps"][name] for rank in two_ranks["ranks"])
+    assert (a["row"], b["row"]) == (0, 1)
+    for student in ("lora_reverse", "lora_forward"):
+        for key, t in _flat(getattr(a["state"], student)).items():
+            assert torch.equal(t, _flat(getattr(b["state"], student))[key]), (student, key)
+    for opt in ("opt_reverse", "opt_forward"):
+        for part in ("mu", "nu"):
+            for key, t in _flat(getattr(a["state"], opt)[part]).items():
+                assert torch.equal(t, _flat(getattr(b["state"], opt)[part])[key]), (opt, key)
+    assert a["metrics"] == b["metrics"]
+
+
+@pytest.mark.parametrize("name", ["fsdp", "fsdp_lazy"])
+def test_fsdp_resident_base_bytes(two_ranks, name):
+    """Under fsdp = 2 each rank holds half of every tensor of at least
+    min_size elements, and the smaller ones whole; base and teacher are
+    one set of weights here, held once."""
+    base = two_ranks["inputs"]["base"]
+    large = sum(t.numel() * t.element_size() for t in base.values() if t.numel() >= 256)
+    small = sum(t.numel() * t.element_size() for t in base.values() if t.numel() < 256)
+    for rank in two_ranks["ranks"]:
+        resident = rank["steps"][name]["resident"]
+        assert resident <= large // 2 + small
+        assert large > 4 * small  # the split covers most of the bytes
+    assert all(rank["steps"]["dp"]["resident"] == large + small for rank in two_ranks["ranks"])
+
+
+@pytest.mark.parametrize("name", ["fsdp", "fsdp_lazy"])
+def test_fsdp_step_holds_whole_weights_then_frees_them(two_ranks, name):
+    """Under fsdp = 2 a step gathers every split tensor whole at its start
+    and frees it when it returns: during the step a rank holds its resident
+    bytes plus the gathered ones, which is the whole weights plus its
+    shards of the split tensors (more than at fsdp = 1); between steps only
+    the resident bytes."""
+    base = two_ranks["inputs"]["base"]
+    whole = sum(t.numel() * t.element_size() for t in base.values())
+    for rank in two_ranks["ranks"]:
+        got = rank["steps"][name]
+        assert got["gathered"] > 0 and got["gathered"] % 2 == 0
+        assert got["resident"] + got["gathered"] // 2 == whole  # shards + whole tensors left whole
+        assert got["resident"] + got["gathered"] > whole  # the step's peak exceeds fsdp = 1's
+        assert got["freed"]
+    assert all(rank["steps"]["dp"]["gathered"] == 0 for rank in two_ranks["ranks"])
+
+
+@pytest.mark.parametrize("which", ["sample_for_fid", "eval_inversion"])
+def test_gathered_eval_equals_one_process(two_ranks, which):
+    """Each rank ran its stride of the batches and holds every result, in
+    order, equal to the one-process sweep (the FID stand-in reads every
+    image in order)."""
+    if which == "sample_for_fid":
+        pipe = tiny_bundle(None)
+        want = sample_for_fid(lambda b, g: pipe.generate(list(b), generator=g)[0], EVAL["prompts"],
+                              EVAL["batch_size"], seed=EVAL["seed"], device="cpu")
+        assert len(want) == 5
+        for rank in two_ranks["ranks"]:
+            got = rank[which]
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                np.testing.assert_array_equal(a, b)
+    else:
+        want = eval_inversion(*ev_fns(), EVAL["latents"], batch_size=EVAL["batch_size"],
+                              decode_fn=ev_decode, scorer=OrderScorer(), val_context=EVAL["context"])
+        assert set(want) == {"inversion_latent_mse", "inversion_fid"}
+        for rank in two_ranks["ranks"]:
+            assert rank[which] == want
+
+
+def test_dp_serving_matches_executor(two_ranks):
+    """A burst of 4 served at dp = 2 (2 rows a rank) against the
+    one-process executor's batch of 4, at `test_serving.py`'s 2e-5 / 1e-4:
+    a row's rounding depends on the batch around it."""
+    rank0, rank1 = two_ranks["ranks"]
+    assert rank0["serve_stats"]["batches"] == 1 and rank1["served_batches"] == 1
+    pipe = tiny_bundle(None)
+    with BatchingExecutor(pipe, batch_size=4, max_delay=1.0) as ex:
+        futs = [ex.submit(p, seed=s) for p, s in zip(SERVE["prompts"], SERVE["seeds"])]
+        want = np.stack([f.result(timeout=120) for f in futs])
+    got = rank0["served"]
+    assert got.shape == want.shape == (4, 32, 32, 3)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=2e-5)
+
+
+def test_generate_cli_two_ranks_union(two_ranks, tmp_path):
+    """The two ranks' files (each under its global index) are the one-rank
+    run's, byte for byte; rank 0 wrote the manifest and metrics of all
+    three images."""
+    two, one = str(two_ranks["tmp"] / "gen"), str(tmp_path / "one")
+    generate.main(_generate_argv(one))
+    names = sorted(f for f in os.listdir(one) if f.endswith(".jpg"))
+    assert names == [f"{i:06d}.jpg" for i in range(3)]
+    assert sorted(f for f in os.listdir(two) if f.endswith(".jpg")) == names
+    for name in names:
+        assert filecmp.cmp(os.path.join(one, name), os.path.join(two, name), shallow=False), name
+    for name in ("manifest.json", "metrics.json"):
+        with open(os.path.join(one, name)) as f1, open(os.path.join(two, name)) as f2:
+            a, b = json.load(f1), json.load(f2)
+        if name == "manifest.json":
+            a["files"] = [os.path.basename(p) for p in a["files"]]
+            b["files"] = [os.path.basename(p) for p in b["files"]]
+        assert a == b and (name != "metrics.json" or a["n_images"] == 3)
+
+
+def test_train_cli_fsdp_two_ranks(two_ranks, tmp_path):
+    """The train CLI at `--fsdp 2` over the two ranks (one row each, the
+    base and teacher held as shards, gathered for the inversion eval) ends
+    where one process does: each step's metrics within 1e-5 relative; rank
+    0 alone wrote metrics.jsonl and the one checkpoint and export."""
+    out = str(two_ranks["tmp"] / "train")
+    want = train_icd.main(_train_argv(str(tmp_path / "one")))
+    for rank in two_ranks["ranks"]:
+        got = rank["train_cli"]
+        assert sorted(got) == sorted(want)
+        for key, value in want.items():
+            if key != "steps_per_sec":
+                np.testing.assert_allclose(got[key], value, rtol=1e-5, err_msg=key)
+    assert sorted(os.listdir(os.path.join(out, "checkpoints"))) == ["2"]
+    assert os.path.exists(os.path.join(out, "export_2", "unet_lora", "lora_weights.safetensors"))
+    rows = [json.loads(line) for line in open(os.path.join(out, "logs", "metrics.jsonl"))]
+    one = [json.loads(line) for line in open(str(tmp_path / "one" / "logs" / "metrics.jsonl"))]
+    assert [r["step"] for r in rows] == [r["step"] for r in one] == [1, 2, 2]
+    np.testing.assert_allclose(rows[-1]["eval/inversion_latent_mse"],
+                               one[-1]["eval/inversion_latent_mse"], rtol=1e-5)

@@ -43,6 +43,7 @@ from invertible_cd_tpu_torch.training.checkpoint import (
 )
 from invertible_cd_tpu_torch.training.trainer import init_optimizer
 
+from _torch_dist import run_ranks
 from _torch_jax_params import seeded_params, traced_init
 
 ENDPOINTS, FORWARD_ENDPOINTS = "0,259,519,779", "259,519,779,999"
@@ -307,13 +308,16 @@ def both_steps(jax_world, port_world):
                 base_before=base_before)
 
 
-def test_full_step_metrics_match_jax(both_steps):
-    """Every metric within 1e-4 relative, the gradient norms within 1e-3."""
-    got, want = both_steps["metrics"], both_steps["want"]["metrics"]
+def _metrics_match_jax(got, want):
     assert sorted(got) == sorted(want) == sorted(METRICS)
     for name in METRICS:
         rtol = 1e-3 if name.endswith("grad_norm") else 1e-4
         np.testing.assert_allclose(float(got[name]), want[name], rtol=rtol, err_msg=name)
+
+
+def test_full_step_metrics_match_jax(both_steps):
+    """Every metric within 1e-4 relative, the gradient norms within 1e-3."""
+    _metrics_match_jax(both_steps["metrics"], both_steps["want"]["metrics"])
     assert both_steps["new"].step == both_steps["want"]["step"] == 1
 
 
@@ -326,13 +330,17 @@ def test_full_step_updates_match_jax(both_steps):
     values whose own ulp is up to 2.4e-7); where the gradient is of the size of
     Adam's epsilon its rounding noise decides the move, which is only bounded
     by lr."""
+    _updates_match_jax(both_steps["state"], both_steps["new"], both_steps["want"])
+
+
+def _updates_match_jax(state, new, want_tree):
     lr = 8e-6
     for student in ("reverse", "forward"):
-        old = _flat(getattr(both_steps["state"], f"lora_{student}"))
-        got = _flat(getattr(both_steps["new"], f"lora_{student}"))
-        want = _flat(both_steps["want"][f"lora_{student}"])
-        got_mu = _flat(getattr(both_steps["new"], f"opt_{student}")["mu"])
-        want_mu = _flat(both_steps["want"][f"mu_{student}"])
+        old = _flat(getattr(state, f"lora_{student}"))
+        got = _flat(getattr(new, f"lora_{student}"))
+        want = _flat(want_tree[f"lora_{student}"])
+        got_mu = _flat(getattr(new, f"opt_{student}")["mu"])
+        want_mu = _flat(want_tree[f"mu_{student}"])
         peak = max(float(m.abs().max()) for m in want_mu.values())
         assert peak > 1e-3
         sign_like = 0
@@ -346,6 +354,30 @@ def test_full_step_updates_match_jax(both_steps):
                                        rtol=0, err_msg=f"{student} {name}")
             assert float(move.abs().max()) <= lr * 1.05 and float(want_move.abs().max()) <= lr * 1.05
         assert sign_like > 0.5 * sum(m.numel() for m in want_mu.values())
+
+
+@pytest.fixture(scope="module")
+def two_rank_step(both_steps, port_world, jax_world, tmp_path_factory):
+    """The step of `both_steps` over two gloo ranks, one row each
+    (`_torch_dist.run_ranks`: two processes, no JAX there), from the same
+    state and the same global batch and draws."""
+    payload = dict(base=port_world["base"], state=_port_state(jax_world, port_world["tcfg"]),
+                   batch=_torch_batch(both_steps["batch"]),
+                   steps={"dp": dict(fsdp=1, tcfg=port_world["tcfg"], draws=both_steps["draws"])})
+    return [r["dp"] for r in run_ranks("train", payload, tmp_path_factory.mktemp("two_rank_step"))]
+
+
+def test_two_rank_step_matches_jax(two_rank_step, both_steps):
+    """Each rank's data-parallel step (its row, the averaged gradients)
+    against JAX's step on the whole batch, at this file's tolerances: the
+    metrics as `test_full_step_metrics_match_jax`, the moments and moves as
+    `test_full_step_updates_match_jax`; both ranks hold the same adapters."""
+    for rank in two_rank_step:
+        assert rank["rows"] == 2
+        _metrics_match_jax(rank["metrics"], both_steps["want"]["metrics"])
+        _updates_match_jax(both_steps["state"], rank["state"], both_steps["want"])
+    a, b = (_flat(r["state"].lora_reverse) for r in two_rank_step)
+    assert all(torch.equal(a[k], b[k]) for k in a)
 
 
 def test_full_step_changes_only_the_adapters(both_steps, port_world, jax_world):
