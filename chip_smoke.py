@@ -14,7 +14,9 @@ nothing of JAX. Phases, each of which must pass:
              (batch 4; B2 also at batch 1, the batch-1 generate's, where
              it splits its key range; then the edit's and SDXL's shapes, B2's
              fp32 build on fp32 inputs with its lse held to the plain lse on
-             q and k rounded to TF32), against its plain fp32 version on
+             q and k rounded to TF32; then phase 5e's: B1 and B2 at sp = 2's
+             Sq = S / 2, batch 1 and 2, and B1 at tp = 2's 4 heads, batch
+             2), against its plain fp32 version on
              the same bf16 inputs (q and k drawn at scale 2 and v at 0.5,
              so outputs are O(1) at every key count; max abs error <= 2e-2
              * min(1, max |reference|)), timed with CUDA events beside
@@ -248,6 +250,27 @@ nothing of JAX. Phases, each of which must pass:
              base bytes. (d) One JSON line: the phase's times, peak memory
              (this process and each rank), launches by batch, the card. No
              dp or fsdp speed: the machine has one card;
+  5e. sp and tp (after 5d): `parallel.spatial` and `parallel.tp` over two
+             ranks sharing the card over gloo (`--dist-worker ... --dist-job
+             sptp`, two subprocesses, each building the seeded SD1.5 bundle;
+             NCCL refuses two ranks on one device). Each rank generates the
+             one-process references of SP_SERVE's first 1 and 2 requests (its
+             peak memory above its resident bytes at sp = 1), and one UNet
+             call at batch 2 on a latent whose rows grow 0.5x to 3x top to
+             bottom, then the same call at sp = 2 (each rank's rows, under
+             `spatial`), within SP_UNET_TOL relative L2 (exact launches);
+             then a lone request and a burst of two are served at dp 1 x sp 2 through
+             `BatchingExecutor(mesh=make_mesh(sp=2))` and `serve_follower`:
+             exact launches per rank (B1 at Sq = S / 2 against Sk = S and at
+             Sq = S / 2 against 77, B2 at (2048, 4096, 512)), the served
+             images within SP_IMAGE_TOL relative L2 of the references, each
+             rank's peak at sp = 2 below its peak at sp = 1 (the split shows
+             in the activation bytes); then each rank's UNet is split over
+             tp = 2 (`tensor_parallel`): one UNet call and one generate at
+             batch 2, exact launches (B1 at 4 heads), within TP_UNET_TOL and
+             TP_IMAGE_TOL of the one-process ones. One JSON line with the
+             readings, times and peaks. No sp or tp speed: two ranks share
+             one card;
   6. harness (run between phases 3 and 4): `cli.exp_softmax.main` runs
              kernel B5's five softmax variants at the tool's headline shape
              (G=128, S=4096, D=64) and the port's (G=32, S=4096, D=40),
@@ -281,6 +304,9 @@ nothing of JAX. Phases, each of which must pass:
      plus phase 5d's counted runs: (a)'s mesh step with phase 5's, on the
      batch-4 rows, and its burst at 4; (b)'s two ranks' steps at 1 and their
      served rows at 2 (the ranks count in their own processes and report);
+     plus phase 5e's: both ranks' served sp runs at 1 and 2 (the Sq = S / 2
+     rows) and the tp decode's B2 at 2; the tp runs' B1 launches at 4 heads
+     go to the `TP_SHAPES` rows alone;
      B5's rows carry the harness's; Q1's rows the counted int8 runs of
      phase 4f (the generates at batch 4 and 1, invert and edit) and of the
      SDXL int8 generate, at each row's launch shape.
@@ -293,7 +319,10 @@ B4 at `BACKWARD_SHAPES` (the d = 160 rows against the plain backward and
 beside SDPA's backward), each printing one JSON line of rows;
 `--dist-fault none|sum` runs phase 5d(b)'s two ranks alone with the
 trainer's gradient reduction skipped or summed (`plant_reduction_fault`)
-and prints what the step's gates read, checking nothing;
+and prints what the step's gates read, checking nothing; `--sp-fault
+halo|gn|kv` runs phase 5e's two ranks alone with sp's halo rows, GroupNorm's
+reduction or the K/V gather taken out (`plant_sp_fault`) and prints what
+the sp gate reads, checking nothing;
 `--package-root DIR` imports the package (and builds its kernels)
 from another checkout, e.g. a parent commit unpacked under `build/`, so
 that two versions of the kernels are timed in one call by the same code.
@@ -450,7 +479,17 @@ SHAPES = [
 ] + [  # the eval's FID sweeps (phase 5c) generate at batch 8
     ("flash_fwd", 8, sq, sk, 8, d) for sq, d in ((4096, 40), (1024, 80), (256, 160), (64, 160))
     for sk in (sq, 77)
-] + [("flash_fwd_streamed", 8, 4096, 4096, 1, 512)]
+] + [("flash_fwd_streamed", 8, 4096, 4096, 1, 512)] + [
+    # phase 5e at sp = 2, batch 1 and 2 (the served lone request and burst):
+    # a rank's queries (half the tokens) against the whole height's keys, the
+    # cross layers at half the queries, the VAE mid-block's head likewise
+    ("flash_fwd", b, sq // 2, sk, 8, d) for b in (1, 2)
+    for sq, d in ((4096, 40), (1024, 80), (256, 160), (64, 160)) for sk in (sq, 77)
+] + [("flash_fwd_streamed", b, 2048, 4096, 1, 512) for b in (1, 2)]
+# phase 5e at tp = 2, batch 2: every UNet layer at half its heads
+TP_SHAPES = [("flash_fwd", 2, sq, sk, 4, d)
+             for sq, d in ((4096, 40), (1024, 80), (256, 160), (64, 160)) for sk in (sq, 77)]
+SHAPES += TP_SHAPES
 # the SDXL training phase (5b): its batch (the reference's is 8,
 # configs/train_sdxl_lora.json) and steps
 XL_TRAIN_BATCH = 2
@@ -665,6 +704,7 @@ def phase_kernels(card: str):
             "kernel": name,
             "batch": batch,
             "shape": [sq, sk, d],
+            "spec": (name, batch, sq, sk, h, d),
             "route": "cuda",
             "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
@@ -3504,12 +3544,15 @@ def counter_of(pairs) -> collections.Counter:
     return collections.Counter({tuple(k): n for k, n in pairs})
 
 
-def run_dist_workers(fault=None) -> list:
-    """Phase 5d(b)'s two ranks (`dist_worker`, two processes of this script
-    over gloo on the one card); each rank's JSON, in rank order."""
+def run_dist_workers(fault=None, job: str = "dp") -> list:
+    """Phase 5d(b)'s two ranks (`dist_worker`), or with job "sptp" phase
+    5e's (`sptp_worker`): two processes of this script over gloo on the one
+    card, `fault` passed on; each rank's JSON, in rank order."""
     import tempfile
 
-    extra = ["--dist-fault", fault] if fault else []
+    extra = ["--dist-job", job]
+    if fault:
+        extra += ["--dist-fault" if job == "dp" else "--sp-fault", fault]
     with tempfile.TemporaryDirectory() as tmp:
         port = free_port()
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker",
@@ -3528,7 +3571,7 @@ def run_dist_workers(fault=None) -> list:
             check(p.returncode == 0, f"(b) rank {r} exited {p.returncode}:\n{log[-4000:]}")
         ranks = []
         for r in range(2):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            with open(os.path.join(tmp, f"{'sptp_' if job == 'sptp' else ''}rank{r}.json")) as f:
                 ranks.append(json.load(f))
     return ranks
 
@@ -3708,6 +3751,291 @@ def phase_distributed(card: str, pipe):
     print(json.dumps(report))
     return launches
 
+
+
+# ---- phase 5e: sp and tp over two ranks sharing the card ----
+# Gates, relative L2 against the one-process run of the same inputs on the
+# same card (bf16): the served images at sp = 2 (halo convolutions, GroupNorm's
+# sums over the pair, K and V gathered: other kernel shapes and summation
+# orders, so other roundings), and at tp = 2 one UNet call's output and the
+# images of a generate (each rank half the heads and FF features; the
+# partial products, each rounded to bf16, summed in fp32 over the pair); and
+# at sp = 2 one UNet call on a latent ramped 0.5x-3x top to bottom, whose
+# halves differ (seeded weights make stationary features, under which a
+# GroupNorm of half the rows, or attention to half the keys, stays close to
+# the whole's). On an H100 80GB HBM3 at 700 W the clean runs read 1.42e-2
+# (sp UNet call), 4.65e-3 (sp images, batch 1 and 2), 1.41e-2 (tp UNet call)
+# and 4.66e-3 (tp images). With one exchange taken out (`--sp-fault`) the sp
+# UNet call read 0.194 (halo), 0.365 (GroupNorm) and 0.211 (K/V gather), the
+# sp images 7.0e-2, 8.6e-3 and 1.09e-2: the images gate catches a lost halo
+# only. The UNet gates are UNET_REL_TOL, the gate of the same UNet's kernel
+# path against its materialised path.
+SP_IMAGE_TOL = 1e-2
+SP_UNET_TOL = 5e-2
+TP_UNET_TOL = 5e-2
+TP_IMAGE_TOL = 1e-2
+SP_SERVE = [("a photo of a corgi on the beach", 7), ("a red fox", 2**40 + 3)]
+SPTP_BATCH = 2  # tp's UNet call and generate
+
+
+def sp_generate_launches(sp: int = 2) -> collections.Counter:
+    """B1 and B2 launches of one SD1.5 generate on one rank at sp: each
+    self layer's queries of the rank's rows against the whole height's keys,
+    each cross layer at the rank's rows, 4 hops; the decode's mid-block head
+    once."""
+    want = collections.Counter()
+    for tokens, layers in LAYERS_PER_CALL.items():
+        for sk in (tokens, 77):
+            want[("flash_fwd", tokens // sp, sk, HEAD_DIM[tokens])] = 4 * layers
+    want[("flash_fwd_streamed", 4096 // sp, 4096, 512)] = 1
+    return want
+
+
+def unet_call_launches() -> collections.Counter:
+    """B1 launches of one SD1.5 UNet call (one process, or one tp rank:
+    the same shapes at half the heads)."""
+    return collections.Counter({k: n // 4 for k, n in serve_launches_per_batch().items()
+                                if k[0] == "flash_fwd"})
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def plant_sp_fault(fault: str):
+    """Take one of sp's exchanges out of this process: "halo" pads a
+    rank's rows with zeros instead of its neighbours' rows, "gn" takes
+    GroupNorm's statistics of the rank's rows alone, "kv" attends to the
+    rank's own K and V."""
+    from invertible_cd_tpu_torch.models import attention
+    from invertible_cd_tpu_torch.parallel import spatial
+
+    if fault == "halo":
+        def no_halo(x, mesh, above=1, below=1):
+            import torch
+
+            zeros = lambda n: x.new_zeros(x.shape[:2] + (n, x.shape[3]))  # noqa: E731
+            return torch.cat([zeros(above), x, zeros(below)], dim=2)
+        spatial.halo = no_halo
+    elif fault == "gn":
+        def local_moments(grouped, mesh):
+            mean = grouped.mean(-1)
+            return mean, (grouped.square().mean(-1) - mean.square()).clamp_min(0.0)
+        spatial.group_moments = local_moments
+    elif fault == "kv":
+        attention.gather_kv = lambda k, v, mesh: (k, v)
+        import invertible_cd_tpu_torch.models.vae as vae
+
+        vae.gather_kv = attention.gather_kv
+
+
+def sptp_worker(rank: int, port: int, out_dir: str, fault=None) -> int:
+    """One of phase 5e's two ranks on the one card, over gloo, on the
+    seeded SD1.5 bundle (with `fault`, under `plant_sp_fault`): this rank's
+    one-process generates of SP_SERVE's first 1 and 2 requests (the
+    references, and its peak memory at sp = 1); one UNet call at batch 2 on
+    a ramped latent, one process and at sp = 2; a served lone request, then
+    a served burst of two, at dp = 1 x sp = 2 (rank 0 the executor, rank 1
+    the follower; counts reset just before each and read just after, with
+    the peak); then the UNet split over tp = 2: the UNet call and one
+    generate at batch 2 against the one-process ones. Writes
+    `sptp_rank<r>.json` (and the served images, rank 0)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from invertible_cd_tpu_torch.ops import flash_attention as fa
+    from invertible_cd_tpu_torch.parallel import gather_rows, initialize_distributed, latent_rows, make_mesh
+    from invertible_cd_tpu_torch.parallel.spatial import spatial
+    from invertible_cd_tpu_torch.parallel.tp import tensor_parallel
+    from invertible_cd_tpu_torch.pipelines.pipeline import InvertibleCD
+    from invertible_cd_tpu_torch.serving import BatchingExecutor, request_latents, serve_follower
+
+    t_start = time.perf_counter()
+    if fault:
+        plant_sp_fault(fault)
+    torch.cuda.set_device(0)
+    initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo", device="cuda:0")
+    sp = make_mesh(sp=2, device="cuda")
+    tp = make_mesh(tp=2, device="cuda")
+    pipe = InvertibleCD.sd15(device="cuda", dtype=torch.bfloat16, seed=0)
+    out = {"rank": rank, "sp_coord": sp.coordinate("sp"), "tp_coord": tp.coordinate("tp")}
+    prompts = [p for p, _ in SP_SERVE]
+    seeds = [s for _, s in SP_SERVE]
+
+    # ---- the one-process references, and the peak at sp = 1 ----
+    ref, out["peak_gib"] = {}, {"sp1": {}, "sp2": {}}
+    for b in (1, 2):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ref[b] = pipe.generate(prompts[:b], latent=request_latents(pipe, seeds[:b]))[0]
+        torch.cuda.synchronize()
+        out["peak_gib"]["sp1"][str(b)] = (torch.cuda.max_memory_allocated() - base) / 2**30
+    out["resident_gib"] = torch.cuda.memory_allocated() / 2**30
+
+    # ---- one UNet call at batch 2, one process, then at sp = 2 ----
+    # the latent's rows grow from 0.5 to 3 times N(0, 1) top to bottom, so the
+    # two halves' statistics differ (seeded weights make stationary features,
+    # under which a GroupNorm of half the rows or attention to half the keys
+    # stays close to the whole's)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    unet = pipe.unets["reverse"]
+    ramp = torch.linspace(0.5, 3.0, 64, device="cuda").view(1, 1, 64, 1)
+    lat = torch.randn((SPTP_BATCH, 4, 64, 64), generator=gen, device="cuda") * ramp
+    ctx = torch.randn((SPTP_BATCH, 77, 768), generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn((SPTP_BATCH, unet.cfg.time_cond_proj_dim), generator=gen, device="cuda")
+    with torch.inference_mode():
+        unet_ref = unet(lat, 519, ctx, w_cond=w)
+        dist.barrier()
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        with spatial(sp):
+            rows = unet(latent_rows(lat, sp), 519, ctx, w_cond=w)
+        torch.cuda.synchronize()
+        out["sp_unet_launches"] = [[list(k), n] for k, n in fa.LAUNCH_SHAPES.items()]
+        # ---------------------------------------------------------------------
+        out["sp_unet_rows"] = list(rows.shape)
+        out["sp_unet_rel_l2"] = rel_l2(gather_rows(rows, sp), unet_ref)
+    del rows
+
+    # ---- served at sp = 2: a lone request, then a burst of two ----
+    out["serve"] = {}
+    for b in (1, 2):
+        dist.barrier()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        if rank == 0:
+            with BatchingExecutor(pipe, batch_size=b, max_delay=1.0, mesh=sp) as ex:
+                futs = [ex.submit(p, seed=s) for p, s in SP_SERVE[:b]]
+                served = np.stack([f.result(timeout=600) for f in futs])
+                stats = ex.stats()
+        else:
+            stats = {"batches": serve_follower(pipe, sp)}
+        torch.cuda.synchronize()
+        rec = {"s": time.perf_counter() - t0, "stats": stats,
+               "launches": [[list(k), n] for k, n in fa.LAUNCH_SHAPES.items()]}
+        # -------------------------------------------------------------------
+        out["peak_gib"]["sp2"][str(b)] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        if rank == 0:
+            got = torch.from_numpy(served)
+            want = ref[b].cpu()
+            rec.update(rel_l2=rel_l2(got, want), max_abs=(got - want).abs().max().item(),
+                       finite_01=bool(torch.isfinite(got).all() and got.min() >= 0 and got.max() <= 1),
+                       shape=list(got.shape))
+        out["serve"][str(b)] = rec
+
+    # ---- tp = 2: the UNet call and one generate at batch 2 ----
+    tp_latent = request_latents(pipe, seeds[:SPTP_BATCH])
+    tensor_parallel(unet, tp)
+    dist.barrier()
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        unet_tp = unet(lat, 519, ctx, w_cond=w)
+    torch.cuda.synchronize()
+    out["tp_unet_s"] = time.perf_counter() - t0
+    out["tp_unet_launches"] = [[list(k), n] for k, n in fa.LAUNCH_SHAPES.items()]
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    tp_images = pipe.generate(prompts[:SPTP_BATCH], latent=tp_latent)[0]
+    torch.cuda.synchronize()
+    out["tp_generate_s"] = time.perf_counter() - t0
+    out["tp_generate_launches"] = [[list(k), n] for k, n in fa.LAUNCH_SHAPES.items()]
+    # -----------------------------------------------------------------------
+    out["tp_unet_rel_l2"] = rel_l2(unet_tp, unet_ref)
+    out["tp_unet_finite"] = bool(torch.isfinite(unet_tp).all())
+    out["tp_images_rel_l2"] = rel_l2(tp_images, ref[SPTP_BATCH])
+    out["tp_images_finite_01"] = bool(torch.isfinite(tp_images).all() and tp_images.min() >= 0
+                                      and tp_images.max() <= 1)
+    out["tp_heads"] = sorted({m.heads for m in unet.modules() if getattr(m, "tp_mesh", None) is not None})
+    out["wall_s"] = time.perf_counter() - t_start
+    with open(os.path.join(out_dir, f"sptp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_sp_fault(fault: str):
+    """`--sp-fault`: phase 5e's two ranks with one of sp's exchanges taken
+    out (`plant_sp_fault`), to show what the gates read under the fault;
+    prints rank 0's readings, checks nothing."""
+    r0, r1 = run_dist_workers(job="sptp", fault=fault)
+    print(json.dumps({"sp_fault": fault, "tolerances": {"sp_images": SP_IMAGE_TOL, "sp_unet": SP_UNET_TOL},
+                      "sp_unet_rel_l2": [r0["sp_unet_rel_l2"], r1["sp_unet_rel_l2"]],
+                      "sp_images_rel_l2": {b: r0["serve"][b]["rel_l2"] for b in r0["serve"]},
+                      "sp_images_max_abs": {b: r0["serve"][b]["max_abs"] for b in r0["serve"]}}))
+
+
+def phase_sp_tp(card: str):
+    """Phase 5e: sp and tp (`parallel.spatial`, `parallel.tp`) over two
+    ranks sharing the card over gloo (NCCL refuses two ranks on one device).
+    Returns ({batch: launches} of both ranks' served sp runs and the tp
+    phase's B2, the tp phase's B1 launches at half the heads, batch 2)."""
+    t_phase = time.perf_counter()
+    report = {"phase": "5e sp and tp", "card": card}
+    r0, r1 = ranks = run_dist_workers(job="sptp")
+    report["workers_wall_s"] = time.perf_counter() - t_phase
+    launches = collections.defaultdict(collections.Counter)
+    tp_split = collections.Counter()
+    want_tp = unet_call_launches() + serve_launches_per_batch()
+    for rk in ranks:
+        r = rk["rank"]
+        check((rk["sp_coord"], rk["tp_coord"]) == (r, r), f"rank {r}: mesh coordinates")
+        for b in ("1", "2"):
+            got = counter_of(rk["serve"][b]["launches"])
+            check(got == sp_generate_launches(), f"rank {r}: served batch {b} launches {dict(got)}")
+            launches[int(b)] += got
+        check(rk["peak_gib"]["sp2"]["2"] < rk["peak_gib"]["sp1"]["2"],
+              f"rank {r}: peak above its resident bytes at sp = 2 {rk['peak_gib']} not below sp = 1's")
+        got = counter_of(rk["tp_unet_launches"]) + counter_of(rk["tp_generate_launches"])
+        check(got == want_tp, f"rank {r}: tp launches {dict(got)}")
+        for k, n in got.items():
+            (tp_split if k[0] == "flash_fwd" else launches[SPTP_BATCH])[k] += n
+        got = counter_of(rk["sp_unet_launches"])
+        check(got == collections.Counter({k: n // 4 for k, n in sp_generate_launches().items()
+                                          if k[0] == "flash_fwd"}), f"rank {r}: sp UNet launches {dict(got)}")
+        launches[SPTP_BATCH] += got
+        check(rk["sp_unet_rows"] == [SPTP_BATCH, 4, 32, 64], f"rank {r}: sp rows {rk['sp_unet_rows']}")
+        check(rk["sp_unet_rel_l2"] <= SP_UNET_TOL,
+              f"rank {r}: sp = 2 UNet call relative L2 {rk['sp_unet_rel_l2']} (tol {SP_UNET_TOL})")
+        check(rk["tp_heads"] == [4], f"rank {r}: tp heads {rk['tp_heads']}")
+        check(rk["tp_unet_finite"] and rk["tp_images_finite_01"], f"rank {r}: tp output not finite")
+        check(rk["tp_unet_rel_l2"] <= TP_UNET_TOL and rk["tp_images_rel_l2"] <= TP_IMAGE_TOL,
+              f"rank {r}: tp off: UNet {rk['tp_unet_rel_l2']} (tol {TP_UNET_TOL}), images "
+              f"{rk['tp_images_rel_l2']} (tol {TP_IMAGE_TOL})")
+    for b in ("1", "2"):
+        s = r0["serve"][b]
+        check(s["stats"]["batches"] == 1 and r1["serve"][b]["stats"]["batches"] == 1,
+              f"served batch {b}: stats {s['stats']} / {r1['serve'][b]['stats']}")
+        check(s["finite_01"] and s["shape"] == [int(b), 512, 512, 3], f"served batch {b}: {s['shape']}")
+        check(s["rel_l2"] <= SP_IMAGE_TOL,
+              f"sp = 2 served batch {b}: relative L2 {s['rel_l2']} to the one-process generate "
+              f"(tol {SP_IMAGE_TOL})")
+    report["sp"] = {b: {k: r0["serve"][b][k] for k in ("rel_l2", "max_abs", "s")} for b in r0["serve"]}
+    report["sp_unet_rel_l2"] = [rk["sp_unet_rel_l2"] for rk in ranks]
+    report["peak_gib"] = {f"rank{rk['rank']}": rk["peak_gib"] for rk in ranks}
+    report["resident_gib"] = [rk["resident_gib"] for rk in ranks]
+    report["tp"] = {k: [rk[k] for rk in ranks] for k in ("tp_unet_rel_l2", "tp_images_rel_l2",
+                                                          "tp_unet_s", "tp_generate_s")}
+    report["rank_wall_s"] = [rk["wall_s"] for rk in ranks]
+    print(f"sp and tp (two ranks on one card over gloo, {card}): sp = 2 UNet call at batch "
+          f"{SPTP_BATCH}, relative L2 to the one-process call {r0['sp_unet_rel_l2']:.3e} / "
+          f"{r1['sp_unet_rel_l2']:.3e} (tol {SP_UNET_TOL}); served at dp 1 x sp 2, relative L2 to "
+          f"the one-process generate: batch 1 {r0['serve']['1']['rel_l2']:.3e}, batch 2 "
+          f"{r0['serve']['2']['rel_l2']:.3e} (tol {SP_IMAGE_TOL}); tp = 2: UNet call "
+          f"{r0['tp_unet_rel_l2']:.3e} / {r1['tp_unet_rel_l2']:.3e} (tol {TP_UNET_TOL}), generate "
+          f"{r0['tp_images_rel_l2']:.3e} / {r1['tp_images_rel_l2']:.3e} (tol {TP_IMAGE_TOL}); "
+          f"peak GiB above resident, rank 0 sp 1 / sp 2: {r0['peak_gib']}; launches exact")
+    report["phase_s"] = time.perf_counter() - t_phase
+    print(json.dumps(report))
+    return launches, tp_split
 
 # ---- phase 5c: eval and metrics ----
 SCORER_SEED = 5
@@ -4426,6 +4754,11 @@ def parse_args(argv=None):
                         "checked against the plain backward and beside SDPA's backward")
     p.add_argument("--dist-worker", nargs=3, metavar=("RANK", "PORT", "OUT_DIR"), default=None,
                    help=argparse.SUPPRESS)  # one of phase 5d's two ranks (`dist_worker`)
+    p.add_argument("--dist-job", choices=("dp", "sptp"), default="dp",
+                   help=argparse.SUPPRESS)  # which ranks `--dist-worker` runs (5d's or 5e's)
+    p.add_argument("--sp-fault", choices=("halo", "gn", "kv"), default=None,
+                   help="run phase 5e's two ranks only, with sp's halo rows, GroupNorm "
+                        "reduction or K/V gather taken out, and print what the sp gate reads")
     p.add_argument("--dist-fault", choices=("none", "sum"), default=None,
                    help="run phase 5d's two ranks only, with the trainer's gradient reduction "
                         "skipped (none) or summed (sum), and print what the step's gates read")
@@ -4462,6 +4795,8 @@ def main(argv=None) -> int:
         sys.path.insert(0, os.path.abspath(args.package_root))
     if args.dist_worker:
         rank, port, out_dir = args.dist_worker
+        if args.dist_job == "sptp":
+            return sptp_worker(int(rank), int(port), out_dir, args.sp_fault)
         return dist_worker(int(rank), int(port), out_dir, args.dist_fault)
     try:
         import invertible_cd_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
@@ -4470,7 +4805,7 @@ def main(argv=None) -> int:
         card = phase_card()
         phase_build(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv") if args.bwd160_compare
                     else ("flash_fwd", "flash_fwd_streamed", "flash_bwd_dq", "flash_bwd_dkdv")
-                    if args.dist_fault else None)
+                    if args.dist_fault or args.sp_fault else None)
         if args.q1_compare:
             phase_q1_compare()
             return 0
@@ -4482,6 +4817,9 @@ def main(argv=None) -> int:
             return 0
         if args.dist_fault:
             phase_dist_fault(args.dist_fault)
+            return 0
+        if args.sp_fault:
+            phase_sp_fault(args.sp_fault)
             return 0
         rows = timed("kernels", phase_kernels, card) + timed("backward kernels",
                                                               phase_backward_kernels, card)
@@ -4499,6 +4837,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()  # the SDXL bundle is gone
         train_launches = timed("train", phase_training, card, pipe)
         dist_launches = timed("distribution", phase_distributed, card, pipe)
+        sptp_launches, tp_split_launches = timed("sp and tp", phase_sp_tp, card)
         eval_launches, eval_train_launches = timed("eval", phase_eval, card, pipe)
         del pipe
         torch.cuda.empty_cache()  # the SD1.5 bundle is gone
@@ -4520,7 +4859,11 @@ def main(argv=None) -> int:
     none = collections.Counter()
     for row in rows:
         key = (row["kernel"],) + tuple(row["shape"])
+        if row.get("spec") in TP_SHAPES:  # half the heads: phase 5e's tp runs alone
+            row["launches"] = tp_split_launches[key]
+            continue
         row["launches"] = (generate_launches.get(row["batch"], none)[key]
+                           + sptp_launches.get(row["batch"], none)[key]
                            + edit_launches.get(row["batch"], none)[key]
                            + serve_launches.get(row["batch"], none)[key]
                            + baseline_launches.get(row["batch"], none)[key]

@@ -23,8 +23,14 @@ passed to `make_server` is set to it too).
 Rank 0 runs the HTTP server and the executor (`serving.BatchingExecutor`
 with `mesh=`), the other ranks `serving.serve_follower`; each batch's
 requests split over the ranks, so every batch size must divide over N.
-JAX's `--sp` (each latent's height split over cards) waits for ROADMAP
-item 17c.
+
+`--sp M` splits each latent's height over M cards (`parallel.spatial`:
+halo rows for the convolutions, GroupNorm's sums and self-attention's K
+and V over the group), the small-batch latency axis. Alone it sets
+dp = world // M; the world must be dp x sp:
+
+    torchrun --nproc_per_node 2 -m invertible_cd_tpu_torch.cli.serve --model sd15 \
+        --dp 1 --sp 2 --batch_size 1 --port 8000
 
     python -m invertible_cd_tpu_torch.cli.serve --model tiny --device cpu --quantize int8 --port 8765
 """
@@ -57,8 +63,13 @@ def parse_args(argv=None):
     p.add_argument("--tau2", type=float, default=0.8)
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--dp", type=int, default=0,
-                   help="serve over dp processes (torchrun, one card each): each batch's "
-                        "requests split over them (0 = one process, no mesh)")
+                   help="serve over a dp(xsp) mesh of processes (torchrun, one card each): "
+                        "each batch's requests split over dp (0 = no mesh, one process, "
+                        "unless --sp > 1)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="spatial parallelism: additionally shard each "
+                        "latent's HEIGHT over sp chips (batch-1 latency "
+                        "scaling; needs dp*sp devices)")
     add_grid_args(p)
     add_quantize_arg(p)
     add_weights_args(p)
@@ -66,11 +77,14 @@ def parse_args(argv=None):
 
 
 def serving_mesh(args):
-    """The dp mesh of `--dp` over torchrun's processes, or None (`--dp 0`)."""
-    if not args.dp:
+    """The dp x sp mesh of `--dp` and `--sp` over torchrun's processes, or
+    None (`--dp 0 --sp 1`). `--sp` alone sets dp = world // sp (JAX's
+    auto-fill); the world must be dp x sp."""
+    sp = max(1, args.sp)
+    if not args.dp and sp == 1:
         return None
     initialize_distributed(device=args.device)
-    return make_mesh(dp=args.dp, device=args.device)
+    return make_mesh(dp=args.dp or None, sp=sp, device=args.device)
 
 
 def guidance_of(args, pipe):
@@ -82,8 +96,8 @@ def make_server(args, pipe=None, mesh=None):
     """Build (ThreadingHTTPServer, BatchingExecutor); callers own both (the
     server's `shutdown` and `server_close`, the executor's `shutdown`).
     `pipe` replaces the bundle the flags would build; either serves in
-    `--quantize`'s mode, over `mesh`'s dp ranks when given (this is rank
-    0)."""
+    `--quantize`'s mode, over `mesh`'s dp x sp ranks when given (this is
+    rank 0)."""
     if pipe is None:
         pipe = build_pipeline(args)
     set_quantize(pipe, args.quantize)

@@ -12,6 +12,12 @@ the card is always a hand-written kernel:
     is plain PyTorch chunked over key tiles.
 
 On the CPU both wrappers compute the plain versions, forward and backward.
+
+Inside `parallel.spatial` a self-attention layer holds the queries of its
+rank's rows and gathers K and V over the sp group (Sk = the whole height's
+tokens). A layer that a hook applies to raises there, and on a layer that
+`parallel.tp` split over heads, because the controllers read whole query
+rows of the probabilities, of every head.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ import torch
 import torch.nn as nn
 
 from ..ops.flash_attention import flash_attention, flash_attention_streamed
+from ..parallel import spatial
+from ..parallel.mesh import gather_rows
 from .layers import FeedForward, GroupNorm32, LayerNorm32, QConv2d, QLinear
 
 
@@ -85,8 +93,20 @@ def explicit_attention(
     return out.to(v.dtype)
 
 
+def gather_kv(k: torch.Tensor, v: torch.Tensor, mesh):
+    """K and V (B, S_local, H, D) of this rank's rows -> those of the sp
+    group's whole height (the tokens are the row-major flattening of the
+    feature map), in one gather."""
+    kv = gather_rows(torch.cat([k, v], dim=-1), mesh, 1)
+    return (t.contiguous() for t in kv.chunk(2, dim=-1))
+
+
 class CrossAttention(nn.Module):
-    """Multi-head attention (self when no context is given)."""
+    """Multi-head attention (self when no context is given). `parallel.tp`
+    may leave it this rank's heads (`heads`, the projections' widths) and
+    set `tp_mesh`."""
+
+    tp_mesh = None
 
     def __init__(self, dim: int, heads: int, context_dim: Optional[int] = None):
         super().__init__()
@@ -100,17 +120,26 @@ class CrossAttention(nn.Module):
     def forward(self, x, context=None, hook: Optional[AttnHook] = None,
                 meta: Optional[AttnMeta] = None):
         ctx = x if context is None else context
-        b, sq, dim = x.shape
+        b, sq = x.shape[:2]
         sk = ctx.shape[1]
-        d = dim // self.heads
+        inner = self.to_q.out_features  # dim, or this rank's heads' share under tp
+        d = inner // self.heads
         q = self.to_q(x).view(b, sq, self.heads, d)
         k = self.to_k(ctx).view(b, sk, self.heads, d)
         v = self.to_v(ctx).view(b, sk, self.heads, d)
+        mesh = spatial.active()
+        if mesh is not None and context is None:
+            k, v = gather_kv(k, v, mesh)
         if routes_to_explicit(hook, meta):
+            if mesh is not None or self.tp_mesh is not None:
+                raise ValueError(
+                    "attention hooks (prompt-to-prompt controllers) are refused under sp and tp: a "
+                    "controller reads the probabilities of whole query rows and of every head, and "
+                    "an sp rank holds only its rows, a tp rank only its heads")
             out = explicit_attention(q, k, v, hook, meta)
         else:
             out = fused_attention(q, k, v)
-        return self.to_out[0](out.reshape(b, sq, dim))
+        return self.to_out[0](out.reshape(b, sq, inner))
 
 
 class BasicTransformerBlock(nn.Module):

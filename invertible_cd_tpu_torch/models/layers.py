@@ -16,10 +16,13 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import quant
+from ..parallel import spatial
+from ..parallel.mesh import all_reduce
 
 
 class QLinear(nn.Linear):
@@ -46,17 +49,31 @@ class QConv2d(nn.Conv2d):
     the layer) inside an int8 `quant_scope`, records its input's amax inside
     a "calibrate" scope, and is exactly `nn.Conv2d` otherwise (JAX `QConv`).
     Grouped, dilated or non-zero-padded convolutions and non-float input
-    stay float in every mode."""
+    stay float in every mode.
+
+    Inside `parallel.spatial` (x holds this rank's rows of the height) a
+    3x3 convolution with padding 1 takes one halo row from each
+    neighbouring rank and pads the width alone, and an int8 convolution's
+    dynamic amax is the sp group's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = spatial.active()
+        padding = self.padding
+        if mesh is not None and self.kernel_size == (3, 3) and padding == (1, 1):
+            x, padding = spatial.halo(x, mesh), (0, 1)
         mode = quant.current_quant_mode()
         if mode == "calibrate":
             quant.record_amax(self, x)
         elif (mode in quant.INT8_MODES and x.is_floating_point() and self.groups == 1
               and self.dilation == (1, 1) and self.padding_mode == "zeros"
-              and not isinstance(self.padding, str)):
-            return quant.int8_conv2d(x, self.weight, self.bias, self.stride, self.padding,
-                                     quant.static_amax(self), quant.weight_codes(self))
+              and not isinstance(padding, str)):
+            amax = quant.static_amax(self)
+            if amax is None and mesh is not None:
+                amax = all_reduce(quant.tensor_amax(x), mesh, "sp", dist.ReduceOp.MAX)
+            return quant.int8_conv2d(x, self.weight, self.bias, self.stride, padding,
+                                     amax, quant.weight_codes(self))
+        if padding is not self.padding:
+            return F.conv2d(x, self.weight, self.bias, self.stride, padding, self.dilation, self.groups)
         return super().forward(x)
 
     def _apply(self, fn, *args, **kwargs):
@@ -95,7 +112,8 @@ class GroupNorm32(nn.Module):
     Variance is E[x^2] - E[x]^2 in fp32 (clamped at 0), as in the JAX
     package. When the channel count does not divide `num_groups`, the
     group count falls back to the largest divisor <= num_groups (the tiny
-    test configs need this)."""
+    test configs need this). Inside `parallel.spatial` the statistics are
+    those of the sp group's whole height (`spatial.group_moments`)."""
 
     def __init__(self, num_channels: int, eps: float = 1e-5, num_groups: int = 32):
         super().__init__()
@@ -111,8 +129,12 @@ class GroupNorm32(nn.Module):
         b, c = x.shape[:2]
         xf = x.float()
         grouped = xf.reshape(b, self.num_groups, -1)
-        mean = grouped.mean(-1)
-        var = (grouped.square().mean(-1) - mean.square()).clamp_min(0.0)
+        mesh = spatial.active()
+        if mesh is None:
+            mean = grouped.mean(-1)
+            var = (grouped.square().mean(-1) - mean.square()).clamp_min(0.0)
+        else:
+            mean, var = spatial.group_moments(grouped, mesh)
         inv = torch.rsqrt(var + self.eps)
         gc = c // self.num_groups
         a = inv.repeat_interleave(gc, dim=1) * self.weight.float()[None, :]
@@ -192,18 +214,24 @@ class ResnetBlock2D(nn.Module):
 
 
 class Downsample2D(nn.Module):
-    """Asymmetric (0,1,0,1) pad, then a stride-2 VALID conv3x3."""
+    """Asymmetric (0,1,0,1) pad, then a stride-2 VALID conv3x3. Inside
+    `parallel.spatial` the row below this rank's comes from the next rank
+    (zeros below the last), so each rank's (even) row count halves."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.conv = QConv2d(channels, channels, 3, stride=2, padding=0)
 
     def forward(self, x):
+        mesh = spatial.active()
+        if mesh is not None:
+            return self.conv(F.pad(spatial.halo(x, mesh, above=0, below=1), (0, 1)))
         return self.conv(F.pad(x, (0, 1, 0, 1)))
 
 
 class Upsample2D(nn.Module):
-    """Nearest x2 upsample, then conv3x3."""
+    """Nearest x2 upsample, then conv3x3 (which takes its halo inside
+    `parallel.spatial`)."""
 
     def __init__(self, channels: int):
         super().__init__()

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import spatial
 from .attention import AttnHook, Transformer2D
 from .layers import (
     Downsample2D,
@@ -175,6 +176,12 @@ class UNet2DCondition(nn.Module):
       attn_hook: optional controller hook (see attention.AttnHook).
     Returns the (B, out_channels, H, W) epsilon prediction in fp32; the
     compute dtype is that of the convolution weights.
+
+    Inside `parallel.spatial` `sample` holds this rank's rows of the
+    latent's height and so does the result; the whole height must split
+    into sp blocks whose rows halve at every downsampling level (checked
+    before any collective). Skip connections concatenate channels, so they
+    stay on the rank.
     """
 
     def __init__(self, cfg: UNetConfig):
@@ -225,6 +232,9 @@ class UNet2DCondition(nn.Module):
         cfg = self.cfg
         dtype = self.dtype
         b = sample.shape[0]
+        mesh = spatial.active()
+        if mesh is not None:
+            spatial.check_height(sample.shape[2] * mesh.sp, mesh.sp, len(cfg.block_out_channels))
         timesteps = torch.as_tensor(timesteps, device=sample.device).expand(b)
 
         t_feat = sinusoidal_timestep_embedding(

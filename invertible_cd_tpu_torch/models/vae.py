@@ -6,6 +6,9 @@ lives in the pipeline. The VAE computes in the dtype of its weights: bf16
 for SD1.5, fp32 by default for SDXL (bf16 as an opt-in). The mid-block's
 single-head attention goes through `fused_attention`: at the SD width
 (d=512) that is kernel B2 on the card, in the bf16 or the fp32 build.
+Inside `parallel.spatial` each rank decodes its rows of the latent's height
+(the layers' halos, GroupNorm's reduced sums, the mid-block's gathered K
+and V).
 """
 from __future__ import annotations
 
@@ -16,7 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .attention import fused_attention
+from ..parallel import spatial
+from .attention import fused_attention, gather_kv
 from .layers import Downsample2D, GroupNorm32, QConv2d, QLinear, ResnetBlock2D, Upsample2D
 
 
@@ -43,7 +47,8 @@ class VAEConfig:
 
 
 class VAEAttention(nn.Module):
-    """Single-head self-attention over the bottleneck feature map."""
+    """Single-head self-attention over the bottleneck feature map; inside
+    `parallel.spatial`, this rank's queries against the sp group's K and V."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -59,6 +64,9 @@ class VAEAttention(nn.Module):
         q = self.to_q(hidden).view(b, h * w, 1, c)
         k = self.to_k(hidden).view(b, h * w, 1, c)
         v = self.to_v(hidden).view(b, h * w, 1, c)
+        mesh = spatial.active()
+        if mesh is not None:
+            k, v = gather_kv(k, v, mesh)
         out = self.to_out[0](fused_attention(q, k, v).view(b, h * w, c))
         return out.reshape(b, h, w, c).permute(0, 3, 1, 2) + x
 
@@ -172,6 +180,10 @@ class AutoencoderKL(nn.Module):
 
     def encode_moments(self, pixels: torch.Tensor):
         """pixels (B,3,H,W) in [-1,1] -> (mean, logvar), each (B,4,H/8,W/8)."""
+        mesh = spatial.active()
+        if mesh is not None:
+            spatial.check_height(pixels.shape[2] * mesh.sp, mesh.sp, len(self.cfg.block_out_channels),
+                                 "image")
         moments = self.quant_conv(self.encoder(pixels.to(self.dtype)))
         mean, logvar = moments.chunk(2, dim=1)
         return mean, torch.clamp(logvar, -30.0, 20.0)

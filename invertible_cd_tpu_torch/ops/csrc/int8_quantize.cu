@@ -18,7 +18,9 @@
 //   * icd_quantize_rows: x (rows, K) in bf16 or fp32 -> codes (rows, Kp) and
 //     one scale a row (a dense layer's per-token scales). One warp a row,
 //     which reads its row twice (amax, then the codes; the second read hits
-//     L1), 16 codes a lane a store.
+//     L1), 16 codes a lane a store. icd_quantize_rows_amax: the same with
+//     each row's amax read from the device (the whole row's, where the
+//     row's features are split over tensor-parallel ranks), one read a row.
 //   * icd_quantize_tensor: x (B, C, H, W), NCHW or channels-last in memory ->
 //     codes (B, H, W, Cp), NHWC, and one scale (a convolution's per-tensor
 //     scale). Dynamic: pass 1 writes one partial amax a block to the
@@ -77,21 +79,26 @@ __device__ __forceinline__ void load16(const T* row, int c0, int k, bool vec, fl
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) quantize_rows(const T* __restrict__ x, int8_t* __restrict__ q,
-                                                         float* __restrict__ scale, int64_t rows, int k,
-                                                         int kp, bool vec) {
+                                                         float* __restrict__ scale,
+                                                         const float* __restrict__ amax_in, int64_t rows,
+                                                         int k, int kp, bool vec) {
   const int64_t row = (int64_t)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
   const T* xr = x + row * k;
   float amax = 0.f;
-  for (int c0 = lane * 16; c0 < k; c0 += 32 * 16) {
-    float v[16];
-    load16(xr, c0, k, vec, v);
+  if (amax_in != nullptr) {
+    amax = amax_in[row];
+  } else {
+    for (int c0 = lane * 16; c0 < k; c0 += 32 * 16) {
+      float v[16];
+      load16(xr, c0, k, vec, v);
 #pragma unroll
-    for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(v[e]));
+      for (int e = 0; e < 16; ++e) amax = fmaxf(amax, fabsf(v[e]));
+    }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
   }
-#pragma unroll
-  for (int o = 16; o; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
   if (!(amax > 0.f)) amax = 1.f;  // an all-zero row keeps q = 0
   const float r = reciprocal_of(amax);
   int8_t* qr = q + row * kp;
@@ -223,12 +230,14 @@ inline int blocks_for(int64_t work, int per_block, int cap) {
 }
 
 template <typename T>
-int rows_launch(const void* x, void* q, void* scale, int64_t rows, int k, int kp, cudaStream_t stream) {
+int rows_launch(const void* x, void* q, void* scale, const void* amax, int64_t rows, int k, int kp,
+                cudaStream_t stream) {
   const bool vec = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (k % (16 / sizeof(T)) == 0);
   const int64_t blocks = (rows + THREADS / 32 - 1) / (THREADS / 32);
   if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   quantize_rows<T><<<(unsigned)blocks, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<int8_t*>(q), static_cast<float*>(scale), rows, k, kp, vec);
+      static_cast<const T*>(x), static_cast<int8_t*>(q), static_cast<float*>(scale),
+      static_cast<const float*>(amax), rows, k, kp, vec);
   return (int)cudaGetLastError();
 }
 
@@ -270,8 +279,18 @@ int tensor_launch(const void* xv, int channels_last, void* qv, void* scalev, con
 extern "C" int icd_quantize_rows(const void* x, int x_kind, void* q, void* scale, long long rows, int k,
                                  int kp, cudaStream_t stream) {
   if (rows <= 0 || k <= 0 || kp < k || kp % 16 != 0) return (int)cudaErrorInvalidValue;
-  if (x_kind == 1) return rows_launch<float>(x, q, scale, rows, k, kp, stream);
-  if (x_kind == 2) return rows_launch<__nv_bfloat16>(x, q, scale, rows, k, kp, stream);
+  if (x_kind == 1) return rows_launch<float>(x, q, scale, nullptr, rows, k, kp, stream);
+  if (x_kind == 2) return rows_launch<__nv_bfloat16>(x, q, scale, nullptr, rows, k, kp, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// As icd_quantize_rows, each row quantised with amax[row] (fp32 on the device,
+// rows of them; 0 taken as 1.0, as the dynamic amax of an all-zero row).
+extern "C" int icd_quantize_rows_amax(const void* x, int x_kind, void* q, void* scale, const void* amax,
+                                      long long rows, int k, int kp, cudaStream_t stream) {
+  if (rows <= 0 || k <= 0 || kp < k || kp % 16 != 0 || amax == nullptr) return (int)cudaErrorInvalidValue;
+  if (x_kind == 1) return rows_launch<float>(x, q, scale, amax, rows, k, kp, stream);
+  if (x_kind == 2) return rows_launch<__nv_bfloat16>(x, q, scale, amax, rows, k, kp, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -158,6 +158,14 @@ def _amax(x: torch.Tensor, axes: Optional[Sequence[int]] = None) -> torch.Tensor
     return torch.where(a > 0, a, torch.ones_like(a))
 
 
+def tensor_amax(x: torch.Tensor) -> torch.Tensor:
+    """A convolution's dynamic activation amax (one fp32 value, 1.0 for an
+    all-zero tensor), for a caller that reduces it over ranks and passes it
+    on as the `amax` of `int8_conv2d`, which then quantises with it as the
+    dynamic path would."""
+    return _amax(x).reshape(1)
+
+
 def _quantize_with(x: torch.Tensor, amax: torch.Tensor, axes: Optional[Sequence[int]]) -> torch.Tensor:
     # a PRECOMPUTED reciprocal multiply, not a divide (JAX `quant.py:188-198`)
     r = 127.0 / amax
@@ -210,13 +218,22 @@ def _pad_last(q: torch.Tensor) -> torch.Tensor:
 def quantize_activation_plain(x: torch.Tensor, per_row: bool,
                               amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Q2's plain version. per_row (a dense layer's input (..., K)): codes
-    (rows, Kp) and one scale a row. Otherwise (a convolution's NCHW input):
+    (rows, Kp) and one scale a row, from each row's amax or from `amax`
+    (rows,), the amax of rows whose features are split over ranks (an
+    all-zero row's 0 taken as 1.0, as the dynamic path does). Otherwise (a
+    convolution's NCHW input):
     codes (B, H, W, Cp), NHWC, and one scale (1,), from the tensor's amax or,
     under "int8_static", the calibrated `amax` floored at 1e-12. Kp and Cp
     are K and C padded to a multiple of 16 with zero codes; the codes and
     scales are `quantize_int8`'s bit for bit."""
     if per_row:
-        q, s = quantize_int8(x.reshape(-1, x.shape[-1]), axes=(1,))
+        rows = x.reshape(-1, x.shape[-1])
+        if amax is None:
+            q, s = quantize_int8(rows, axes=(1,))
+        else:
+            amax = amax.to(device=x.device, dtype=torch.float32).reshape(-1)
+            amax = torch.where(amax > 0, amax, torch.ones_like(amax))
+            q, s = _quantize_with(rows, amax, (1,)), _scale(amax)
         return _pad_last(q), s
     if amax is None:
         q, s = quantize_int8(x)
@@ -252,26 +269,29 @@ def _launch(device: torch.device, fn, *args) -> None:
         raise RuntimeError(f"{fn.__name__} failed with CUDA error {rc}")
 
 
-# (x, x_kind, q, scale, rows, k, kp, stream); (x, x_kind, channels_last, q,
-# scale, amax, workspace, batch, c, h, w, cp, stream)
+# (x, x_kind, q, scale, rows, k, kp, stream); the same with the rows' amax
+# after scale; (x, x_kind, channels_last, q, scale, amax, workspace, batch,
+# c, h, w, cp, stream)
 _ROWS_ARGS = [_P, _I, _P, _P, ctypes.c_longlong, _I, _I, _P]
+_ROWS_AMAX_ARGS = [_P, _I, _P, _P, _P, ctypes.c_longlong, _I, _I, _P]
 _TENSOR_ARGS = [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 
 
 def quantize_key(x: torch.Tensor, per_row: bool, static: bool = False) -> tuple:
     """The `LAUNCH_SHAPES` key of one Q2 launch."""
     if per_row:
-        return ("int8_quantize", "rows", x.numel() // x.shape[-1], x.shape[-1], _DTYPE_NAME[x.dtype])
+        return ("int8_quantize", "rows_amax" if static else "rows", x.numel() // x.shape[-1],
+                x.shape[-1], _DTYPE_NAME[x.dtype])
     return ("int8_quantize", "static" if static else "tensor", *x.shape, _DTYPE_NAME[x.dtype])
 
 
 def quantize_activation(x: torch.Tensor, per_row: bool,
                         amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel Q2 (`csrc/int8_quantize.cu`): `quantize_activation_plain`'s
-    codes and scales, bit for bit, in one launch (dense, or a convolution
-    with a calibrated `amax`, read on the device) or two (a convolution's
-    dynamic amax, then the codes, counted as one launch). CPU tensors take
-    the plain version."""
+    codes and scales, bit for bit, in one launch (dense, with each row's
+    amax or with the rows' `amax` read on the device; a convolution with a
+    calibrated `amax`) or two (a convolution's dynamic amax, then the codes,
+    counted as one launch). CPU tensors take the plain version."""
     if x.device.type == "cpu":
         return quantize_activation_plain(x, per_row, amax)
     if x.dtype not in _IN_KIND:
@@ -285,9 +305,17 @@ def quantize_activation(x: torch.Tensor, per_row: bool,
         m = rows.shape[0]
         q = torch.empty((m, padded(k)), dtype=torch.int8, device=dev)
         s = torch.empty(m, dtype=torch.float32, device=dev)
-        _launch(dev, _entry("int8_quantize", "icd_quantize_rows", _ROWS_ARGS), rows.data_ptr(),
-                _IN_KIND[x.dtype], q.data_ptr(), s.data_ptr(), m, k, q.shape[1])
-        fa.LAUNCH_SHAPES[quantize_key(x, True)] += 1
+        if amax is None:
+            _launch(dev, _entry("int8_quantize", "icd_quantize_rows", _ROWS_ARGS), rows.data_ptr(),
+                    _IN_KIND[x.dtype], q.data_ptr(), s.data_ptr(), m, k, q.shape[1])
+        else:
+            amax = amax.to(device=dev, dtype=torch.float32).reshape(-1).contiguous()
+            if amax.numel() != m:
+                raise ValueError(f"{amax.numel()} row amaxes for {m} rows")
+            _launch(dev, _entry("int8_quantize", "icd_quantize_rows_amax", _ROWS_AMAX_ARGS),
+                    rows.data_ptr(), _IN_KIND[x.dtype], q.data_ptr(), s.data_ptr(), amax.data_ptr(),
+                    m, k, q.shape[1])
+        fa.LAUNCH_SHAPES[quantize_key(x, True, amax is not None)] += 1
         return q, s
     if x.dim() != 4:
         raise ValueError(f"Q2 takes a (B, C, H, W) activation, not {tuple(x.shape)}")
@@ -321,15 +349,24 @@ def quantize_activation(x: torch.Tensor, per_row: bool,
 WEIGHT_QUANTIZATIONS = collections.Counter()
 
 
-def quantize_weight(weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_weight(weight: torch.Tensor, amax: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A Q-layer's weight codes as Q1 reads them: per-output-feature codes
     (N, 1, 1, Kp) of a dense (N, K) weight, (N, kh, kw, Cp) of an OIHW conv
     weight (K and C padded to a multiple of 16 with zero codes), and the
     fp32 scales (N,): `quantize_int8(weight, axes=...)` bit for bit, laid
-    out. Plain PyTorch: it runs once a weight."""
+    out. `amax` (N,): a dense weight's per-output amax to quantise with
+    instead of its own (a slice of in-features takes the whole weight's, so
+    its codes are the whole weight's codes, sliced). Plain PyTorch: it runs
+    once a weight."""
     with torch.no_grad():
         if weight.dim() == 2:
-            q, s = quantize_int8(weight, axes=(1,))
+            if amax is None:
+                q, s = quantize_int8(weight, axes=(1,))
+            else:
+                amax = amax.to(device=weight.device, dtype=torch.float32)
+                amax = torch.where(amax > 0, amax, torch.ones_like(amax))
+                q, s = _quantize_with(weight, amax, (1,)), _scale(amax)
             codes = _pad_last(q).view(q.shape[0], 1, 1, -1)
         else:
             q, s = quantize_int8(weight, axes=(1, 2, 3))
@@ -352,13 +389,14 @@ def weight_codes(layer: torch.nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
     inference tensor (a weight made under `torch.inference_mode`) has no
     version counter: call `forget_weight_codes` after an in-place write to
     either. The codes are a plain attribute, not a buffer, so `state_dict()`
-    never holds them."""
+    never holds them. A layer with a `weight_amax` (a tp slice of a dense
+    weight's in-features) is quantised with it."""
     w = layer.weight
     key = (w.data_ptr(), None if w.is_inference() else w._version, w.dtype, w.device)
     cached = layer.__dict__.get("_int8_weight_codes")
     if cached is not None and cached[0]() is w and cached[1] == key:
         return cached[2]
-    codes = quantize_weight(w)
+    codes = quantize_weight(w, getattr(layer, "weight_amax", None))
     layer.__dict__["_int8_weight_codes"] = (weakref.ref(w), key, codes)
     return codes
 
@@ -621,6 +659,31 @@ def int8_linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
     if _needs_grad(x, weight, bias):
         return _Int8Linear.apply(x, weight, bias, codes)
     return _linear(x, weight, bias, codes)
+
+
+def int8_linear_split(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                      codes: Tuple[torch.Tensor, torch.Tensor], reduce_max, reduce_sum) -> torch.Tensor:
+    """The int8 dense layer whose input features are split over ranks (the
+    in-feature slice of a tensor-parallel output projection, JAX's
+    row-sharded `quant_dot_general` under XLA's partitioning): each row's
+    amax is `reduce_max` of this rank's (the whole row's), Q2 quantises the
+    slice with it, Q1 gives the int32 accumulators, `reduce_sum` adds the
+    ranks' (exact), then the epilogue: float(acc) * (s_row * s_col) in the
+    promoted dtype, plus the bias, once. `codes`: the slice's codes at the
+    whole weight's scales (`weight_codes` of a layer with `weight_amax`).
+    `reduce_*` reduce a tensor over the ranks in place and return it.
+    Inference only."""
+    k = x.shape[-1]
+    rows = x.reshape(-1, k)
+    amax = reduce_max(rows.detach().float().abs().amax(dim=1))
+    q, s_row = quantize_activation(x, per_row=True, amax=amax)
+    wq, s_col = codes
+    acc = reduce_sum(int8_gemm_acc(q.view(-1, 1, 1, q.shape[1]), wq))
+    out_dtype = torch.promote_types(x.dtype, weight.dtype)
+    y = dequantize(acc, s_row, s_col, out_dtype)
+    if bias is not None:
+        y = y + bias.to(out_dtype)
+    return y.view(*x.shape[:-1], wq.shape[0])
 
 
 def int8_conv2d(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],

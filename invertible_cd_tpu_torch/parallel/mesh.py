@@ -11,8 +11,10 @@ one process per card (launched by `torchrun` /
     follows the device: NCCL for CUDA, gloo for the CPU, unless `backend=`
     is given.
   * `make_mesh` gives the (dp, fsdp, sp, tp) layout of the ranks, built on
-    `init_device_mesh` with those axis names. sp and tp raise
-    `NotImplementedError` (ROADMAP item 17c).
+    `init_device_mesh` with those axis names; `group("sp")` / `group("tp")`
+    are this rank's groups of the two intra-model axes, which
+    `parallel.spatial` (each latent's height over sp) and `parallel.tp`
+    (attention heads and FF features over tp) partition by hand.
   * `param_sharding` / `shard_params`: JAX's rule for which axis of a
     frozen weight its fsdp shards split, on the port's state-dict keys and
     torch layouts (Linear (out, in), Conv2d (out, in, kh, kw)), so that a
@@ -20,14 +22,16 @@ one process per card (launched by `torchrun` /
     axis as JAX's. `ShardedWeights` holds each rank's shards and gathers
     them again.
   * `shard_batch` / `process_local_batch_slice`: this rank's rows of a
-    global batch, contiguous per rank.
+    global batch, contiguous per rank; `latent_rows` / `gather_rows`: this
+    rank's rows of a latent's height over sp (JAX's `latent_sharding`) and
+    the gather of them back in rank order.
   * `all_reduce_mean`, `all_gather_objects`, `broadcast_object`, `barrier`
     and `is_main`: the reductions, gathers and rank-0-only work of the
     trainer, the eval, serving and the CLIs.
 
 Rows of a batch split over every rank of dp x fsdp (fsdp is data parallel
 too); JAX splits them over dp only and lets XLA shard the parameters under
-fsdp. gloo moves CUDA tensors through broadcast and all_reduce only, so
+fsdp. The ranks of one sp or tp group hold the same rows. gloo moves CUDA tensors through broadcast and all_reduce only, so
 every gather here goes through the host when the backend is gloo.
 `Mesh(dp=..., fsdp=...)` with no process group is a layout only (the
 counterpart of an abstract mesh), for `param_sharding` and the batch
@@ -43,8 +47,6 @@ import torch
 import torch.distributed as dist
 
 AXES = ("dp", "fsdp", "sp", "tp")
-NOT_PORTED = ("sp and tp wait for ROADMAP item 17c (spatial partitioning with halo "
-              "convolutions, tp heads); this port runs dp and fsdp")
 
 
 def local_device(device="cuda") -> torch.device:
@@ -132,8 +134,8 @@ class Mesh:
         return self.coordinate("dp") * self.fsdp + self.coordinate("fsdp")
 
     def group(self, axis: Optional[str] = None):
-        """The process group of `axis` ("dp" or "fsdp"), or with None the
-        group the rows split over (every rank: sp = tp = 1 in this port)."""
+        """This rank's process group of `axis` ("dp", "fsdp", "sp" or "tp"),
+        or with None every rank."""
         if self.device_mesh is None:
             if self.size > 1:
                 raise RuntimeError("this mesh has no process group (a layout only)")
@@ -149,8 +151,6 @@ def make_mesh(dp: Optional[int] = None, fsdp: int = 1, sp: int = 1, tp: int = 1,
     (JAX :48); one rank without a group. dp defaults to
     world // (fsdp * sp * tp). `device` ("cuda" or "cpu") is the
     `DeviceMesh`'s device type; by default the backend's (NCCL: cuda)."""
-    if sp > 1 or tp > 1:
-        raise NotImplementedError(NOT_PORTED)
     n = dist.get_world_size() if dist.is_initialized() else 1
     if dp is None:  # JAX's assertions, raised so that they hold under -O too
         if n % (fsdp * sp * tp):
@@ -203,6 +203,27 @@ def shard_batch(batch, mesh: Mesh):
         _check_batch(leaves[0].shape[0], mesh)
         start, size = process_local_batch_slice(leaves[0].shape[0], mesh)
     return _map(batch, lambda x: x[start:start + size])
+
+
+def latent_rows(x: torch.Tensor, mesh: Mesh, dim: int = 2) -> torch.Tensor:
+    """This rank's contiguous rows of the height axis `dim` (an NCHW
+    latent's 2) over the mesh's sp ranks, a view (JAX :84's
+    `latent_sharding` on the height axis); `x` whole when sp = 1."""
+    if mesh.sp == 1:
+        return x
+    h = x.shape[dim]
+    if h % mesh.sp:
+        raise ValueError(f"height {h} does not split over sp={mesh.sp} ranks")
+    n = h // mesh.sp
+    return x.narrow(dim, mesh.coordinate("sp") * n, n)
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh, dim: int = 2) -> torch.Tensor:
+    """The sp group's rows of axis `dim`, concatenated in rank order: the
+    whole height on every rank of the group (`latent_rows` undone)."""
+    if mesh.sp == 1:
+        return x
+    return all_gather_cat(x, dim, mesh, "sp")
 
 
 def _leaves(tree) -> list:
@@ -353,6 +374,20 @@ def all_gather_cat(t: torch.Tensor, axis: int, mesh: Mesh, mesh_axis: str = "fsd
     getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(out, src, group=group)
     out = torch.cat(out.chunk(n), dim=axis)
     return out.to(t.device) if host else out
+
+
+def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """`t` reduced by `op` over this rank's `axis` group (in place, `t`
+    returned; through the host for a CUDA tensor on gloo)."""
+    group = mesh.group(axis)
+    if group is None:
+        return t
+    if _through_host(t, group):
+        host = t.cpu()
+        dist.all_reduce(host, op=op, group=group)
+        return t.copy_(host)
+    dist.all_reduce(t, op=op, group=group)
+    return t
 
 
 def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]) -> List[torch.Tensor]:

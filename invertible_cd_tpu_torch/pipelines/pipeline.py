@@ -41,6 +41,9 @@ from ..models.lora import merge_lora, seeded_lora
 from ..models.unet2d import UNet2DCondition, UNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig
 from ..ops.quant import quant_scope
+from ..parallel.mesh import Mesh, gather_rows, latent_rows
+from ..parallel.spatial import check_height as spatial_check_height
+from ..parallel.spatial import spatial
 from ..utils.tokenizer import default_tokenizer
 from . import sampler as S
 
@@ -61,6 +64,15 @@ def resolve_device(device) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
     return device
+
+
+def _under_spatial(noise_model, mesh: Mesh):
+    """`noise_model` with each call under `spatial(mesh)` (on this rank's
+    rows of the height)."""
+    def call(*args, **kwargs):
+        with spatial(mesh):
+            return noise_model(*args, **kwargs)
+    return call
 
 
 @dataclasses.dataclass
@@ -218,12 +230,16 @@ class InvertibleCD:
                 )
         return nm
 
-    def _decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
+    def _decode_latents(self, latents: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
         """latents (B, 4, h, w) scaled -> images (B, H, W, 3) fp32 in [0, 1],
-        in the VAE's quantisation scope."""
-        with self._quant_scope(self._vae_quant_mode(), "vae", self.vae):
+        in the VAE's quantisation scope. With an sp `mesh`, `latents` are
+        this rank's rows: the decode runs under `spatial(mesh)` and the
+        image rows are gathered over the sp group."""
+        with self._quant_scope(self._vae_quant_mode(), "vae", self.vae), spatial(mesh):
             img = self.vae.decode(latents / self.scaling_factor)
         img = torch.clamp(img.float() / 2 + 0.5, 0.0, 1.0)
+        if mesh is not None:
+            img = gather_rows(img, mesh)
         return img.permute(0, 2, 3, 1).contiguous()
 
     def _encode_image(self, pixels: torch.Tensor) -> torch.Tensor:
@@ -263,6 +279,7 @@ class InvertibleCD:
         model: str = "reverse",
         amplify_prompt: Optional[Sequence[str]] = None,
         return_trajectory: bool = False,
+        mesh: Optional[Mesh] = None,
     ):
         """Few-step consistency generation (JAX `pipeline.py:312-363`).
 
@@ -279,9 +296,25 @@ class InvertibleCD:
         the latents are the (n_hops+1, B, h, w, 4) trajectory, row i hop i's
         input; with a `store_all` controller the attention store
         ({store_key: [(B, H, Sq, Sk) per hooked layer and hop]}) comes third.
+
+        `mesh`: a `parallel.Mesh` with sp > 1 (every rank of its sp group
+        calls with the same arguments) splits each latent's height over the
+        group, as JAX's `latent_sharding` does: every rank draws (or is
+        given) the whole latent, as one process does, and keeps its rows;
+        the UNet calls and the decode run under `spatial(mesh)`, the hops on
+        the rows; the images and latents come back whole on every rank of
+        the group. A controller is refused there (its hooks read whole
+        query rows). A mesh with sp = 1 changes nothing.
         """
         if isinstance(prompts, str):
             prompts = [prompts]
+        sp_mesh = mesh if mesh is not None and mesh.sp > 1 else None
+        if sp_mesh is not None:
+            spatial_check_height(self.latent_size[0], sp_mesh.sp,
+                                 len(next(iter(self.unets.values())).cfg.block_out_channels))
+            if controller is not None:
+                raise ValueError("a controller is refused under sp: its attention hooks read whole "
+                                 "query rows, and each sp rank holds only its rows")
         g = guidance or self.default_guidance()
         ctx_u, ctx_c, added = self._encode_all(prompts, need_uncond=g.w_embed_dim <= 0)
         ctx_amp = None
@@ -296,15 +329,24 @@ class InvertibleCD:
             latent = self.init_latent(generator, len(prompts))
         spec, arrays = controller if controller else (None, None)
         rt = ControllerRuntime(spec, arrays.to(self.device)) if spec is not None else None
+        noise_model = self._noise_model(self.unets[model], added)
+        if sp_mesh is not None:
+            noise_model = _under_spatial(noise_model, sp_mesh)
         lat = S.cons_generation(
-            self._noise_model(self.unets[model], added), self._as_nchw(latent),
+            noise_model,
+            latent_rows(self._as_nchw(latent), sp_mesh) if sp_mesh else self._as_nchw(latent),
             ctx_u, ctx_c, self.grid, self.schedule, g,
             hook_factory=rt.hook_factory if rt else None,
             step_callback=rt.step_callback if rt else None,
             context_amplify=ctx_amp,
             return_all=return_trajectory,
         )
-        images = self._decode_latents(lat[-1].permute(0, 3, 1, 2) if return_trajectory else lat)
+        final = lat[-1].permute(0, 3, 1, 2) if return_trajectory else lat
+        if sp_mesh is None:
+            images = self._decode_latents(final)
+        else:
+            images = self._decode_latents(final, sp_mesh)
+            lat = gather_rows(lat, sp_mesh, 2)  # height: axis 2 of the NHWC trajectory and of NCHW
         if not return_trajectory:
             lat = lat.permute(0, 2, 3, 1).contiguous()
         if spec is not None and spec.store_all:

@@ -19,13 +19,14 @@ the package changes). A completion thread copies each batch's images to
 the host and resolves its futures while the worker dispatches the next
 batch.
 
-Data-parallel serving (`mesh=`, `parallel.make_mesh(dp=...)`, one process
-per card): rank 0 runs the executor, and for each batch broadcasts its
-prompts and seeds to the mesh's dp ranks; every rank generates its
-contiguous `batch / dp` rows from their own seeds and rank 0 gathers the
-images through the host. The other ranks run `serve_follower`, which the
-executor's shutdown ends. Every batch size must divide over dp. Spatial
-partitioning (JAX's sp) waits for ROADMAP item 17c.
+Serving over a mesh (`mesh=`, `parallel.make_mesh(dp=..., sp=...)`, one
+process per card): rank 0 runs the executor, and for each batch broadcasts
+its prompts and seeds to every rank. Each dp group generates its contiguous
+`batch / dp` rows from their own seeds; within the group each sp rank holds
+its rows of every latent's height (`generate(mesh=...)`, JAX's
+`latent_sharding`), and rank 0 gathers the images through the host. The
+other ranks run `serve_follower`, which the executor's shutdown ends. Every
+batch size must divide over dp (sp splits height, not the batch).
 
 Usage:
     pipe = InvertibleCD.sd15()
@@ -97,24 +98,27 @@ def request_latents(pipe, seeds: Sequence[int]) -> torch.Tensor:
 
 
 def _mesh_rows(pipe, prompts, seeds, guidance, model, mesh):
-    """This rank's rows of a batch over the mesh's dp ranks, generated and
-    gathered through the host: the whole batch's images (a CPU tensor) on
-    rank 0, None on the others. A rank whose rows failed sends its error,
-    and rank 0 raises it after the gather (so no rank waits forever)."""
+    """This rank's dp rows of a batch, generated (their height split over
+    the sp group) and gathered through the host: the whole batch's images
+    (a CPU tensor) on rank 0, None on the others. The first rank of each sp
+    group sends its dp rows' images, the others only an error they met; a
+    rank whose rows failed sends its error, and rank 0 raises it after the
+    gather (so no rank waits forever)."""
     lo, n = process_local_batch_slice(len(prompts), mesh)
+    first_of_sp = mesh.coordinate("sp") == 0
     try:
         images, _ = pipe.generate(prompts[lo:lo + n], latent=request_latents(pipe, seeds[lo:lo + n]),
-                                  guidance=guidance, model=model)
-        mine = images.cpu().numpy()
+                                  guidance=guidance, model=model, mesh=mesh)
+        mine = images.cpu().numpy() if first_of_sp else None
     except Exception as e:  # noqa: BLE001 — rank 0 raises it
         mine = e
-    parts = gather_objects(mine, mesh, "dp")
+    parts = gather_objects(mine, mesh)
     if parts is None:
         return None
     for part in parts:
         if isinstance(part, Exception):
             raise part
-    return torch.from_numpy(np.concatenate(parts))
+    return torch.from_numpy(np.concatenate([p for p in parts if p is not None]))
 
 
 def serve_follower(pipe, mesh, guidance=None, model: str = "reverse") -> int:
@@ -124,7 +128,7 @@ def serve_follower(pipe, mesh, guidance=None, model: str = "reverse") -> int:
     guidance = guidance or pipe.default_guidance()
     served = 0
     while True:
-        msg = broadcast_object(None, mesh, "dp")
+        msg = broadcast_object(None, mesh)
         if msg is None:
             return served
         _mesh_rows(pipe, *msg, guidance, model, mesh)
@@ -146,9 +150,9 @@ class BatchingExecutor:
       guidance: GuidanceConfig shared by every request
         (`pipe.default_guidance()` when None).
       model: student to sample from ("reverse" by default).
-      mesh: a `parallel.Mesh` to serve over its dp ranks (this process is
-        rank 0; the others run `serve_follower`). Every batch size must
-        divide over dp.
+      mesh: a `parallel.Mesh` to serve over its dp x sp ranks (this
+        process is rank 0; the others run `serve_follower`). Every batch
+        size must divide over dp.
     """
 
     def __init__(
@@ -173,8 +177,8 @@ class BatchingExecutor:
         self.model = model
         self.mesh = mesh
         if mesh is not None:
-            if mesh.fsdp > 1 or mesh.rank != 0:
-                raise ValueError("the executor runs on rank 0 of a dp mesh (fsdp 1); "
+            if mesh.fsdp > 1 or mesh.tp > 1 or mesh.rank != 0:
+                raise ValueError("the executor runs on rank 0 of a dp x sp mesh (fsdp 1, tp 1); "
                                  "the other ranks run serve_follower")
             dp = mesh.dp
             bad = [b for b in self.batch_sizes if dp > 1 and b % dp != 0]
@@ -330,7 +334,7 @@ class BatchingExecutor:
         if self.mesh is None:
             return self.pipe.generate(prompts, latent=self._latents(seeds),
                                       guidance=self.guidance, model=self.model)[0]
-        broadcast_object((prompts, seeds), self.mesh, "dp")
+        broadcast_object((prompts, seeds), self.mesh)
         return _mesh_rows(self.pipe, prompts, seeds, self.guidance, self.model, self.mesh)
 
     def _hand_over(self, item) -> bool:
@@ -378,7 +382,7 @@ class BatchingExecutor:
             self._run_loop(rng)
         finally:
             if self.mesh is not None:
-                broadcast_object(None, self.mesh, "dp")  # ends the followers' loops
+                broadcast_object(None, self.mesh)  # ends the followers' loops
             self._completion.put(None)  # unbounded: never blocks
 
     def _run_loop(self, rng):

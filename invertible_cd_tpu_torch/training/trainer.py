@@ -271,8 +271,12 @@ def make_train_step(
     least `FSDP_MIN_SIZE` elements; `step_fn.gather()` gives both whole),
     and the caller may free its own copies. `step_fn.resident_bytes()` is
     what the step holds of them between steps; during a step a rank holds
-    them whole besides its shards.
+    them whole besides its shards. A mesh with sp or tp > 1 is refused (the
+    step over tp waits for ROADMAP item 17d).
     """
+    if mesh is not None and (mesh.sp > 1 or mesh.tp > 1):
+        raise NotImplementedError("the train step runs over dp and fsdp; sp and tp training "
+                                  "wait for ROADMAP item 17d")
     dtypes = compute_dtypes(unet)
     casts: Dict[tuple, torch.Tensor] = {}
 

@@ -1,10 +1,12 @@
-"""Runs of the PyTorch port over two gloo ranks on the CPU, for the parallel tests.
+"""Runs of the PyTorch port over gloo ranks on the CPU, for the parallel tests.
 
-`run_ranks(job, payload, tmp_path)` writes `payload` with `torch.save`,
-starts one process per rank (`python tests/_torch_dist.py ...`, with no
-JAX import), joins them into a gloo group on a free localhost port, and
-returns each rank's result of `JOBS[job](payload)` in rank order. The
-workers use one intra-op thread each, and do not import TensorBoard.
+`Ranks(job, payload, tmp_path, world)` writes `payload` with `torch.save`,
+starts one process per rank (`python tests/_torch_dist.py ...`, with no JAX
+import), which join a gloo group on a free localhost port, and returns at
+once; its `results()` waits for them and gives each rank's result of
+`JOBS[job](payload)` in rank order. A test file starts its runs before its
+first test, so they run while the test process computes its references.
+The workers use one intra-op thread each, and do not import TensorBoard.
 """
 import os
 import socket
@@ -17,34 +19,48 @@ import torch.distributed as dist
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_ranks(job: str, payload: dict, tmp_path, world: int = 2, timeout: float = 300) -> list:
-    tmp = str(tmp_path)
-    os.makedirs(tmp, exist_ok=True)
-    payload_path = os.path.join(tmp, f"{job}_payload.pt")
-    torch.save(payload, payload_path)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = str(s.getsockname()[1])
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE", "LOCAL_RANK")}
-    env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    outs = [os.path.join(tmp, f"{job}_rank{r}.pt") for r in range(world)]
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), job, payload_path, str(r), str(world), port,
-         outs[r]], cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0].decode(errors="replace"))
-    finally:
-        for p in procs:
+class Ranks:
+    """The processes of one run of `job` over `world` gloo ranks, started;
+    `results()` waits for them (asserting each exited 0) and returns each
+    rank's result in rank order; `stop()` kills what still runs."""
+
+    def __init__(self, job: str, payload: dict, tmp_path, world: int = 2, timeout: float = 300):
+        tmp = str(tmp_path)
+        os.makedirs(tmp, exist_ok=True)
+        payload_path = os.path.join(tmp, f"{job}_payload.pt")
+        torch.save(payload, payload_path)
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = str(s.getsockname()[1])
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PYTHONPATH", "RANK", "WORLD_SIZE", "LOCAL_RANK")}
+        env.update(PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+        self.outs = [os.path.join(tmp, f"{job}_rank{r}.pt") for r in range(world)]
+        self.timeout = timeout
+        self.procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), job, payload_path, str(r), str(world), port,
+             self.outs[r]], cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+            for r in range(world)]
+        self._results = None
+
+    def results(self) -> list:
+        if self._results is None:
+            logs = []
+            try:
+                for p in self.procs:
+                    logs.append(p.communicate(timeout=self.timeout)[0].decode(errors="replace"))
+            finally:
+                self.stop()
+            for r, (p, log) in enumerate(zip(self.procs, logs)):
+                assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
+            self._results = [torch.load(path, weights_only=False) for path in self.outs]
+        return self._results
+
+    def stop(self) -> None:
+        for p in self.procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log[-4000:]}"
-    return [torch.load(path, weights_only=False) for path in outs]
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +168,76 @@ def job_parallel(payload) -> dict:
         out["served_batches"] = serve_follower(pipe, mesh)
     generate.main(payload["generate_argv"])
     out["train_cli"] = train_icd.main(payload["train_argv"])
+    out.update(_sp_tp(payload["sp_tp"]))
     return out
+
+
+def _sp_tp(p) -> dict:
+    """sp = 2 and tp = 2 on the two ranks, on the bundle of p["weights"]:
+    one UNet call on each rank's rows of the height (and the rows gathered),
+    a generate at sp = 2, a served burst at sp = 2 (rank 0 the executor, rank
+    1 the follower), a generate under int8 at sp = 2, then the bundle's UNet
+    split over tp: its state dict, a generate, and a generate under int8."""
+    import numpy as np
+
+    from invertible_cd_tpu_torch.parallel import gather_rows, latent_rows, make_mesh
+    from invertible_cd_tpu_torch.parallel.spatial import spatial
+    from invertible_cd_tpu_torch.parallel.tp import tensor_parallel
+    from invertible_cd_tpu_torch.serving import BatchingExecutor, serve_follower
+    from invertible_cd_tpu_torch.testing import tiny_bundle
+
+    sp, tp = make_mesh(sp=2, device="cpu"), make_mesh(tp=2, device="cpu")
+    out = {"meshes": {"sp2": mesh_record(sp), "tp2": mesh_record(tp)}}
+    pipe = tiny_bundle(p["weights"])
+    u = p["unet"]
+    with torch.inference_mode(), spatial(sp):
+        rows = pipe.unets["reverse"](latent_rows(u["latent"], sp), u["t"], u["context"], w_cond=u["w"])
+    out["sp_unet_rows"] = rows.shape
+    out["sp_unet"] = gather_rows(rows, sp)
+    out["sp_generate"] = pipe.generate(p["prompts"], latent=p["sp_latent"], mesh=sp)
+    serve = p["serve"]
+    if sp.rank == 0:
+        with BatchingExecutor(pipe, batch_size=len(serve["prompts"]), max_delay=1.0, mesh=sp) as ex:
+            futs = [ex.submit(q, seed=s) for q, s in zip(serve["prompts"], serve["seeds"])]
+            out["sp_served"] = np.stack([f.result(timeout=120) for f in futs])
+            out["sp_serve_stats"] = ex.stats()
+    else:
+        out["sp_served_batches"] = serve_follower(pipe, sp)
+    pipe.quantize = "int8"
+    out["sp_int8_generate"] = pipe.generate(p["prompts"], latent=p["int8_latent"], mesh=sp)
+    pipe.quantize = "off"
+    tensor_parallel(pipe.unets["reverse"], tp)
+    out["tp_state"] = {k: v.clone() for k, v in pipe.unets["reverse"].state_dict().items()}
+    out["tp_generate"] = pipe.generate(p["prompts"], latent=p["tp_latent"])
+    pipe.quantize = "int8"
+    out["tp_int8_generate"] = pipe.generate(p["prompts"], latent=p["int8_latent"])
+    return out
+
+
+def mesh_record(mesh) -> dict:
+    """What a rank sees of a mesh: its shape, its coordinates, its rows and
+    the global ranks of its sp and tp groups."""
+    return {"shape": mesh.shape, "coords": {a: mesh.coordinate(a) for a in mesh.shape},
+            "rows": (mesh.rows, mesh.row),
+            "groups": {a: dist.get_process_group_ranks(mesh.group(a)) for a in ("dp", "sp", "tp")}}
+
+
+def job_dp_sp(payload) -> dict:
+    """dp = 2 x sp = 2 over four ranks, on the bundle of payload["weights"]:
+    each dp group generates its row of payload["prompts"] from its row of
+    payload["latent"], the height split over its sp pair; every rank
+    gathers the images over dp, and records the mesh."""
+    from invertible_cd_tpu_torch.parallel import all_gather_objects, make_mesh, process_local_batch_slice
+    from invertible_cd_tpu_torch.testing import tiny_bundle
+
+    mesh = make_mesh(dp=2, sp=2, device="cpu")
+    pipe = tiny_bundle(payload["weights"])
+    lo, n = process_local_batch_slice(len(payload["prompts"]), mesh)
+    images, _ = pipe.generate(payload["prompts"][lo:lo + n], latent=payload["latent"][lo:lo + n],
+                              mesh=mesh)
+    rows = all_gather_objects((mesh.coordinate("sp"), images), mesh)
+    return {"mesh": mesh_record(mesh), "rows": (lo, n),
+            "images": torch.cat([im for i, im in rows if i == 0])}
 
 
 def ev_fns():
@@ -180,7 +265,7 @@ class OrderScorer:
         return float(sum((k + 1) * int(np.asarray(im, np.int64).sum()) for k, im in enumerate(images)))
 
 
-JOBS = {"train": job_train, "parallel": job_parallel}
+JOBS = {"train": job_train, "parallel": job_parallel, "dp_sp": job_dp_sp}
 
 
 def main():

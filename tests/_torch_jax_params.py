@@ -7,6 +7,8 @@ from numpy's seeded stream by the fan-in rule of
 `invertible_cd_tpu_torch.models.layers.fan_in_init_`; both packages then get
 the same weights.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -36,3 +38,19 @@ def seeded_params(tree, seed=0):
             return jnp.asarray(1.0 + 0.05 * np.abs(noise))
         return jnp.asarray(1.0 + 0.05 * noise if name == "scale" else 0.05 * noise)
     return jax.tree_util.tree_map_with_path(draw, tree)
+
+
+def seeded_tiny_bundle():
+    """The JAX package's tiny SD1.5 bundle (`testing.tiny_bundle`'s configs,
+    16^2 latents, the hash tokenizer) with `seeded_params` weights: its
+    init only traced (Flax's init of the session's `tiny_pipe`, op by op,
+    costs most of a minute)."""
+    from invertible_cd_tpu import models as jmodels
+    from invertible_cd_tpu.pipelines.pipeline import InvertibleCD
+    from invertible_cd_tpu.utils.tokenizer import HashTokenizer
+
+    unet_cfg, clip_cfg = jmodels.UNetConfig.tiny(), jmodels.CLIPTextConfig.tiny()
+    pipe = InvertibleCD.sd15(dtype=jnp.float32, unet_cfg=unet_cfg, clip_cfg=clip_cfg,
+                             vae_cfg=jmodels.VAEConfig.tiny(), latent_size=(16, 16),
+                             tokenizer=HashTokenizer(clip_cfg.vocab_size))
+    return dataclasses.replace(pipe, params=seeded_params(pipe.params))

@@ -165,7 +165,7 @@ def test_config_file_defaults_match_jax(cli, config):
 @pytest.mark.parametrize("cli,flags", [
     (serve, ["--platform", "cpu"]), (train_icd, ["--split_step"]),
     (generate, ["--platform", "cpu"]), (train_icd, ["--platform", "cpu"]),
-    (edit, ["--platform", "cpu"]), (serve, ["--sp", "1"]), (serve, ["--sp", "2"]),
+    (edit, ["--platform", "cpu"]), (serve, ["--platform", "tpu"]), (generate, ["--platform", "tpu"]),
 ])
 def test_flags_not_ported_are_refused(cli, flags):
     required = {serve: [], train_icd: ["--output_dir", "unused"]}.get(cli, ["--out", "unused"])
@@ -173,10 +173,26 @@ def test_flags_not_ported_are_refused(cli, flags):
         cli.parse_args([*required, *flags])
 
 
-# JAX flags the port's parsers leave out: the backend choice, the
-# two-program train step (an eager step has no program to split), and
-# serving's spatial partitioning until ROADMAP item 17c
-NOT_PORTED_FLAGS = {"--platform", "--split_step", "--sp"}
+@pytest.mark.parametrize("flags,error", [
+    ([], None), (["--sp", "1"], None), (["--sp", "2"], r"\(1, 1, 2, 1\)"),
+    (["--dp", "1", "--sp", "2"], "mesh 1x1x2x1 != 1 devices"),
+])
+def test_serve_sp_flag_builds_the_mesh(flags, error):
+    """`--sp` as JAX's (default 1): no mesh for one process at sp = 1;
+    `--sp` alone fills dp with world // sp, an explicit dp needs a world of
+    dp x sp, and one process is not one (JAX's assertion texts)."""
+    args = serve.parse_args(flags)
+    assert args.sp == (int(flags[-1]) if "--sp" in flags else 1)
+    if error is None:
+        assert serve.serving_mesh(args) is None
+        return
+    with pytest.raises(AssertionError, match=error):
+        serve.serving_mesh(args)
+
+
+# JAX flags the port's parsers leave out: the backend choice and the
+# two-program train step (an eager step has no program to split)
+NOT_PORTED_FLAGS = {"--platform", "--split_step"}
 
 
 class _Parser(Exception):

@@ -31,6 +31,7 @@ from invertible_cd_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 
 from _torch_blocks import AutoencoderKL as OracleVAE
 from _torch_blocks import UNet2DConditionModel as OracleUNet
+from _torch_jax_params import seeded_tiny_bundle
 
 
 def _np_tree(tree):
@@ -49,6 +50,13 @@ def _flat(tree, prefix=()):
 
 def _shapes(sd):
     return {k: tuple(v.shape) for k, v in sd.items()}
+
+
+@pytest.fixture(scope="module")
+def tiny_pipe():
+    """The JAX tiny bundle with numpy-seeded weights (this module's, in place
+    of the session's Flax-initialised one)."""
+    return seeded_tiny_bundle()
 
 
 @pytest.mark.parametrize(

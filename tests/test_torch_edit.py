@@ -46,6 +46,17 @@ REFINE_PAIR = ["a photo of a corgi", "a photo of a small fluffy corgi"]
 NUM_STEPS = 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's tiny models (see
+    `test_torch_baselines.py`): under the suite's parallel workers more
+    threads oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bpe_vocab():
     """A small byte-level BPE vocabulary: every byte symbol, its </w> form,
     and a few merges, so most words take several tokens."""

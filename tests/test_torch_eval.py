@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 from PIL import Image
 
 from invertible_cd_tpu import models as jmodels
@@ -59,10 +60,13 @@ ATOL, RTOL = 1e-4, 1e-3
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     """One intra-op thread for this file's tiny models (see
-    `test_torch_baselines.py`)."""
+    `test_torch_baselines.py`). One BLAS thread for numpy (the FID's
+    eigendecompositions: on an 8-core CPU a 2048^2 `eigh` took 2.3 s on one
+    OpenBLAS thread and 8-12 s on eight)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(threads)
 
 

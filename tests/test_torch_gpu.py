@@ -75,6 +75,11 @@ def _qkv(cuda, b, sq, sk, h, d, seed=0, dtype=torch.bfloat16):
         (1, 4096, 4096, 10, 64),  # SDXL's self layers at 64^2 tokens: DP 64, unpadded
         (2, 1024, 77, 20, 64),  # SDXL's cross layers at 32^2 tokens
         (1, 100, 90, 3, 56),    # head dim padded 56 -> 64, ragged on both sides
+        # sp = 2 on SD1.5 512^2: a rank's queries against the whole height's keys
+        (2, 2048, 4096, 8, 40),
+        (2, 512, 1024, 8, 80),
+        (2, 128, 256, 8, 160),
+        (2, 32, 64, 8, 160),
     ],
 )
 def test_b1_matches_plain(cuda, b, sq, sk, h, d):
@@ -98,6 +103,8 @@ B2_SHAPES = [
     (2, 700, 333, 2, 384),    # split, d = 384, ragged on both sides
     (1, 16384, 16384, 1, 512),  # SDXL's VAE mid-block at 1024^2 under the bf16 opt-in
     (2, 16384, 16384, 1, 512),  # and its decode of an edited pair
+    (1, 2048, 4096, 1, 512),  # sp = 2: a rank's half of the mid-block's queries, split keys
+    (2, 2048, 4096, 1, 512),
 ]
 # B2's fp32 build (SDXL's default fp32 VAE): SDXL's shapes, and ragged ones.
 # d = 512 takes the Hopper route (clusters of 2 query tiles x 2 head-dim
@@ -883,6 +890,9 @@ Q2_SHAPES = [  # (form, shape): the int8 paths' kinds of Q2 input, and odd ones
     ("static", (4, 320, 64, 64)),
     ("static", (1, 3, 64, 64)),
     ("static", (2, 20, 33, 17)),
+    ("rows_amax", (16384, 640)),  # a tp = 2 rank's half of GEGLU's output projection at 64^2
+    ("rows_amax", (7, 40)),
+    ("rows_amax", (5, 8)),
 ]
 
 
@@ -890,10 +900,11 @@ Q2_SHAPES = [  # (form, shape): the int8 paths' kinds of Q2 input, and odd ones
 @pytest.mark.parametrize("form,shape", Q2_SHAPES)
 def test_q2_matches_plain(cuda, form, shape, dtype):
     """Q2's codes and scales equal its plain version's bit for bit: dense
-    rows (one scale a row, K padded to 16), a convolution's tensor (one
-    scale; NHWC codes, C padded to 16) from NCHW and channels-last input,
-    and the static form (the calibrated amax read on the device, clipping);
-    one launch counted each call."""
+    rows (one scale a row, K padded to 16; or each row's amax read on the
+    device, clipping, 0 taken as 1), a convolution's tensor (one scale; NHWC
+    codes, C padded to 16) from NCHW and channels-last input, and the static
+    form (the calibrated amax read on the device, clipping); one launch
+    counted each call."""
     from invertible_cd_tpu_torch.ops import quant
 
     gen = torch.Generator(device=cuda).manual_seed(17)
@@ -901,7 +912,10 @@ def test_q2_matches_plain(cuda, form, shape, dtype):
     x.view(-1)[::997] *= 11.0
     x = x.to(dtype)
     amax = (0.75 * x.float().abs().amax()).reshape(1) if form == "static" else None
-    per_row = form == "rows"
+    if form == "rows_amax":  # rows' amaxes from elsewhere (a tp group's): above, below, 0
+        amax = x.float().abs().amax(1) * torch.linspace(0.5, 1.5, shape[0], device=cuda)
+        amax[0] = 0.0
+    per_row = form.startswith("rows")
     for xx in [x] if per_row else [x, x.contiguous(memory_format=torch.channels_last)]:
         before = fa.launches("int8_quantize")
         q, s = quant.quantize_activation(xx, per_row, amax)
@@ -909,6 +923,26 @@ def test_q2_matches_plain(cuda, form, shape, dtype):
         torch.cuda.synchronize()
         assert fa.launches("int8_quantize") == before + 1
         assert q.shape[-1] % 16 == 0 and torch.equal(q, qp) and torch.equal(s, sp)
+
+
+@pytest.mark.parametrize("rows,k,n", [(4096, 640, 320), (154, 160, 320), (3, 40, 24)])
+def test_int8_linear_split_on_one_rank_is_the_int8_layer(cuda, rows, k, n):
+    """The tp row-split int8 layer (Q2 with the rows' amax, Q1's int32
+    accumulators, the epilogue) with its reductions the identity (one rank
+    holding every in-feature) equals the int8 layer (Q2, Q1 with its fused
+    epilogue) bit for bit, with and without a bias."""
+    from invertible_cd_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.randn((rows, k), generator=gen, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((n, k), generator=gen, device=cuda) / k ** 0.5).to(torch.bfloat16)
+    bias = (0.05 * torch.randn(n, generator=gen, device=cuda)).to(torch.bfloat16)
+    codes = quant.quantize_weight(w, w.float().abs().amax(dim=1))
+    for b in (bias, None):
+        want = quant.int8_linear(x, w, b, quant.quantize_weight(w))
+        got = quant.int8_linear_split(x, w, b, codes, lambda t: t, lambda t: t)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 def test_q2_all_zero_input(cuda):

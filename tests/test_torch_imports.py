@@ -36,7 +36,8 @@ def test_port_modules_are_all_found():
                  "metrics.basic", "metrics.frechet", "metrics.inception", "metrics.fid",
                  "metrics.lpips", "metrics.vit", "metrics.image_reward", "metrics.scores",
                  "metrics.precision", "training.eval", "utils.profiling", "ops.quant",
-                 "cli.quant_quality", "parallel", "parallel.mesh"):
+                 "cli.quant_quality", "parallel", "parallel.mesh", "parallel.spatial",
+                 "parallel.tp"):
         assert f"invertible_cd_tpu_torch.{name}" in mods
 
 

@@ -48,6 +48,10 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
+# one compiled init of the adapters (its random draws are the eager init's bits)
+_init_lora = jax.jit(j_init_lora, static_argnames="rank")
+
+
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -68,7 +72,7 @@ def world():
     ))["params"]
 
     def j_lora(seed):
-        lora = _np_tree(j_init_lora(jax.random.PRNGKey(seed), jbase, rank=RANK))
+        lora = _np_tree(_init_lora(jax.random.PRNGKey(seed), jbase, rank=RANK))
         r = np.random.default_rng(seed)
         return {k: {"down": v["down"],
                     "up": (0.3 * r.normal(size=v["up"].shape)).astype(np.float32)}
@@ -96,8 +100,12 @@ def world():
         "uncond": (0.1 * rng.normal(size=(B, 77, jcfg.cross_attention_dim))).astype(np.float32),
         "w": np.array([7.0, 11.0], np.float32),
     }
-    return dict(junet=junet, jbase=jbase, jlora=jlora, jschedule=jschedule, jsolver=jsolver,
-                unet=unet, base=base, lora=lora, schedule=schedule, solver=solver, data=data)
+    # one compiled UNet apply (and its derivatives) for every case, in place
+    # of Flax's op-by-op apply under the eager value_and_grad
+    japply = jax.jit(lambda tree, x, t, ctx, we: junet.apply({"params": tree}, x, t, ctx, w_cond=we))
+    return dict(junet=junet, japply=japply, jbase=jbase, jlora=jlora, jschedule=jschedule,
+                jsolver=jsolver, unet=unet, base=base, lora=lora, schedule=schedule, solver=solver,
+                data=data)
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +160,7 @@ def _jax_side(world, which, loss_type, embed_guidance, key):
     sol, sch = world["jsolver"], world["jschedule"]
 
     def apply_with(tree, context=ctx):
-        return lambda p, x, t, we: junet.apply({"params": tree}, x, t, context, w_cond=we)
+        return lambda p, x, t, we: world["japply"](tree, x, t, context, we)
 
     def merged(name, lora=None):
         return j_merge_lora(jbase, world["jlora"][name] if lora is None else lora, rank=RANK)

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from invertible_cd_tpu.metrics import basic as jbasic
 from invertible_cd_tpu.metrics import fid as jfid
@@ -45,10 +46,13 @@ RTOL, ATOL = 1e-4, 1e-5
 def _one_torch_thread():
     """One intra-op thread for this file's small modules (see
     `test_torch_baselines.py`): under the suite's parallel workers more
-    threads oversubscribe the cores."""
+    threads oversubscribe the cores. One BLAS thread for numpy (the FID's
+    eigendecompositions: on an 8-core CPU a 2048^2 `eigh` took 2.3 s on one
+    OpenBLAS thread and 8-12 s on eight)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(threads)
 
 

@@ -27,6 +27,8 @@ from invertible_cd_tpu_torch.models.layers import (
 )
 from invertible_cd_tpu_torch.testing import tiny_bundle
 
+from _torch_jax_params import seeded_tiny_bundle
+
 ATOL, RTOL = 1e-4, 1e-3
 RNG = np.random.default_rng(0)
 
@@ -45,6 +47,24 @@ def _nhwc(t):
 
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's tiny models (see
+    `test_torch_baselines.py`): under the suite's parallel workers more
+    threads oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def tiny_pipe():
+    """The JAX tiny bundle with numpy-seeded weights (this module's, in place
+    of the session's Flax-initialised one)."""
+    return seeded_tiny_bundle()
 
 
 @pytest.fixture(scope="module")

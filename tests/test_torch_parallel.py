@@ -5,8 +5,10 @@ executor's divisibility errors against the JAX package's own text, and
 `param_sharding` on the tiny bundle against JAX `param_sharding` on the
 8-device virtual mesh, axis for axis through the weight bridge.
 
-With one module-scoped run of two gloo ranks (`_torch_dist.run_ranks`, one
-process a rank, no JAX there), whose results the parametrised cases read:
+With one module-scoped run of two gloo ranks and one of four
+(`_torch_dist.Ranks`, one process a rank, no JAX there, both started
+before the first test and read when a case needs them), whose results the
+parametrised cases read:
 a dp = 2 step, an fsdp = 2 step and a dp = 2 step drawing from its
 generator, each against the one-process port step on the global batch;
 both ranks' adapters bit for bit; each rank's resident base bytes under
@@ -14,7 +16,12 @@ fsdp, and the whole weights a step gathers, freed when it returns;
 `sample_for_fid` and `eval_inversion` gathered on every rank against
 the one-process sweep; dp = 2 serving against the one-process executor;
 the generate CLI's files at two ranks against one; the train CLI at
-`--fsdp 2` against one process.
+`--fsdp 2` against one process. On the JAX tiny bundle's weights through
+the bridge, against JAX's unsharded runs in this process
+(`tests/test_parallel_inference.py`'s cases): the UNet at sp = 2, generate
+at sp = 2, at dp = 2 x sp = 2 (the four ranks) and at tp = 2, off and int8;
+an sp = 2 served burst against the one-process executor; the meshes' shapes
+and groups, and each tp rank's slices against `param_sharding`.
 """
 import dataclasses
 import filecmp
@@ -28,6 +35,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from invertible_cd_tpu import serving as jserving
 from invertible_cd_tpu.models import AutoencoderKL as JVAE
@@ -50,8 +58,8 @@ from invertible_cd_tpu_torch.testing import tiny_bundle
 from invertible_cd_tpu_torch.training import LossConfig, TrainConfig, init_train_state, make_train_step
 from invertible_cd_tpu_torch.training.eval import eval_inversion, sample_for_fid
 
-from _torch_dist import OrderScorer, _tiny_world, ev_decode, ev_fns, run_ranks
-from _torch_jax_params import traced_init
+from _torch_dist import OrderScorer, Ranks, _tiny_world, ev_decode, ev_fns
+from _torch_jax_params import seeded_tiny_bundle, traced_init
 
 TINY = ["--model", "tiny", "--device", "cpu"]
 B = 2
@@ -60,10 +68,13 @@ B = 2
 @pytest.fixture(scope="module", autouse=True)
 def _one_torch_thread():
     """One intra-op thread for this file's tiny models (see
-    `test_torch_baselines.py`)."""
+    `test_torch_baselines.py`). One BLAS thread for numpy (the FID's
+    eigendecompositions: on an 8-core CPU a 2048^2 `eigh` took 2.3 s on one
+    OpenBLAS thread and 8-12 s on eight)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(threads)
 
 
@@ -82,19 +93,24 @@ def _no_tensorboard(monkeypatch):
     ({"fsdp": 1, "dp": 1}, None, None),
     ({"dp": 2}, AssertionError, "mesh 2x1x1x1 != 1 devices"),
     ({"fsdp": 2}, AssertionError, r"\(1, 2, 1, 1\)"),
-    ({"sp": 2}, NotImplementedError, "17c"),
-    ({"tp": 2}, NotImplementedError, "17c"),
+    ({"sp": 2}, AssertionError, r"\(1, 1, 2, 1\)"),
+    ({"dp": 1, "tp": 2}, AssertionError, "mesh 1x1x1x2 != 1 devices"),
 ])
 def test_make_mesh_shapes_and_errors(kw, error, match):
     """One process, no process group: a 1x1x1x1 mesh (JAX's on one
-    device), JAX's assertion texts, and sp / tp refused until item 17c."""
+    device), and JAX's assertion text, word for word, for a product other
+    than one device, over sp and tp too (their meshes on ranks:
+    `test_make_mesh_sp_tp_on_ranks`)."""
     if error is None:
         mesh = make_mesh(**kw)
         assert mesh.shape == {"dp": 1, "fsdp": 1, "sp": 1, "tp": 1} and mesh.size == 1
         assert (mesh.rank, mesh.rows, mesh.row, mesh.device_mesh) == (0, 1, 0, None)
         return
-    with pytest.raises(error, match=match):
+    with pytest.raises(error, match=match) as got:
         make_mesh(**kw)
+    with pytest.raises(AssertionError) as want:
+        jmake_mesh(devices=jax.devices()[:1], **kw)
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("dp,b", [(8, 6), (4, 6), (2, 3), (8, 12)])
@@ -239,13 +255,89 @@ def _train_argv(out):
                    "--output_dir", out]
 
 
+SP_PROMPTS = ["a cat", "a dog"]
+SP_SERVE = dict(prompts=["a red fox", "a cat"], seeds=[11, 2**40 + 3])
+LATENT_KEYS = {"sp": 13, "tp": 5, "int8": 9}  # test_parallel_inference.py's PRNGKeys
+
+
 @pytest.fixture(scope="module")
-def two_ranks(tmp_path_factory):
+def jpipe():
+    """The JAX package's tiny SD1.5 bundle with numpy-seeded weights."""
+    return seeded_tiny_bundle()
+
+
+@pytest.fixture(scope="module")
+def sp_tp_inputs(jpipe):
+    """The JAX bundle's weights through the bridge, the UNet's inputs of
+    `test_parallel_inference.py`'s sp case (rng 11: latents (2, 16, 16, 4),
+    context, zero w; t = 519) and the start latents JAX's generate draws
+    from its cases' PRNGKeys, NHWC numpy."""
+    p = jax.tree.map(np.asarray, jpipe.params)
+    weights = {"reverse": convert.unet_state_dict_from_flax(p["reverse"]),
+               "text": convert.clip_state_dict_from_flax(p["text"]),
+               "vae": convert.vae_state_dict_from_flax(p["vae"])}
+    cfg = jpipe.unet.cfg
+    rng = np.random.default_rng(11)
+    unet = {"latent": rng.normal(size=(2, 16, 16, 4)).astype(np.float32),
+            "context": rng.normal(size=(2, 77, cfg.cross_attention_dim)).astype(np.float32),
+            "w": np.zeros((2, cfg.time_cond_proj_dim), np.float32), "t": 519}
+    latents = {name: np.array(jpipe.init_latent(jax.random.PRNGKey(k), len(SP_PROMPTS)))
+               for name, k in LATENT_KEYS.items()}
+    return dict(weights=weights, unet=unet, latents=latents)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def spawns(tmp_path_factory, sp_tp_inputs):
+    """The two-rank and the four-rank runs, started before this file's first
+    test (its layout tests and the JAX references run meanwhile)."""
     tmp = tmp_path_factory.mktemp("two_ranks")
     payload = _train_inputs()
+    torch_latents = {k: torch.from_numpy(v) for k, v in sp_tp_inputs["latents"].items()}
+    u = sp_tp_inputs["unet"]
     payload.update(eval=EVAL, serve=SERVE, generate_argv=_generate_argv(str(tmp / "gen")),
-                   train_argv=_train_argv(str(tmp / "train")) + ["--fsdp", "2"])
-    return dict(ranks=run_ranks("parallel", payload, tmp), inputs=payload, tmp=tmp)
+                   train_argv=_train_argv(str(tmp / "train")) + ["--fsdp", "2"],
+                   sp_tp=dict(weights=sp_tp_inputs["weights"], prompts=SP_PROMPTS, serve=SP_SERVE,
+                              unet=dict(latent=torch.from_numpy(u["latent"]).permute(0, 3, 1, 2),
+                                        context=torch.from_numpy(u["context"]),
+                                        w=torch.from_numpy(u["w"]), t=u["t"]),
+                              sp_latent=torch_latents["sp"], tp_latent=torch_latents["tp"],
+                              int8_latent=torch_latents["int8"]))
+    runs = dict(two=Ranks("parallel", payload, tmp), payload=payload, tmp=tmp,
+                four=Ranks("dp_sp", dict(weights=sp_tp_inputs["weights"], prompts=SP_PROMPTS,
+                                         latent=torch_latents["sp"]), tmp, world=4))
+    yield runs
+    runs["two"].stop()
+    runs["four"].stop()
+
+
+@pytest.fixture(scope="module")
+def jax_refs(jpipe, sp_tp_inputs):
+    """JAX's unsharded runs: the UNet apply on the sp case's inputs, and
+    generate of SP_PROMPTS from each start latent (under int8 for "int8")."""
+    pipe, u = jpipe, sp_tp_inputs["unet"]
+    b = u["latent"].shape[0]
+    unet = jax.jit(lambda params, l, c, wv: pipe.unet.apply(
+        params, l, jnp.full((b,), u["t"], jnp.int32), c, w_cond=wv))
+    out = {"unet": np.asarray(unet(pipe.params["reverse"], u["latent"], u["context"], u["w"]))}
+    for name, latent in sp_tp_inputs["latents"].items():
+        pipe.quantize = "int8" if name == "int8" else "off"
+        try:
+            out[name] = np.asarray(pipe.generate(SP_PROMPTS, latent=jnp.asarray(latent))[0])
+        finally:
+            pipe.quantize = "off"
+    return out
+
+
+@pytest.fixture(scope="module")
+def two_ranks(spawns, jax_refs):
+    """The two ranks' results (JAX's references are computed first, while
+    the ranks run)."""
+    return dict(ranks=spawns["two"].results(), inputs=spawns["payload"], tmp=spawns["tmp"])
+
+
+@pytest.fixture(scope="module")
+def four_ranks(spawns, jax_refs):
+    return spawns["four"].results()
 
 
 @pytest.fixture(scope="module")
@@ -426,3 +518,126 @@ def test_train_cli_fsdp_two_ranks(two_ranks, tmp_path):
     assert [r["step"] for r in rows] == [r["step"] for r in one] == [1, 2, 2]
     np.testing.assert_allclose(rows[-1]["eval/inversion_latent_mse"],
                                one[-1]["eval/inversion_latent_mse"], rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# sp and tp, against JAX's unsharded runs
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("name", ["sp2", "tp2", "dp2xsp2"])
+def test_make_mesh_sp_tp_on_ranks(two_ranks, four_ranks, name):
+    """`make_mesh(sp=2)` and `make_mesh(tp=2)` over two ranks and
+    `make_mesh(dp=2, sp=2)` over four: the row-major layout (rank = dp_i *
+    sp + sp_i), each rank's sp and tp groups, and rows over dp alone."""
+    if name == "dp2xsp2":
+        records = [r["mesh"] for r in four_ranks]
+        shape = {"dp": 2, "fsdp": 1, "sp": 2, "tp": 1}
+    else:
+        records = [r["meshes"][name] for r in two_ranks["ranks"]]
+        shape = {"dp": 1, "fsdp": 1, "sp": 2 if name == "sp2" else 1, "tp": 2 if name == "tp2" else 1}
+    inner = shape["sp"] * shape["tp"]
+    for rank, rec in enumerate(records):
+        assert rec["shape"] == shape
+        assert rec["coords"] == {"dp": rank // inner, "fsdp": 0, "sp": rank // shape["tp"] % shape["sp"],
+                                 "tp": rank % shape["tp"]}
+        assert rec["rows"] == (shape["dp"], rank // inner)
+        assert rec["groups"]["dp"] == list(range(rank % inner, len(records), inner))
+        for axis in ("sp", "tp"):
+            step = shape["tp"] if axis == "sp" else 1
+            first = rank - rec["coords"][axis] * step
+            assert rec["groups"][axis] == [first + j * step for j in range(shape[axis])]
+
+
+def test_sp_unet_matches_jax(two_ranks, jax_refs):
+    """The tiny UNet with each rank holding 8 of the latent's 16 rows
+    (halo convolutions, GroupNorm's sums over the pair, K and V gathered),
+    its rows gathered, against JAX's replicated apply at JAX's sp tolerance
+    (1e-5 / 1e-4: GroupNorm's sums reassociate)."""
+    want = jax_refs["unet"]
+    for rank in two_ranks["ranks"]:
+        assert tuple(rank["sp_unet_rows"]) == (2, 4, 8, 16)
+        np.testing.assert_allclose(rank["sp_unet"].permute(0, 2, 3, 1).numpy(), want,
+                                   atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["sp", "tp", "dp_sp"])
+def test_distributed_generate_matches_jax(two_ranks, four_ranks, jax_refs, name):
+    """Generate of two prompts from JAX's start latent, at sp = 2 (both
+    ranks hold the whole images), tp = 2 (each rank half of every block's
+    heads and FF features) and dp = 2 x sp = 2 (each dp pair one prompt,
+    its height split), against JAX's unsharded generate at JAX's dp x sp
+    tolerance (3e-5 / 1e-4)."""
+    if name == "dp_sp":
+        got = [r["images"] for r in four_ranks]
+        assert [r["rows"] for r in four_ranks] == [(0, 1), (0, 1), (1, 1), (1, 1)]
+    else:
+        got = [rank[f"{name}_generate"][0] for rank in two_ranks["ranks"]]
+    want = jax_refs["tp" if name == "tp" else "sp"]
+    assert want.shape == (2, 32, 32, 3)
+    for images in got:
+        np.testing.assert_allclose(images.numpy(), want, atol=3e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["tp", "sp"])
+def test_int8_generate_matches_jax(two_ranks, jax_refs, sp_tp_inputs, name):
+    """Generate under int8 at tp = 2 and at sp = 2 against JAX's unsharded
+    int8 generate within JAX's flip-noise bounds (mean |diff| < 2e-2, max <
+    2e-1; `test_parallel_inference.py`). At tp = 2 also bit for bit the
+    port's one-process int8 generate: the row-split layers quantise with the
+    whole row's amax and the whole weight's scales, and sum the int32
+    accumulators before the epilogue. (At sp = 2 GroupNorm's reduced sums
+    round otherwise, which can flip a code; each convolution quantises with
+    the group's amax.)"""
+    pipe = tiny_bundle(sp_tp_inputs["weights"])
+    pipe.quantize = "int8"
+    one, _ = pipe.generate(SP_PROMPTS, latent=torch.from_numpy(sp_tp_inputs["latents"]["int8"]))
+    for rank in two_ranks["ranks"]:
+        got = rank[f"{name}_int8_generate"][0]
+        diff = np.abs(got.numpy() - jax_refs["int8"])
+        assert diff.mean() < 2e-2 and diff.max() < 2e-1, (diff.mean(), diff.max())
+        if name == "tp":
+            assert torch.equal(got, one)
+
+
+def test_tp_slices_follow_param_sharding(two_ranks, sp_tp_inputs):
+    """Each tp rank holds, of every tensor `param_sharding` splits over tp,
+    its block along the axis it names: the r-th of to_q/k/v's out-features
+    (whole heads), of to_out.0's and net.2's in-features, and of GEGLU
+    proj's out-features taken from its value half and from its gate half
+    alike, its bias with them (JAX keeps that bias whole, and GSPMD slices
+    the sum); every other tensor whole."""
+    full = sp_tp_inputs["weights"]["reverse"]
+    specs = param_sharding(full, Mesh(tp=2))
+    for key in full:  # the GEGLU bias follows its weight's rows
+        if key.endswith(".ff.net.0.proj.bias"):
+            specs[key] = ("tp",)
+    owners = set()
+    for r, rank in enumerate(two_ranks["ranks"]):
+        got = rank["tp_state"]
+        assert got.keys() == full.keys()
+        for key, t in full.items():
+            axis = next((i for i, a in enumerate(specs[key]) if a == "tp"), None)
+            if axis is None:
+                want = t
+            elif ".ff.net.0.proj." in key:
+                value, gate = t.chunk(2, 0)
+                want = torch.cat([value.chunk(2, 0)[r], gate.chunk(2, 0)[r]])
+            else:
+                want = t.chunk(2, axis)[r]
+            assert torch.equal(got[key], want), key
+            if axis is not None:
+                owners.add(key.split(".")[-2] if key.split(".")[-2] != "0" else "to_out.0")
+    assert owners == {"to_q", "to_k", "to_v", "to_out.0", "proj", "2"}  # net.2's last part
+
+
+def test_sp_serving_matches_executor(two_ranks, sp_tp_inputs):
+    """A burst of two served at dp = 1 x sp = 2 (each rank half of every
+    latent's height; rank 0 the executor, rank 1 `serve_follower`) against
+    the one-process executor's batch, at `test_serving.py`'s 2e-5 / 1e-4."""
+    rank0, rank1 = two_ranks["ranks"]
+    assert rank0["sp_serve_stats"]["batches"] == 1 and rank1["sp_served_batches"] == 1
+    pipe = tiny_bundle(sp_tp_inputs["weights"])
+    with BatchingExecutor(pipe, batch_size=2, max_delay=1.0) as ex:
+        futs = [ex.submit(p, seed=s) for p, s in zip(SP_SERVE["prompts"], SP_SERVE["seeds"])]
+        want = np.stack([f.result(timeout=120) for f in futs])
+    assert rank0["sp_served"].shape == want.shape == (2, 32, 32, 3)
+    np.testing.assert_allclose(rank0["sp_served"], want, rtol=1e-4, atol=2e-5)

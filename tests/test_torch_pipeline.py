@@ -36,6 +36,17 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's tiny models (see
+    `test_torch_baselines.py`): under the suite's parallel workers more
+    threads oversubscribe the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def port_pipe(tiny_pipe):
     p = tiny_pipe.params

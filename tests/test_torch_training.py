@@ -43,7 +43,7 @@ from invertible_cd_tpu_torch.training.checkpoint import (
 )
 from invertible_cd_tpu_torch.training.trainer import init_optimizer
 
-from _torch_dist import run_ranks
+from _torch_dist import Ranks
 from _torch_jax_params import seeded_params, traced_init
 
 ENDPOINTS, FORWARD_ENDPOINTS = "0,259,519,779", "259,519,779,999"
@@ -72,6 +72,10 @@ def _no_tensorboard(monkeypatch):
     monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
 
 
+# one compiled init of the adapters (its random draws are the eager init's bits)
+_init_lora = jax.jit(j_init_lora, static_argnames="rank")
+
+
 def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
@@ -90,7 +94,7 @@ def jax_world():
         jnp.zeros((1, 77, jcfg.cross_attention_dim)), jnp.zeros((1, jcfg.time_cond_proj_dim))))
 
     def lora(seed):
-        tree = _np_tree(j_init_lora(jax.random.PRNGKey(seed), jbase["params"], rank=RANK))
+        tree = _np_tree(_init_lora(jax.random.PRNGKey(seed), jbase["params"], rank=RANK))
         r = np.random.default_rng(seed)
         return {k: {"down": v["down"],
                     "up": (0.3 * r.normal(size=v["up"].shape)).astype(np.float32)}
@@ -133,7 +137,7 @@ def _torch_batch(batch):
 # ---------------------------------------------------------------------------
 def test_init_lora_targets_shapes_and_zero_up(jax_world, port_world):
     want = convert.lora_from_flax(
-        _np_tree(j_init_lora(jax.random.PRNGKey(0), jax_world["base"]["params"], rank=RANK)))
+        _np_tree(_init_lora(jax.random.PRNGKey(0), jax_world["base"]["params"], rank=RANK)))
     got = init_lora(port_world["base"], torch.Generator().manual_seed(0), rank=RANK)
     assert sorted(got) == sorted(want) and len(got) > 50
     for key, ab in got.items():
@@ -265,19 +269,10 @@ def test_sample_w():
 # one full step
 # ---------------------------------------------------------------------------
 @pytest.fixture(scope="module")
-def both_steps(jax_world, port_world):
-    """One step in each package from the same state, batch and draws: the one
-    compiled JAX step of this file."""
+def step_inputs(jax_world):
+    """The step's config, batch and JAX key, and the draws JAX's step makes
+    from that key (the port's steps take them as given)."""
     jcfg = JT.TrainConfig(lora_rank=RANK, loss=JLossConfig(w_embed_dim=jax_world["cfg"].time_cond_proj_dim))
-    jschedule = j_make_schedule()
-    jsolver = j_make_train_solver(
-        np.asarray(jschedule.alphas_cumprod), num_endpoints=4, num_forward_endpoints=4,
-        endpoints=ENDPOINTS, forward_endpoints=FORWARD_ENDPOINTS)
-    jopt = JT.make_optimizer(jcfg)
-    lora_r, lora_f = (jax.tree.map(jnp.asarray, jax_world[n]) for n in ("lora_r", "lora_f"))
-    jstate = JT.ICDTrainState(step=jnp.zeros((), jnp.int32), lora_reverse=lora_r, lora_forward=lora_f,
-                              opt_reverse=jopt.init(lora_r), opt_forward=jopt.init(lora_f))
-    batch = _batch()
     rng = jax.random.PRNGKey(5)
     _, k_w, k_r, k_f, k_fp, k_rp = jax.random.split(rng, 6)
 
@@ -288,6 +283,36 @@ def both_steps(jax_world, port_world):
         "reverse_index": index(k_r, 50), "forward_index": index(k_f, 49),
         "forward_preserve_index": index(k_fp, 4), "reverse_preserve_index": index(k_rp, 4),
     }
+    return dict(jcfg=jcfg, batch=_batch(), rng=rng, draws=draws)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def two_rank_run(step_inputs, port_world, jax_world, tmp_path_factory):
+    """The step of `both_steps` over two gloo ranks, one row each
+    (`_torch_dist.Ranks`: two processes, no JAX there), from the same state
+    and the same global batch and draws; started before this file's first
+    test, so the processes run while JAX compiles its step."""
+    payload = dict(base=port_world["base"], state=_port_state(jax_world, port_world["tcfg"]),
+                   batch=_torch_batch(step_inputs["batch"]),
+                   steps={"dp": dict(fsdp=1, tcfg=port_world["tcfg"], draws=step_inputs["draws"])})
+    ranks = Ranks("train", payload, tmp_path_factory.mktemp("two_rank_step"))
+    yield ranks
+    ranks.stop()
+
+
+@pytest.fixture(scope="module")
+def both_steps(jax_world, port_world, step_inputs):
+    """One step in each package from the same state, batch and draws: the one
+    compiled JAX step of this file."""
+    jcfg, batch, rng, draws = (step_inputs[k] for k in ("jcfg", "batch", "rng", "draws"))
+    jschedule = j_make_schedule()
+    jsolver = j_make_train_solver(
+        np.asarray(jschedule.alphas_cumprod), num_endpoints=4, num_forward_endpoints=4,
+        endpoints=ENDPOINTS, forward_endpoints=FORWARD_ENDPOINTS)
+    jopt = JT.make_optimizer(jcfg)
+    lora_r, lora_f = (jax.tree.map(jnp.asarray, jax_world[n]) for n in ("lora_r", "lora_f"))
+    jstate = JT.ICDTrainState(step=jnp.zeros((), jnp.int32), lora_reverse=lora_r, lora_forward=lora_f,
+                              opt_reverse=jopt.init(lora_r), opt_forward=jopt.init(lora_f))
     jstep = JT.make_train_step(jax_world["unet"], jax_world["base"], jax_world["base"],
                                jsolver, jschedule, jcfg)
     jnew, jmetrics = jstep(jstate, jax_world["base"], jax_world["base"],
@@ -357,14 +382,9 @@ def _updates_match_jax(state, new, want_tree):
 
 
 @pytest.fixture(scope="module")
-def two_rank_step(both_steps, port_world, jax_world, tmp_path_factory):
-    """The step of `both_steps` over two gloo ranks, one row each
-    (`_torch_dist.run_ranks`: two processes, no JAX there), from the same
-    state and the same global batch and draws."""
-    payload = dict(base=port_world["base"], state=_port_state(jax_world, port_world["tcfg"]),
-                   batch=_torch_batch(both_steps["batch"]),
-                   steps={"dp": dict(fsdp=1, tcfg=port_world["tcfg"], draws=both_steps["draws"])})
-    return [r["dp"] for r in run_ranks("train", payload, tmp_path_factory.mktemp("two_rank_step"))]
+def two_rank_step(two_rank_run, both_steps):
+    """Each rank's result of `two_rank_run`."""
+    return [r["dp"] for r in two_rank_run.results()]
 
 
 def test_two_rank_step_matches_jax(two_rank_step, both_steps):

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 from safetensors.numpy import load_file
 
 from invertible_cd_tpu.diffusion.schedule import make_schedule as j_make_schedule
@@ -63,10 +64,13 @@ XL_FIELDS = dict(
 def _one_torch_thread():
     """One intra-op thread for this file's tiny models (see
     `test_torch_baselines.py`): under the suite's parallel workers more
-    threads oversubscribe the cores."""
+    threads oversubscribe the cores. One BLAS thread for numpy (the FID's
+    eigendecompositions: on an 8-core CPU a 2048^2 `eigh` took 2.3 s on one
+    OpenBLAS thread and 8-12 s on eight)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(1):
+        yield
     torch.set_num_threads(threads)
 
 
