@@ -26,7 +26,8 @@ nothing of JAX. Phases, each of which must pass:
              (two builds of B1 compare in one `--kernels-only` call);
              the backward kernels B3 and B4 with dO ~ N(0, 1) at the train
              step's batch, at NTI's (batch 1) and at SDXL training's four
-             d = 64 shapes (phase 5b's batch; B3/B4's DP 64 route), against the
+             d = 64 shapes (phase 5b's batch; B3/B4's DP 64 route) and at
+             phase 5e's tp = 2 train step's (batch 2, 4 heads), against the
              plain explicit backward and against autograd through the plain
              forward (max abs error <= 2e-2 * max |reference| for each of
              dq, dk, dv), bit-identical on a repeat, timed beside the plain
@@ -78,7 +79,9 @@ nothing of JAX. Phases, each of which must pass:
              512^2 JPEGs and the manifest, the process's and its generate's
              time. The edit CLI through `main(argv, _pipe=bundle)` on a seeded
              512^2 JPEG: cons, `--baseline npi`, `--baseline nti
-             --nti_inner_steps 2 --uncond_cache`, and the NTI run again, which
+             --nti_inner_steps 2 --uncond_cache` (the baselines on the bundle
+             at `ddim_grid(EDIT_CLI_DDIM_STEPS)`, 10 steps), and the NTI run
+             again, which
              must read its cache (no B3/B4, the same edited file); exact
              launches derived from the spec, the grid and NTI's inner
              iterations (B3's count over the 31 layers under the gradient);
@@ -90,20 +93,21 @@ nothing of JAX. Phases, each of which must pass:
              image (CFG 1.0, run on the doubled batch as JAX does),
              `ddim_generate` from its inversion at CFG 7.5, the controlled
              pair under the edit's controller at 50 steps (CFG batch 4), NPI's
-             reconstruction and `null_text_inversion` (5 inner iterations
-             at most, half the reference's default of 10, so that the
-             script fits its time limit with phase 5d; epsilon 1e-5) with
-             its reconstruction. Checks shapes, finite images in [0, 1], exact
+             reconstruction and `null_text_inversion` (NTI_INNER_STEPS inner
+             iterations at most, 1 of the reference's default of 10, so that
+             the script fits its time limit with phase 5e; epsilon 1e-5)
+             with its reconstruction. Checks shapes, finite images in [0, 1], exact
              launches per (kernel, Sq, Sk, d) and batch derived from the
              config, the grid, the spec and NTI's inner iterations as the run
              reports them (32 x B1 a UNet call; an NTI step of k iterations
              (2 + k) x 32 x B1 and k x 31 x B3 and B4, the layers after the
              first cross layer), an identical repeat, NTI's gradient through
              B1 with lse, B3 and B4 against the materialised path within
-             UNET_REL_TOL, a tiny bundle on the card against the CPU (every
-             UNet call of the DDIM paths and the pair's LocalBlend maps
-             teacher-forced; NTI per outer step with every inner iteration
-             run: its first gradient and its embedding); times each path,
+             UNET_REL_TOL, a tiny bundle on the card against the CPU on a
+             TINY_GRID-step grid (every UNet call of the DDIM paths and the
+             pair's LocalBlend maps teacher-forced; NTI per outer step with
+             every inner iteration run: its first gradient and its
+             embedding); times each path,
              one teacher call at batch 2 and one NTI inner iteration, and
              traces one `ddim_generate`;
   4f. int8 (after 4d, on the same bundle): int8 W8A8 inference through
@@ -179,16 +183,18 @@ nothing of JAX. Phases, each of which must pass:
   5b. sdxl training (after 5, the SD1.5 bundle freed): full-depth
              `UNetConfig.sdxl()` at 1024^2, batch XL_TRAIN_BATCH.
              `cli.train_icd.main --model sdxl --lazy_lora --remat --data_root`
-             for three steps on a seeded folder of 1024^2 JPEGs with a
-             train.csv (the fp32 VAE encode through B2's fp32 build, ViT-L and
-             bigG), with the eval after step 3 on the same images as the val
+             for XL_TRAIN_STEPS (1) step on a seeded folder of 1024^2 JPEGs
+             with a train.csv (the fp32 VAE encode through B2's fp32 build,
+             ViT-L and bigG), with the eval after its last step on the same
+             images as the val
              set (XL_EVAL_CLI_FLAGS: the inversion eval, one validation panel
              and two triptychs at the batch, with SDXL's added conditioning):
              exact launches, finite metrics under all eight names and the
              eval's three, its panels, a checkpoint, both kohya exports read
              back by `load_inference_lora` equal to the checkpoint's
              adapters; then `make_train_step` (lazy,
-             remat) on synthetic batches with `added_cond`: exact launches of
+             remat) on synthetic batches with `added_cond`, XL_DIRECT_STEPS
+             (2) counted steps after a warm-up: exact launches of
              B1, B3 and B4 per (Sq, Sk, d) (14 x 140 B1 and 4 x 140 B3 and B4
              a step, `xl_step_launches`), base (= teacher) unchanged, step ms,
              samples/s, peak memory, one traced step; one step of the merged
@@ -250,7 +256,8 @@ nothing of JAX. Phases, each of which must pass:
              base bytes. (d) One JSON line: the phase's times, peak memory
              (this process and each rank), launches by batch, the card. No
              dp or fsdp speed: the machine has one card;
-  5e. sp and tp (after 5d): `parallel.spatial` and `parallel.tp` over two
+  5e. sp and tp (after 5d): `parallel.spatial`, `parallel.tp` and the train
+             step over tp and fsdp, over two
              ranks sharing the card over gloo (`--dist-worker ... --dist-job
              sptp`, two subprocesses, each building the seeded SD1.5 bundle;
              NCCL refuses two ranks on one device). Each rank generates the
@@ -265,12 +272,28 @@ nothing of JAX. Phases, each of which must pass:
              Sq = S / 2 against 77, B2 at (2048, 4096, 512)), the served
              images within SP_IMAGE_TOL relative L2 of the references, each
              rank's peak at sp = 2 below its peak at sp = 1 (the split shows
-             in the activation bytes); then each rank's UNet is split over
+             in the activation bytes); then the train step from phase 5d's
+             state, batch and draws (`sptp_train`), against the one-process
+             step at batch 2 that rank 0 takes first, at phase 5d(b)'s gates
+             (the update within DIST_STEP_TOL, the gradients within
+             DIST_GRAD_TOL, each logged metric within DIST_METRIC_TOL), both
+             ranks' adapters and first moments bit for bit, exact launches
+             per rank: (i) `make_train_step(mesh=make_mesh(tp=2))`, merged
+             LoRA, both ranks the whole batch of 2 (B1 with and without
+             lse, B3 and B4 at 4 heads); (ii) `make_mesh(fsdp=2)`, one row a
+             rank, each UNet unit gathered where it runs: the store's
+             gathered buffers alive for no more than one unit at a time,
+             their bytes never above the largest unit's of base or of
+             teacher (each gather is of one of them), resident plus
+             them below the whole weights, none left after the step, and
+             each rank's max_memory_allocated above what it held, for the
+             step and for gathering the weights whole (`step_fn.gather()`,
+             measured beside it); then each rank's UNet is split over
              tp = 2 (`tensor_parallel`): one UNet call and one generate at
              batch 2, exact launches (B1 at 4 heads), within TP_UNET_TOL and
              TP_IMAGE_TOL of the one-process ones. One JSON line with the
-             readings, times and peaks. No sp or tp speed: two ranks share
-             one card;
+             readings, times and peaks. No sp, tp or fsdp speed: two ranks
+             share one card;
   6. harness (run between phases 3 and 4): `cli.exp_softmax.main` runs
              kernel B5's five softmax variants at the tool's headline shape
              (G=128, S=4096, D=64) and the port's (G=32, S=4096, D=40),
@@ -305,8 +328,11 @@ nothing of JAX. Phases, each of which must pass:
      batch-4 rows, and its burst at 4; (b)'s two ranks' steps at 1 and their
      served rows at 2 (the ranks count in their own processes and report);
      plus phase 5e's: both ranks' served sp runs at 1 and 2 (the Sq = S / 2
-     rows) and the tp decode's B2 at 2; the tp runs' B1 launches at 4 heads
-     go to the `TP_SHAPES` rows alone;
+     rows), the tp decode's B2 at 2 and the fsdp train step's B1, B3 and B4
+     at 1; the tp runs' launches at 4 heads (the UNet call's, the
+     generate's and the train step's) go to the `TP_SHAPES` rows (B1, the
+     lse variant's with the plain one's) and the `TP_BACKWARD_SHAPES` rows
+     (B3, B4) alone;
      B5's rows carry the harness's; Q1's rows the counted int8 runs of
      phase 4f (the generates at batch 4 and 1, invert and edit) and of the
      SDXL int8 generate, at each row's launch shape.
@@ -318,8 +344,10 @@ alone at SDXL's VAE shapes (`B2F32_COMPARE`) and `--bwd160-compare` B3 and
 B4 at `BACKWARD_SHAPES` (the d = 160 rows against the plain backward and
 beside SDPA's backward), each printing one JSON line of rows;
 `--dist-fault none|sum` runs phase 5d(b)'s two ranks alone with the
-trainer's gradient reduction skipped or summed (`plant_reduction_fault`)
-and prints what the step's gates read, checking nothing; `--sp-fault
+trainer's gradient reduction skipped or summed (`plant_reduction_fault`),
+and `--dist-fault to_tp` phase 5e's tp = 2 train step alone with
+`to_tp`'s backward sum taken out (`plant_tp_fault`), and each prints what
+the step's gates read, checking nothing; `--sp-fault
 halo|gn|kv` runs phase 5e's two ranks alone with sp's halo rows, GroupNorm's
 reduction or the K/V gather taken out (`plant_sp_fault`) and prints what
 the sp gate reads, checking nothing;
@@ -493,7 +521,8 @@ SHAPES += TP_SHAPES
 # the SDXL training phase (5b): its batch (the reference's is 8,
 # configs/train_sdxl_lora.json) and steps
 XL_TRAIN_BATCH = 2
-XL_TRAIN_STEPS = 3
+XL_TRAIN_STEPS = 1  # the CLI's
+XL_DIRECT_STEPS = 2  # make_train_step's counted steps, after a warm-up
 XL_EVAL_CLI_FLAGS = [  # phase 5b's eval, at its last step, at its batch; no FID files
     "--validation_steps", str(XL_TRAIN_STEPS), "--validation_prompts_max", "1",
     "--validation_batch", str(XL_TRAIN_BATCH), "--inversion_validation_samples", str(XL_TRAIN_BATCH),
@@ -508,6 +537,10 @@ BACKWARD_SHAPES = [
 ] + [
     (XL_TRAIN_BATCH, sq, sk, h, 64) for sq, h in ((4096, 10), (1024, 20)) for sk in (sq, 77)
 ]
+# phase 5e's tp = 2 train step at batch 2: B3 and B4 at half the heads
+TP_BACKWARD_SHAPES = [(2, sq, sk, 4, d)
+                      for sq, d in ((4096, 40), (1024, 80), (256, 160), (64, 160)) for sk in (sq, 77)]
+BACKWARD_SHAPES += TP_BACKWARD_SHAPES
 # attention layers of one SD1.5 UNet call by token count (self; as many cross
 # layers at Sk = 77): 2 down + 3 up at each of 4096/1024/256, 1 mid at 64
 LAYERS_PER_CALL = {4096: 5, 1024: 5, 256: 5, 64: 1}
@@ -705,6 +738,7 @@ def phase_kernels(card: str):
             "batch": batch,
             "shape": [sq, sk, d],
             "spec": (name, batch, sq, sk, h, d),
+            "tp_split": (name, batch, sq, sk, h, d) in TP_SHAPES,
             "route": "cuda",
             "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
@@ -813,6 +847,7 @@ def phase_backward_kernels(card: str):
                 "kernel": kernel,
                 "batch": batch,
                 "shape": [sq, sk, d],
+                "tp_split": (batch, sq, sk, h, d) in TP_BACKWARD_SHAPES,
                 "route": "cuda",
                 "source": SOURCES[kernel][0],
                 "replaces": SOURCES[kernel][1],
@@ -1283,6 +1318,11 @@ BURST = [
 ]
 SERVE_LATENCY_RUNS = 5  # lone requests timed one after another (median)
 SERVE_BURST_RUNS = 3    # bursts timed (the first one counted)
+# the edit CLI's baselines in phase 4e: DDIM steps (the reference's 50 cut
+# to 10, so that the script fits its time limit with phase 5e) and NTI's
+# inner iterations an outer step
+EDIT_CLI_DDIM_STEPS = 10
+EDIT_CLI_NTI_INNER = 2
 GENERATE_CLI_PROMPTS = ["a photo of a corgi on the beach", "a red fox"]
 
 
@@ -1328,6 +1368,7 @@ def phase_serve(card: str, pipe):
     modes (NTI twice, the second run from its cache). Launch counts are reset
     just before each counted run and read just after. Returns the launches per
     (kernel, Sq, Sk, d) by the batch each kernel ran at."""
+    import dataclasses
     import io
     import tempfile
     import threading
@@ -1577,16 +1618,19 @@ def phase_serve(card: str, pipe):
         image_path = os.path.join(tmp, "in.jpg")
         Image.fromarray(np.random.default_rng(51).integers(0, 256, shape, dtype=np.uint8)).save(image_path)
         cache = os.path.join(tmp, "uncond.pkl")
-        nti_flags = ["--baseline", "nti", "--nti_inner_steps", "2", "--uncond_cache", cache]
+        nti_flags = ["--baseline", "nti", "--nti_inner_steps", str(EDIT_CLI_NTI_INNER),
+                     "--uncond_cache", cache]
         runs = [("cons", []), ("npi", ["--baseline", "npi"]), ("nti", nti_flags),
                 ("nti from its cache", nti_flags)]
         spec4 = make_controller([EDIT_SOURCE, EDIT_TARGET], pipe.tokenizer, n_hops, cross_replace_steps=0.6,
                                 self_replace_steps=0.4, blend_words=[["corgi"], ["cat"]])[0]
-        spec50 = make_controller([EDIT_SOURCE, EDIT_TARGET], pipe.tokenizer, n, cross_replace_steps=0.6,
+        ddim_pipe = dataclasses.replace(pipe, grid=ddim_grid(EDIT_CLI_DDIM_STEPS))  # the baselines' runs
+        n = ddim_pipe.grid.n_steps
+        spec_ddim = make_controller([EDIT_SOURCE, EDIT_TARGET], pipe.tokenizer, n, cross_replace_steps=0.6,
                                  self_replace_steps=0.4, blend_words=[["corgi"], ["cat"]])[0]
         invert, pair = edit_path_launches(spec4, n_hops, per_call, vae_key)
         ddim_invert = {2: times(per_call, n), 1: vae}  # CFG batch 2; the VAE encode at batch 1
-        ddim_pair = {4: edit_path_launches(spec50, n, per_call, vae_key)[1] - vae, 2: vae}
+        ddim_pair = {4: edit_path_launches(spec_ddim, n, per_call, vae_key)[1] - vae, 2: vae}
         grad_layers = per_call - collections.Counter({first_self_layer(cfg, side): 1})
         edit_s, edited, edit_launches = {}, {}, {}
         for label, extra in runs:
@@ -1596,7 +1640,7 @@ def phase_serve(card: str, pipe):
             # ---- one edit CLI run: counts reset just before, read just after ----
             fa.reset_launch_counts()
             t0 = time.perf_counter()
-            edit_cli.main(argv, _pipe=pipe)
+            edit_cli.main(argv, _pipe=pipe if label == "cons" else ddim_pipe)
             torch.cuda.synchronize()
             edit_s[label] = time.perf_counter() - t0
             edit_launches[label] = collections.Counter(fa.LAUNCH_SHAPES)
@@ -1610,7 +1654,8 @@ def phase_serve(card: str, pipe):
             for path in (results[0]["file"], results[0]["file"].replace("_edited", "_rec")):
                 check(np.asarray(Image.open(path)).shape == shape, f"{label}: {path}")
         k = totals(edit_launches["nti"]).get("flash_bwd_dq", 0) // sum(grad_layers.values())
-        check(n <= k <= 2 * n, f"NTI ran {k} inner iterations in {n} steps of at most 2")
+        check(n <= k <= EDIT_CLI_NTI_INNER * n,
+              f"NTI ran {k} inner iterations in {n} steps of at most {EDIT_CLI_NTI_INNER}")
         want = {"cons": {1: invert, 2: pair},
                 "npi": {b: ddim_invert.get(b, collections.Counter()) + ddim_pair.get(b, collections.Counter())
                         for b in (1, 2, 4)}}
@@ -1644,15 +1689,26 @@ def phase_serve(card: str, pipe):
     return by_batch
 
 
-# the DDIM baselines (phase 4d): NTI at the reference's epsilon, and half its
-# inner iterations (10), which keeps the script inside its time limit
+# the DDIM baselines (phase 4d): NTI at the reference's epsilon and 1 of
+# its 10 inner iterations an outer step, which keeps the script inside its
+# time limit with phase 5e
 DDIM_CFG = 7.5
-NTI_INNER_STEPS = 5
+NTI_INNER_STEPS = 1
 NTI_EPSILON = 1e-5
-# the tiny bundle's NTI on the card: a 10-step grid, 3 inner iterations an
-# outer step (its DDIM paths keep the 50-step grid)
-TINY_NTI_GRID = 10
+# the tiny bundle on the card against the CPU: a 10-step grid for its
+# teacher-forced DDIM paths (each call is held on the CPU's inputs, so more
+# steps add calls, not drift) and its NTI, 3 inner iterations an outer step
+TINY_GRID = 10
 TINY_NTI_INNER = 3
+
+
+def ddim_grid(n_steps: int):
+    """The bundle's solver grid (`InvertibleCD.sd15`'s consistency
+    endpoints) at `n_steps` DDIM steps."""
+    from invertible_cd_tpu_torch.diffusion.solver import make_solver_grid
+
+    return make_solver_grid(n_steps=n_steps, reverse_timesteps=[259, 519, 779, 999],
+                            forward_timesteps=[19, 259, 519, 779])
 
 
 def forced_ddim_errors(cpu_pipe, gpu_pipe, run, controller=None):
@@ -1769,13 +1825,11 @@ def phase_baselines(card: str, pipe):
     materialised path, the tiny bundle on the card against the CPU, times
     and one traced `ddim_generate`. Returns the launches per (kernel, Sq,
     Sk, d) by the batch each kernel ran at."""
-    import dataclasses
     import math
 
     import numpy as np
     import torch
 
-    from invertible_cd_tpu_torch.diffusion.solver import make_solver_grid
     from invertible_cd_tpu_torch.edit import make_controller
     from invertible_cd_tpu_torch.models.attention import AttnMeta
     from invertible_cd_tpu_torch.models.unet2d import count_attention_layers
@@ -1935,7 +1989,8 @@ def phase_baselines(card: str, pipe):
     # controlled pair teacher-forced, the pair's LocalBlend steps too; NTI
     # teacher-forced per outer step (`forced_nti_errors`)
     unet_cfg, clip_cfg, vae_cfg = tiny_configs()
-    cfgs = dict(unet_cfg=unet_cfg, clip_cfg=clip_cfg, vae_cfg=vae_cfg, latent_size=(16, 16))
+    cfgs = dict(unet_cfg=unet_cfg, clip_cfg=clip_cfg, vae_cfg=vae_cfg, latent_size=(16, 16),
+                grid=ddim_grid(TINY_GRID))
     cpu_pipe = InvertibleCD.sd15(device="cpu", dtype=torch.float32, seed=7, lora_rank=64,
                                  tokenizer=HashTokenizer(clip_cfg.vocab_size), **cfgs)
     params = {name: m.state_dict() for name, m in (
@@ -1943,7 +1998,7 @@ def phase_baselines(card: str, pipe):
     gpu_pipe = InvertibleCD.sd15(params=params, device="cuda", dtype=torch.bfloat16,
                                  tokenizer=cpu_pipe.tokenizer, **cfgs)
     tiny_image = np.random.default_rng(43).integers(0, 256, (32, 32, 3), dtype=np.uint8)
-    tiny_controller = make_controller(pair, cpu_pipe.tokenizer, n, **EDIT_CONTROLLER)
+    tiny_controller = make_controller(pair, cpu_pipe.tokenizer, TINY_GRID, **EDIT_CONTROLLER)
     errs = {}
     errs["ddim_invert"], (tiny_traj, _) = forced_ddim_errors(
         cpu_pipe, gpu_pipe, lambda: cpu_pipe.ddim_invert(tiny_image, EDIT_SOURCE))
@@ -1953,9 +2008,7 @@ def phase_baselines(card: str, pipe):
     errs["pair"], _ = forced_ddim_errors(
         cpu_pipe, gpu_pipe, lambda: cpu_pipe.ddim_generate(
             pair, latent=tiny_inv.expand(2, -1, -1, -1), controller=tiny_controller), tiny_controller)
-    grid = make_solver_grid(n_steps=TINY_NTI_GRID)
-    nti_errs = forced_nti_errors(*(dataclasses.replace(p, grid=grid) for p in (cpu_pipe, gpu_pipe)),
-                                 tiny_image)
+    nti_errs = forced_nti_errors(cpu_pipe, gpu_pipe, tiny_image)  # on their TINY_GRID steps
     got = gpu_pipe.ddim_generate(pair, latent=tiny_inv.expand(2, -1, -1, -1), controller=tiny_controller)
     check(all(bool(torch.isfinite(t).all()) for t in got), "tiny DDIM pair on the card not finite")
 
@@ -1964,7 +2017,7 @@ def phase_baselines(card: str, pipe):
     print(f"  tiny bundle, card bf16 vs CPU fp32, teacher-forced, relative L2 (tol {UNET_REL_TOL}): "
           f"UNet calls' epsilon: ddim_invert {worst(errs['ddim_invert']['unet'])}, ddim_generate "
           f"{worst(errs['ddim_generate']['unet'])}, pair {worst(errs['pair']['unet'])}; the pair's "
-          f"LocalBlend maps {worst(errs['pair']['maps'])}; NTI ({TINY_NTI_GRID} steps, "
+          f"LocalBlend maps {worst(errs['pair']['maps'])}; NTI ({TINY_GRID} steps, "
           f"{TINY_NTI_INNER} inner iterations each) first gradients {worst(nti_errs['gradient'])}, "
           f"embeddings {worst(nti_errs['embedding'])}; not gated: blended latents "
           f"{worst(errs['pair']['blend'])} ({sum(e > UNET_REL_TOL for e in errs['pair']['blend'])} "
@@ -1972,11 +2025,11 @@ def phase_baselines(card: str, pipe):
           f"scales the two predictions' rounding), the embeddings' change "
           f"{worst(nti_errs['change'])} (Adam's first update is the gradient's sign)")
     for label in ("ddim_invert", "ddim_generate", "pair"):
-        check(len(errs[label]["unet"]) == n and max(errs[label]["unet"]) <= UNET_REL_TOL,
+        check(len(errs[label]["unet"]) == TINY_GRID and max(errs[label]["unet"]) <= UNET_REL_TOL,
               f"tiny {label} UNet calls off: {errs[label]['unet']}")
-    check(len(errs["pair"]["maps"]) == n and max(errs["pair"]["maps"]) <= UNET_REL_TOL,
+    check(len(errs["pair"]["maps"]) == TINY_GRID and max(errs["pair"]["maps"]) <= UNET_REL_TOL,
           f"tiny pair LocalBlend maps off: {errs['pair']['maps']}")
-    check(len(nti_errs["embedding"]) == TINY_NTI_GRID
+    check(len(nti_errs["embedding"]) == TINY_GRID
           and max(nti_errs["gradient"] + nti_errs["embedding"]) <= UNET_REL_TOL,
           f"tiny NTI off: {nti_errs}")
 
@@ -3552,7 +3605,7 @@ def run_dist_workers(fault=None, job: str = "dp") -> list:
 
     extra = ["--dist-job", job]
     if fault:
-        extra += ["--dist-fault" if job == "dp" else "--sp-fault", fault]
+        extra += ["--dist-fault" if job == "dp" or fault == "to_tp" else "--sp-fault", fault]
     with tempfile.TemporaryDirectory() as tmp:
         port = free_port()
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker",
@@ -3578,8 +3631,18 @@ def run_dist_workers(fault=None, job: str = "dp") -> list:
 
 def phase_dist_fault(fault: str):
     """`--dist-fault`: phase 5d(b)'s two ranks with the trainer's gradient
-    reduction faulted (`plant_reduction_fault`), to show what the step's
-    gates read under the fault; prints rank 0's readings, checks nothing."""
+    reduction faulted (`plant_reduction_fault`), or with "to_tp" phase 5e's
+    tp = 2 train step with `to_tp`'s backward sum taken out
+    (`plant_tp_fault`), to show what the step's gates read under the
+    fault; prints rank 0's readings, checks nothing."""
+    if fault == "to_tp":
+        r0, r1 = (rk["train"]["tp"] for rk in run_dist_workers(fault, job="sptp"))
+        print(json.dumps({"dist_fault": fault, "tolerances": {
+            "update": DIST_STEP_TOL, "gradients": DIST_GRAD_TOL, "metrics": DIST_METRIC_TOL},
+            **{k: r0[k] for k in ("update_rel_l2", "same_sign_moves", "mu_rel_l2", "metric_rel")},
+            "adapters_equal_on_both_ranks": r1["equal_rank0"],
+            "metrics_equal_on_both_ranks": r0["metrics"] == r1["metrics"]}))
+        return
     r0, r1 = run_dist_workers(fault)
     print(json.dumps({"dist_fault": fault, "tolerances": {
         "update": DIST_STEP_TOL, "gradients": DIST_GRAD_TOL, "metrics": DIST_METRIC_TOL},
@@ -3830,7 +3893,96 @@ def plant_sp_fault(fault: str):
         vae.gather_kv = attention.gather_kv
 
 
-def sptp_worker(rank: int, port: int, out_dir: str, fault=None) -> int:
+def plant_tp_fault():
+    """Take `to_tp`'s backward sum out of this process: each rank keeps its
+    own heads' and features' part of a split block's input gradient."""
+    from invertible_cd_tpu_torch.parallel import mesh
+
+    mesh._ToTP.backward = staticmethod(lambda ctx, grad: (grad, None))
+
+
+def sptp_train(pipe, tp, fsdp) -> dict:
+    """Phase 5e's train steps on the seeded bundle's UNet (whole), from
+    phase 5d's state, batch and draws (`dist_train_setup`): rank 0 first
+    takes the one-process step at TRAIN_BATCH (the reference); then (i) the
+    step over `tp` (both ranks the whole batch, each half of every split
+    block) and (ii), unless `fsdp` is None, over `fsdp` (one row a rank,
+    one UNet unit gathered at a time). Counts reset just before each step
+    and read just after. Each step's record: its readings against the
+    reference (rank 0), its launches, both ranks' adapters and first
+    moments bit for bit, and its peak memory above what the rank held
+    before it; under fsdp also the store's peak of gathered bytes and of
+    units alive at once, its largest unit of one dict (base or teacher),
+    the whole weights, and the peak of gathering them whole
+    (`step_fn.gather()`, measured here)."""
+    import torch
+    import torch.distributed as dist
+
+    from invertible_cd_tpu_torch.ops import flash_attention as fa
+    from invertible_cd_tpu_torch.parallel import shard_batch
+    from invertible_cd_tpu_torch.training import make_train_step
+
+    unet, base, teacher, solver, tcfg, state, batch = dist_train_setup(pipe)
+    out, ref = {}, None
+    if dist.get_rank() == 0:
+        ref_state, ref_metrics = make_train_step(unet, base, teacher, solver, pipe.schedule, tcfg)(
+            state, batch, dist_step_generator())
+        ref = (adapters_flat(ref_state), adapters_flat(ref_state, "mu"),
+               {k: float(v) for k, v in ref_metrics.items()})
+        del ref_state, ref_metrics
+        torch.cuda.empty_cache()
+    old = adapters_flat(state)
+    for name, mesh in (("tp", tp), ("fsdp", fsdp)):
+        if mesh is None:
+            continue
+        step_fn = make_train_step(unet, base, teacher, solver, pipe.schedule, tcfg, mesh)
+        store = step_fn.weights
+        rec = {"resident_gib": step_fn.resident_bytes() / 2**30, "rows": mesh.rows}
+        dist.barrier()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        if store is not None:
+            store.reset_peak()
+        fa.reset_launch_counts()
+        new, metrics = step_fn(state, shard_batch(batch, mesh), dist_step_generator())
+        torch.cuda.synchronize()
+        rec["launches"] = [[list(k), n] for k, n in fa.LAUNCH_SHAPES.items()]
+        # ---------------------------------------------------------------------
+        rec["peak_above_gib"] = (torch.cuda.max_memory_allocated() - before) / 2**30
+        rec["metrics"] = {k: float(v) for k, v in metrics.items()}
+        mine, mu = adapters_flat(new), adapters_flat(new, "mu")
+        theirs, mu0 = mine.clone(), mu.clone()
+        dist.broadcast(theirs, src=0)  # gloo broadcasts CUDA tensors
+        dist.broadcast(mu0, src=0)
+        rec["equal_rank0"] = bool(torch.equal(mine, theirs) and torch.equal(mu, mu0))
+        if ref is not None:
+            d_got, d_ref = mine - old, ref[0] - old
+            rec["update_rel_l2"] = ((d_got - d_ref).norm() / d_ref.norm()).item()
+            rec["same_sign_moves"] = (torch.sign(d_got) == torch.sign(d_ref)).float().mean().item()
+            rec["mu_rel_l2"] = ((mu - ref[1]).norm() / ref[1].norm()).item()
+            rec["metric_rel"] = {k: abs(rec["metrics"][k] - v) / max(abs(v), 1e-12)
+                                 for k, v in ref[2].items()}
+        if store is not None:
+            rec.update(gathered_peak_gib=store.peak_bytes / 2**30, live_after=store.live_bytes,
+                       units_peak=store.peak_units,
+                       unit_max_gib=max(store.gathered_bytes(k, dicts=(i,))
+                                        for k in step_fn.units.values() for i in (0, 1)) / 2**30,
+                       whole_gib=sum(store.whole_bytes.values()) / 2**30)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            whole = step_fn.gather()
+            torch.cuda.synchronize()
+            rec["whole_gather_above_gib"] = (torch.cuda.max_memory_allocated() - before) / 2**30
+            del whole
+        out[name] = rec
+        del new, metrics, step_fn, store, mine, mu, theirs, mu0
+        torch.cuda.empty_cache()
+    return out
+
+
+def sptp_worker(rank: int, port: int, out_dir: str, fault=None, tp_fault=None) -> int:
     """One of phase 5e's two ranks on the one card, over gloo, on the
     seeded SD1.5 bundle (with `fault`, under `plant_sp_fault`): this rank's
     one-process generates of SP_SERVE's first 1 and 2 requests (the
@@ -3838,9 +3990,11 @@ def sptp_worker(rank: int, port: int, out_dir: str, fault=None) -> int:
     a ramped latent, one process and at sp = 2; a served lone request, then
     a served burst of two, at dp = 1 x sp = 2 (rank 0 the executor, rank 1
     the follower; counts reset just before each and read just after, with
-    the peak); then the UNet split over tp = 2: the UNet call and one
-    generate at batch 2 against the one-process ones. Writes
-    `sptp_rank<r>.json` (and the served images, rank 0)."""
+    the peak); the train steps at tp = 2 and fsdp = 2 (`sptp_train`); then
+    the UNet split over tp = 2: the UNet call and one generate at batch 2
+    against the one-process ones. With `tp_fault` (under `plant_tp_fault`)
+    only the tp = 2 train step runs. Writes `sptp_rank<r>.json` (and the
+    served images, rank 0)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3855,12 +4009,22 @@ def sptp_worker(rank: int, port: int, out_dir: str, fault=None) -> int:
     t_start = time.perf_counter()
     if fault:
         plant_sp_fault(fault)
+    if tp_fault:
+        plant_tp_fault()
     torch.cuda.set_device(0)
     initialize_distributed(f"localhost:{port}", 2, rank, backend="gloo", device="cuda:0")
     sp = make_mesh(sp=2, device="cuda")
     tp = make_mesh(tp=2, device="cuda")
+    fsdp = make_mesh(fsdp=2, device="cuda")
     pipe = InvertibleCD.sd15(device="cuda", dtype=torch.bfloat16, seed=0)
     out = {"rank": rank, "sp_coord": sp.coordinate("sp"), "tp_coord": tp.coordinate("tp")}
+    if tp_fault:
+        out["train"] = sptp_train(pipe, tp, None)
+        with open(os.path.join(out_dir, f"sptp_rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+        dist.destroy_process_group()
+        return 0
     prompts = [p for p, _ in SP_SERVE]
     seeds = [s for _, s in SP_SERVE]
 
@@ -3929,6 +4093,9 @@ def sptp_worker(rank: int, port: int, out_dir: str, fault=None) -> int:
                        shape=list(got.shape))
         out["serve"][str(b)] = rec
 
+    # ---- the train steps at tp = 2 and fsdp = 2, on the whole UNet ----
+    out["train"] = sptp_train(pipe, tp, fsdp)
+
     # ---- tp = 2: the UNet call and one generate at batch 2 ----
     tp_latent = request_latents(pipe, seeds[:SPTP_BATCH])
     tensor_parallel(unet, tp)
@@ -3953,7 +4120,8 @@ def sptp_worker(rank: int, port: int, out_dir: str, fault=None) -> int:
     out["tp_images_rel_l2"] = rel_l2(tp_images, ref[SPTP_BATCH])
     out["tp_images_finite_01"] = bool(torch.isfinite(tp_images).all() and tp_images.min() >= 0
                                       and tp_images.max() <= 1)
-    out["tp_heads"] = sorted({m.heads for m in unet.modules() if getattr(m, "tp_mesh", None) is not None})
+    out["tp_heads"] = sorted({m.heads for m in unet.modules()  # the split attention blocks'
+                              if getattr(m, "tp_mesh", None) is not None and hasattr(m, "heads")})
     out["wall_s"] = time.perf_counter() - t_start
     with open(os.path.join(out_dir, f"sptp_rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -3976,8 +4144,10 @@ def phase_sp_fault(fault: str):
 def phase_sp_tp(card: str):
     """Phase 5e: sp and tp (`parallel.spatial`, `parallel.tp`) over two
     ranks sharing the card over gloo (NCCL refuses two ranks on one device).
-    Returns ({batch: launches} of both ranks' served sp runs and the tp
-    phase's B2, the tp phase's B1 launches at half the heads, batch 2)."""
+    Returns ({batch: launches} of both ranks' served sp runs, the tp
+    phase's B2 and the fsdp train step's B1, B3 and B4 (batch 1), the tp
+    phase's launches at half the heads, batch 2: its UNet call's and
+    generate's B1 and its train step's B1, B3 and B4)."""
     t_phase = time.perf_counter()
     report = {"phase": "5e sp and tp", "card": card}
     r0, r1 = ranks = run_dist_workers(job="sptp")
@@ -3988,6 +4158,21 @@ def phase_sp_tp(card: str):
     for rk in ranks:
         r = rk["rank"]
         check((rk["sp_coord"], rk["tp_coord"]) == (r, r), f"rank {r}: mesh coordinates")
+        for name, t in rk["train"].items():  # (i) tp = 2 and (ii) fsdp = 2
+            got = counter_of(t["launches"])
+            check(got == sd15_step_launches(1), f"rank {r}: {name} step launches {dict(got)}")
+            if name == "tp":
+                tp_split += got
+            else:
+                launches[TRAIN_BATCH // t["rows"]] += got
+            check(t["equal_rank0"], f"rank {r}: {name} step's adapters differ from rank 0's")
+            check(all(math.isfinite(v) for v in t["metrics"].values()), f"rank {r}: {name} metrics")
+        f = rk["train"]["fsdp"]
+        check(f["live_after"] == 0 and f["units_peak"] == 1
+              and 0 < f["gathered_peak_gib"] <= f["unit_max_gib"]
+              and f["resident_gib"] + f["gathered_peak_gib"] < f["whole_gib"],
+              f"rank {r}: fsdp step's gathered weights {f}: more than one unit alive, above the whole "
+              f"weights, or left alive")
         for b in ("1", "2"):
             got = counter_of(rk["serve"][b]["launches"])
             check(got == sp_generate_launches(), f"rank {r}: served batch {b} launches {dict(got)}")
@@ -4010,6 +4195,14 @@ def phase_sp_tp(card: str):
         check(rk["tp_unet_rel_l2"] <= TP_UNET_TOL and rk["tp_images_rel_l2"] <= TP_IMAGE_TOL,
               f"rank {r}: tp off: UNet {rk['tp_unet_rel_l2']} (tol {TP_UNET_TOL}), images "
               f"{rk['tp_images_rel_l2']} (tol {TP_IMAGE_TOL})")
+    for name in ("tp", "fsdp"):
+        t = r0["train"][name]
+        check(t["metrics"] == r1["train"][name]["metrics"], f"{name} step: the ranks' metrics differ")
+        check(t["update_rel_l2"] <= DIST_STEP_TOL and t["mu_rel_l2"] <= DIST_GRAD_TOL
+              and max(t["metric_rel"].values()) <= DIST_METRIC_TOL,
+              f"{name} = 2 step off the one-process step: update {t['update_rel_l2']} (tol "
+              f"{DIST_STEP_TOL}), gradients {t['mu_rel_l2']} (tol {DIST_GRAD_TOL}), metrics "
+              f"{t['metric_rel']} (tol {DIST_METRIC_TOL})")
     for b in ("1", "2"):
         s = r0["serve"][b]
         check(s["stats"]["batches"] == 1 and r1["serve"][b]["stats"]["batches"] == 1,
@@ -4025,6 +4218,27 @@ def phase_sp_tp(card: str):
     report["tp"] = {k: [rk[k] for rk in ranks] for k in ("tp_unet_rel_l2", "tp_images_rel_l2",
                                                           "tp_unet_s", "tp_generate_s")}
     report["rank_wall_s"] = [rk["wall_s"] for rk in ranks]
+    report["train"] = {f"rank{rk['rank']}": rk["train"] for rk in ranks}
+    for rk in report["train"].values():
+        for t in rk.values():
+            t.pop("launches")
+    for name, what in (("tp", "(i) tp = 2, both ranks the whole batch"),
+                       ("fsdp", "(ii) fsdp = 2, one row a rank, one unit gathered at a time")):
+        t = r0["train"][name]
+        print(f"train step {what}, batch {TRAIN_BATCH}, against the one-process step ({card}): update "
+              f"relative L2 {t['update_rel_l2']:.3e} (tol {DIST_STEP_TOL}), same-sign moves "
+              f"{t['same_sign_moves']:.4f}, gradients (Adam's mu) {t['mu_rel_l2']:.3e} (tol "
+              f"{DIST_GRAD_TOL}), metrics " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                                          sorted(t["metric_rel"].items()))
+              + f" (tol {DIST_METRIC_TOL}); adapters bit for bit on both ranks; launches exact")
+    for rk in ranks:
+        f = rk["train"]["fsdp"]
+        print(f"  (ii) rank {rk['rank']}: resident base and teacher {f['resident_gib']:.3f} GiB, "
+              f"gathered at most {f['gathered_peak_gib']:.3f} GiB of {f['units_peak']} unit at once "
+              f"(largest unit of base or teacher {f['unit_max_gib']:.3f}; whole weights "
+              f"{f['whole_gib']:.3f}); "
+              f"max_memory_allocated above what the rank held: the step {f['peak_above_gib']:.3f} GiB, "
+              f"gathering the weights whole {f['whole_gather_above_gib']:.3f} GiB ({card})")
     print(f"sp and tp (two ranks on one card over gloo, {card}): sp = 2 UNet call at batch "
           f"{SPTP_BATCH}, relative L2 to the one-process call {r0['sp_unet_rel_l2']:.3e} / "
           f"{r1['sp_unet_rel_l2']:.3e} (tol {SP_UNET_TOL}); served at dp 1 x sp 2, relative L2 to "
@@ -4513,7 +4727,7 @@ def phase_xl_training(card: str):
     per_call = unet_launches_per_call(cfg, side)
     check(sum(per_call.values()) == count_attention_layers(cfg) == 140,
           f"{sum(per_call.values())} attention layers per SDXL call")
-    want_steps = xl_step_launches(per_call, XL_TRAIN_STEPS, remat=True)
+    want_steps = xl_step_launches(per_call, XL_DIRECT_STEPS, remat=True)
     vae_key = ("flash_fwd_streamed_f32", side * side, side * side, 512)
 
     # ---- the entry point a user calls: --data_root, the VAE and both encoders ----
@@ -4549,7 +4763,7 @@ def phase_xl_training(card: str):
         n_hops = len(train_icd.parse_args(common + ["--output_dir", "x"]).endpoints.split(","))
         want_eval = collections.Counter({k: 5 * n_hops * c for k, c in per_call.items()})
         want_eval[vae_key] += 5
-        want_cli = (want_steps + want_eval
+        want_cli = (xl_step_launches(per_call, XL_TRAIN_STEPS, remat=True) + want_eval
                     + collections.Counter({vae_key: XL_TRAIN_STEPS * -(-b // 4)}))
         print(f"  cli.train_icd.main --model sdxl --lazy_lora --remat --data_root "
               f"{' '.join(XL_EVAL_CLI_FLAGS)}: {XL_TRAIN_STEPS} steps at batch {b} in {cli_s:.1f} s "
@@ -4611,7 +4825,7 @@ def phase_xl_training(card: str):
     # ---- the main path: counts reset just before, read just after ----
     fa.reset_launch_counts()
     step_ms = []
-    for _ in range(XL_TRAIN_STEPS):
+    for _ in range(XL_DIRECT_STEPS):
         t0 = time.perf_counter()
         state, metrics = step_fn(state, next(batches), gen)
         torch.cuda.synchronize()
@@ -4622,7 +4836,7 @@ def phase_xl_training(card: str):
     metrics = {k: float(v) for k, v in metrics.items()}
     check(sorted(metrics) == sorted(METRIC_NAMES) and all(map(math.isfinite, metrics.values())),
           f"metrics {metrics}")
-    totals = {name: sum(n for key, n in step_launches.items() if key[0] == name) // XL_TRAIN_STEPS
+    totals = {name: sum(n for key, n in step_launches.items() if key[0] == name) // XL_DIRECT_STEPS
               for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv")}
     print(f"  make_train_step (lazy, remat): launches per step {totals}, by shape "
           f"{dict(step_launches)}")
@@ -4759,9 +4973,11 @@ def parse_args(argv=None):
     p.add_argument("--sp-fault", choices=("halo", "gn", "kv"), default=None,
                    help="run phase 5e's two ranks only, with sp's halo rows, GroupNorm "
                         "reduction or K/V gather taken out, and print what the sp gate reads")
-    p.add_argument("--dist-fault", choices=("none", "sum"), default=None,
+    p.add_argument("--dist-fault", choices=("none", "sum", "to_tp"), default=None,
                    help="run phase 5d's two ranks only, with the trainer's gradient reduction "
-                        "skipped (none) or summed (sum), and print what the step's gates read")
+                        "skipped (none) or summed (sum), or phase 5e's tp = 2 train step only, "
+                        "with to_tp's backward sum taken out (to_tp), and print what the "
+                        "step's gates read")
     p.add_argument("--package-root", default=None,
                    help="import invertible_cd_tpu_torch from this checkout (e.g. an unpacked "
                         "parent commit, to time two versions of the kernels in one call)")
@@ -4796,7 +5012,7 @@ def main(argv=None) -> int:
     if args.dist_worker:
         rank, port, out_dir = args.dist_worker
         if args.dist_job == "sptp":
-            return sptp_worker(int(rank), int(port), out_dir, args.sp_fault)
+            return sptp_worker(int(rank), int(port), out_dir, args.sp_fault, args.dist_fault)
         return dist_worker(int(rank), int(port), out_dir, args.dist_fault)
     try:
         import invertible_cd_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
@@ -4859,7 +5075,7 @@ def main(argv=None) -> int:
     none = collections.Counter()
     for row in rows:
         key = (row["kernel"],) + tuple(row["shape"])
-        if row.get("spec") in TP_SHAPES:  # half the heads: phase 5e's tp runs alone
+        if row.get("tp_split"):  # half the heads: phase 5e's tp runs alone
             row["launches"] = tp_split_launches[key]
             continue
         row["launches"] = (generate_launches.get(row["batch"], none)[key]

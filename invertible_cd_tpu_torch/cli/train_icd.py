@@ -40,8 +40,11 @@ parallel (`training.make_train_step(..., mesh=)`): each rank takes
 its per-step seed and keeps the rank's rows; the image stream reads the
 rank's stride of the data), and the adapter gradients are averaged. With
 `--fsdp F` each rank also keeps only its shard of the frozen base and
-teacher weights between steps, and its rows still count: the batch must
-divide over all N ranks (JAX asks only that it divide over dp = N / F).
+teacher weights, gathering one UNet block at a time where it runs (in the
+forward and again in the backward pass), and its rows still count: the
+batch must divide over all N ranks (JAX asks only that it divide over dp =
+N / F). JAX's train CLI has no `--tp`, and neither has this one
+(`make_train_step` takes a tp mesh).
 Rank 0 prints, logs and writes the checkpoints and exports; the eval runs
 on every rank and gathers.
 """

@@ -29,7 +29,7 @@ import torch.nn as nn
 
 from ..ops.flash_attention import flash_attention, flash_attention_streamed
 from ..parallel import spatial
-from ..parallel.mesh import gather_rows
+from ..parallel.mesh import gather_rows, to_tp
 from .layers import FeedForward, GroupNorm32, LayerNorm32, QConv2d, QLinear
 
 
@@ -104,7 +104,8 @@ def gather_kv(k: torch.Tensor, v: torch.Tensor, mesh):
 class CrossAttention(nn.Module):
     """Multi-head attention (self when no context is given). `parallel.tp`
     may leave it this rank's heads (`heads`, the projections' widths) and
-    set `tp_mesh`."""
+    set `tp_mesh`; the inputs of q/k/v then pass through `to_tp`, which
+    sums their gradients over the tp group."""
 
     tp_mesh = None
 
@@ -119,6 +120,9 @@ class CrossAttention(nn.Module):
 
     def forward(self, x, context=None, hook: Optional[AttnHook] = None,
                 meta: Optional[AttnMeta] = None):
+        if self.tp_mesh is not None:
+            x = to_tp(x, self.tp_mesh)
+            context = None if context is None else to_tp(context, self.tp_mesh)
         ctx = x if context is None else context
         b, sq = x.shape[:2]
         sk = ctx.shape[1]

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from ..ops import quant
 from ..parallel import spatial
-from ..parallel.mesh import all_reduce
+from ..parallel.mesh import all_reduce, to_tp
 
 
 class QLinear(nn.Linear):
@@ -256,13 +256,19 @@ class GEGLU(nn.Module):
 
 class FeedForward(nn.Module):
     """GEGLU -> Linear; `net.1` is the (parameter-free) dropout slot of
-    diffusers, kept so the keys read `net.0.proj` and `net.2`."""
+    diffusers, kept so the keys read `net.0.proj` and `net.2`. `parallel.tp`
+    may leave it this rank's features and set `tp_mesh`; its input then
+    passes through `to_tp`, which sums its gradient over the tp group."""
+
+    tp_mesh = None
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), QLinear(dim * mult, dim)])
 
     def forward(self, x):
+        if self.tp_mesh is not None:
+            x = to_tp(x, self.tp_mesh)
         return self.net[2](self.net[0](x))
 
 

@@ -19,15 +19,24 @@ one process per card (launched by `torchrun` /
     frozen weight its fsdp shards split, on the port's state-dict keys and
     torch layouts (Linear (out, in), Conv2d (out, in, kh, kw)), so that a
     weight carried over by `models.convert` splits along the same tensor
-    axis as JAX's. `ShardedWeights` holds each rank's shards and gathers
-    them again.
+    axis as JAX's. `ShardedWeights` holds each rank's 1/fsdp of the
+    tensors that this rule splits (laid end to end, unit by unit) and
+    gathers them again.
   * `shard_batch` / `process_local_batch_slice`: this rank's rows of a
     global batch, contiguous per rank; `latent_rows` / `gather_rows`: this
     rank's rows of a latent's height over sp (JAX's `latent_sharding`) and
     the gather of them back in rank order.
   * `all_reduce_mean`, `all_gather_objects`, `broadcast_object`, `barrier`
     and `is_main`: the reductions, gathers and rank-0-only work of the
-    trainer, the eval, serving and the CLIs.
+    trainer, the eval, serving and the CLIs; `all_reduce_mean` averages
+    over the rows' group (`group("rows")`: dp x fsdp), whose ranks hold
+    different rows, and never over sp or tp, whose ranks hold the same.
+  * `to_tp` / `from_tp`: tp's pair of reductions under autograd (the
+    Megatron pair). `to_tp` is the identity forward and sums the gradient
+    over the tp group backward (on the input of a layer split on its
+    out-features); `from_tp` sums over the tp group forward and is the
+    identity backward (after a layer split on its in-features). Neither
+    writes into a tensor autograd tracks.
 
 Rows of a batch split over every rank of dp x fsdp (fsdp is data parallel
 too); JAX splits them over dp only and lets XLA shard the parameters under
@@ -39,9 +48,12 @@ checks; its collectives refuse to run.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import os
-from typing import Dict, List, Optional, Sequence, Tuple
+import threading
+import weakref
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -105,6 +117,7 @@ class Mesh:
     tp: int = 1
     rank: int = 0
     device_mesh: object = dataclasses.field(default=None, compare=False, repr=False)
+    rows_group: object = dataclasses.field(default=None, compare=False, repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -135,13 +148,17 @@ class Mesh:
 
     def group(self, axis: Optional[str] = None):
         """This rank's process group of `axis` ("dp", "fsdp", "sp" or "tp"),
-        or with None every rank."""
+        of "rows" (the dp x fsdp ranks that hold this rank's sp and tp
+        coordinates: the ranks a batch's rows split over), or with None
+        every rank."""
         if self.device_mesh is None:
             if self.size > 1:
                 raise RuntimeError("this mesh has no process group (a layout only)")
             return None
         if axis is None:
             return dist.group.WORLD
+        if axis == "rows":
+            return self.rows_group
         return self.device_mesh.get_group(axis)
 
 
@@ -165,7 +182,14 @@ def make_mesh(dp: Optional[int] = None, fsdp: int = 1, sp: int = 1, tp: int = 1,
     kind = torch.device(device).type if device is not None else (
         "cuda" if dist.get_backend() == "nccl" else "cpu")
     device_mesh = init_device_mesh(kind, (dp, fsdp, sp, tp), mesh_dim_names=AXES)
-    return Mesh(dp, fsdp, sp, tp, rank=dist.get_rank(), device_mesh=device_mesh)
+    rank, inner = dist.get_rank(), sp * tp
+    rows_group = dist.group.WORLD
+    if inner > 1:  # every rank makes every group, in the same order
+        for i in range(inner):
+            group = dist.new_group(list(range(i, n, inner)))
+            if rank % inner == i:
+                rows_group = group
+    return Mesh(dp, fsdp, sp, tp, rank=rank, device_mesh=device_mesh, rows_group=rows_group)
 
 
 # ---------------------------------------------------------------------------
@@ -314,14 +338,35 @@ def shard_params(params: Dict[str, torch.Tensor], mesh: Mesh,
     return out
 
 
+# `ShardedWeights` fills a gathered run from collectives of up to this many
+# bytes of each rank's piece (a bounded buffer beside the run's)
+GATHER_BYTES = 2**26
+
+
 class ShardedWeights:
-    """Dicts of frozen tensors held as this rank's `shard_params` pieces
-    between uses, and gathered whole over the fsdp group by `gather()`. A
-    tensor that appears in several dicts (or under several keys) is held
-    and gathered once."""
+    """Dicts of frozen tensors held in 1/fsdp pieces between uses, and
+    gathered over the fsdp group by `gather()`: whole, or the tensors of
+    some keys only (the train step gathers one UNet block at a time). The
+    tensors that `param_sharding` splits over fsdp are laid end to end, one
+    run per unit of `units` (lists of keys; by default one unit of every
+    key), dtype and set of dicts holding them, and this rank keeps its
+    1/fsdp of each run; the other tensors are held whole. A gather makes a
+    run whole in a fresh buffer that the run's tensors view, filled from
+    all_gathers of up to GATHER_BYTES of each rank's piece: no collective
+    writes the buffer itself (the communication library may hold what it
+    wrote for a moment after it returns), so the buffer lives exactly as
+    long as its views, and a unit's gather holds its own bytes and one such
+    collective's. A tensor that appears in several dicts (or under several
+    keys) is held and gathered once.
+
+    `live_bytes` counts the bytes of gathered buffers still alive (until
+    the last view of each is gone) and `peak_bytes` the most of them alive
+    at once since `reset_peak()`; a rank's peak of these weights is
+    `resident_bytes() + peak_bytes`. `live_units` counts the units with a
+    gathered buffer alive, and `peak_units` the most at once."""
 
     def __init__(self, dicts: Sequence[Dict[str, torch.Tensor]], mesh: Mesh,
-                 min_size: int = 2**16):
+                 min_size: int = 2**16, units: Optional[Iterable[Iterable[str]]] = None):
         self.mesh = mesh
         def ident(t):  # a detached view of a tensor is the same tensor
             return (t.data_ptr(), t.dtype, tuple(t.shape), t.stride())
@@ -335,19 +380,110 @@ class ShardedWeights:
                     name_of[ident(t)] = f"{len(unique)}:{key}"  # the key keeps the layout rule
                     unique[name_of[ident(t)]] = t
             self.layout.append({key: name_of[ident(t)] for key, t in d.items()})
+        unit_of = {key: i for i, keys in enumerate(units or ()) for key in keys}
         specs = param_sharding(unique, mesh, min_size)
-        self.axes = {n: _split_axis(specs[n]) for n in unique}
-        self.pieces = shard_params(unique, mesh, min_size)
+        held = [set(lay.values()) for lay in self.layout]
+        runs: Dict[tuple, List[str]] = {}  # in the dicts' order, the same on every rank
+        for n, t in unique.items():
+            if _split_axis(specs[n]) is not None:
+                holders = tuple(i for i, names in enumerate(held) if n in names)
+                runs.setdefault((unit_of.get(n.split(":", 1)[1], -1), t.dtype, holders), []).append(n)
+        self.runs = list(runs.values())
+        self.run_unit = [unit for unit, _, _ in runs]
+        self.run_of = {n: r for r, names in enumerate(self.runs) for n in names}
+        self.shapes = {n: unique[n].shape for n in self.run_of}
+        self.pieces = {n: t for n, t in unique.items() if n not in self.run_of}
+        self.run_pieces = [self._piece([unique[n] for n in names]) for names in self.runs]
+        self.run_bytes = [sum(unique[n].numel() for n in names) * unique[names[0]].element_size()
+                          for names in self.runs]
+        self.whole_bytes = {n: t.numel() * t.element_size() for n, t in unique.items()}
+        self._lock = threading.Lock()
+        self.live_bytes = self.peak_bytes = self.peak_units = 0
+        self._live_runs = collections.Counter()  # unit -> its gathered buffers alive
+
+    def _piece(self, tensors: List[torch.Tensor]) -> torch.Tensor:
+        """This rank's 1/fsdp of `tensors` laid end to end (each split
+        tensor has an axis that fsdp divides, so the run's length does)."""
+        total = sum(t.numel() for t in tensors)
+        size = total // self.mesh.fsdp
+        lo = self.mesh.coordinate("fsdp") * size
+        piece = torch.empty(size, dtype=tensors[0].dtype, device=tensors[0].device)
+        start = 0
+        for t in tensors:
+            a, b = max(lo, start), min(lo + size, start + t.numel())
+            if a < b:
+                piece[a - lo:b - lo] = t.reshape(-1)[a - start:b - start]
+            start += t.numel()
+        return piece
 
     def resident_bytes(self) -> int:
         """Bytes this rank holds between gathers."""
-        return sum(t.numel() * t.element_size() for t in self.pieces.values())
+        return sum(t.numel() * t.element_size() for t in [*self.pieces.values(), *self.run_pieces])
 
-    def gather(self) -> List[Dict[str, torch.Tensor]]:
-        """The dicts, whole (fresh tensors for the split ones)."""
-        full = {n: t if self.axes[n] is None else all_gather_cat(t, self.axes[n], self.mesh)
-                for n, t in self.pieces.items()}
-        return [{key: full[n] for key, n in names.items()} for names in self.layout]
+    def _names(self, keys: Optional[Iterable[str]], dicts: Sequence[int]) -> set:
+        return {n for i in dicts for k, n in self.layout[i].items() if keys is None or k in keys}
+
+    def _runs(self, keys: Optional[Iterable[str]], dicts: Optional[Sequence[int]]) -> List[int]:
+        dicts = range(len(self.layout)) if dicts is None else dicts
+        names = self._names(None if keys is None else set(keys), dicts)
+        return sorted({self.run_of[n] for n in names if n in self.run_of})
+
+    def gathered_bytes(self, keys: Optional[Iterable[str]] = None,
+                       dicts: Optional[Sequence[int]] = None) -> int:
+        """Bytes a `gather(keys, dicts)` makes whole (its runs')."""
+        return sum(self.run_bytes[r] for r in self._runs(keys, dicts))
+
+    @property
+    def live_units(self) -> int:
+        return len(+self._live_runs)
+
+    def reset_peak(self) -> None:
+        with self._lock:
+            self.peak_bytes, self.peak_units = self.live_bytes, self.live_units
+
+    def _freed(self, n: int, unit: int) -> None:
+        with self._lock:
+            self.live_bytes -= n
+            self._live_runs[unit] -= 1
+
+    def _gather_run(self, r: int) -> Dict[str, torch.Tensor]:
+        """Run `r`'s tensors whole: views of one fresh buffer, counted in
+        `live_bytes` until its storage is freed."""
+        piece = self.run_pieces[r]
+        size, n = piece.numel(), self.mesh.fsdp
+        flat = torch.empty(n * size, dtype=piece.dtype, device=piece.device)
+        nbytes, unit = flat.untyped_storage().nbytes(), self.run_unit[r]
+        with self._lock:
+            self.live_bytes += nbytes
+            self._live_runs[unit] += 1
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            self.peak_units = max(self.peak_units, self.live_units)
+        # the storage's finalizer: it outlives the buffer while a view holds it
+        weakref.finalize(flat.untyped_storage(), self._freed, nbytes, unit)
+        step = max(1, GATHER_BYTES // piece.element_size())
+        for lo in range(0, size, step):
+            hi = min(size, lo + step)
+            flat.view(n, size)[:, lo:hi] = all_gather_cat(piece[lo:hi], 0, self.mesh).view(n, -1)
+        out, offset = {}, 0
+        for n in self.runs[r]:
+            k = self.shapes[n].numel()
+            out[n] = flat[offset:offset + k].view(self.shapes[n])
+            offset += k
+        return out
+
+    def gather(self, keys: Optional[Iterable[str]] = None,
+               dicts: Optional[Sequence[int]] = None) -> List[Dict[str, torch.Tensor]]:
+        """The dicts (those at the indices `dicts`, default all), whole, or
+        only their tensors of `keys`: views of gathered runs for the split
+        ones (every run holding one of them is gathered), the held tensors
+        for the others."""
+        keys = None if keys is None else set(keys)
+        dicts = range(len(self.layout)) if dicts is None else dicts
+        full = dict(self.pieces)
+        for r in self._runs(keys, dicts):  # the same order on every rank
+            full.update(self._gather_run(r))
+        return [{k: full[n] for k, n in self.layout[i].items() if keys is None or k in keys}
+                for i in dicts]
 
 
 # ---------------------------------------------------------------------------
@@ -355,6 +491,12 @@ class ShardedWeights:
 # ---------------------------------------------------------------------------
 def _through_host(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _pinned_copy(t: torch.Tensor) -> torch.Tensor:
+    """`t`'s copy in host memory, page-locked for a CUDA tensor (the caching
+    host allocator reuses it), for the host hop of a gloo collective."""
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=t.is_cuda).copy_(t)
 
 
 def all_gather_cat(t: torch.Tensor, axis: int, mesh: Mesh, mesh_axis: str = "fsdp") -> torch.Tensor:
@@ -367,43 +509,94 @@ def all_gather_cat(t: torch.Tensor, axis: int, mesh: Mesh, mesh_axis: str = "fsd
     src = t.contiguous()
     host = _through_host(src, group)
     if host:
-        src = src.cpu()
+        src = _pinned_copy(src)
     out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
-                      device=src.device)
+                      device=src.device, pin_memory=src.is_pinned())
     # torch >= 2.13 names it all_gather_single (the old name warns)
     getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(out, src, group=group)
-    out = torch.cat(out.chunk(n), dim=axis)
-    return out.to(t.device) if host else out
+    if host:
+        out = out.to(t.device)
+    # the pieces lie along axis 0 already; another axis is one copy, on t's device
+    return out if axis == 0 else torch.cat(out.chunk(n), dim=axis)
 
 
 def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """`t` reduced by `op` over this rank's `axis` group (in place, `t`
-    returned; through the host for a CUDA tensor on gloo)."""
+    returned; through the host for a CUDA tensor on gloo). Refuses a tensor
+    that autograd tracks: an in-place collective is invisible to autograd,
+    or (through the host) cuts its gradient; `to_tp` / `from_tp` are the
+    reductions under autograd."""
     group = mesh.group(axis)
     if group is None:
         return t
+    if t.requires_grad:
+        raise RuntimeError("all_reduce writes in place: it takes no tensor that autograd tracks")
     if _through_host(t, group):
-        host = t.cpu()
+        host = _pinned_copy(t)
         dist.all_reduce(host, op=op, group=group)
         return t.copy_(host)
     dist.all_reduce(t, op=op, group=group)
     return t
 
 
-def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]) -> List[torch.Tensor]:
-    """The mean of each tensor over the ranks the rows split over, in one
-    all_reduce (a sum, then a division by their number). Fresh tensors;
-    every rank gets the same bits."""
+def all_reduce_sum(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh], axis: str) -> List[torch.Tensor]:
+    """The sum of each tensor over this rank's `axis` group, in one
+    all_reduce. Fresh tensors; every rank of the group gets the same bits."""
     tensors = list(tensors)
-    if mesh is None or not tensors:
+    if mesh is None or not tensors or mesh.group(axis) is None:
         return tensors
-    group = mesh.group()
-    if group is None:
-        return tensors
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=group)
-    flat = flat / mesh.rows
+    flat = all_reduce(torch.cat([t.detach().reshape(-1) for t in tensors]), mesh, axis)
     return [piece.view_as(t) for piece, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh: Optional[Mesh]) -> List[torch.Tensor]:
+    """The mean of each tensor over the ranks the rows split over (the
+    "rows" group, dp x fsdp: the ranks of an sp or tp group hold the same
+    rows and take no part), in one all_reduce (a sum, then a division by
+    their number). Fresh tensors; every rank gets the same bits."""
+    tensors = list(tensors)
+    if mesh is None or not tensors or mesh.group("rows") is None:
+        return tensors
+    return [t / mesh.rows for t in all_reduce_sum(tensors, mesh, "rows")]
+
+
+class _ToTP(torch.autograd.Function):
+    """Identity forward; the gradient summed over the tp group backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.clone(), ctx.mesh, "tp"), None
+
+
+class _FromTP(torch.autograd.Function):
+    """The sum over the tp group forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x.clone(), mesh, "tp")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def to_tp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """`x` as it is, whose gradient is summed over the tp group: the input
+    of the layers split on their out-features (each rank's part of the
+    gradient comes from its own features)."""
+    return _ToTP.apply(x, mesh)
+
+
+def from_tp(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of each rank's `x` over the tp group (a fresh tensor),
+    whose gradient reaches each rank's `x` whole: the partial products of
+    the layers split on their in-features."""
+    return _FromTP.apply(x, mesh)
 
 
 def all_gather_objects(obj, mesh: Optional[Mesh], axis: Optional[str] = None) -> list:

@@ -24,23 +24,57 @@ follows `optax.chain(clip_by_global_norm, adamw)` wrapped in
 
 A step makes its random draws (the noise, the guidance scales, the four
 losses' timestep indices) up front, at the global batch size, and keeps its
-rows of them. With a mesh (`parallel.make_mesh`) the step is data parallel
-over the mesh's dp x fsdp ranks: each rank is given its own rows of the
-batch and a generator seeded alike on every rank (or the draws at the
-global batch); the adapter gradients (before the clip and the non-finite
-guard) and the logged losses are averaged over the ranks, so every rank
-applies the same update and the step is the one-process step on the
-concatenated batch. Under fsdp > 1 each rank holds only its
-`parallel.param_sharding` shard of every large base and teacher tensor
-between steps (`parallel.ShardedWeights`); a step gathers them whole at its
-start and frees them at its end, so during a step a rank holds the whole
-weights plus its shards (JAX's GSPMD gathers each weight where it is
-used). JAX's `split=True` (two compiled programs) has no counterpart: an
-eager step has no program to split.
+rows of them. With a mesh (`parallel.make_mesh`) the step is the
+one-process step on the concatenated batch, as JAX's is under GSPMD:
+
+  * dp and fsdp: each rank of dp x fsdp is given its own rows of the batch
+    and a generator seeded alike on every rank (or the draws at the global
+    batch); the adapter gradients (before the clip and the non-finite
+    guard) and the logged losses are averaged over those ranks (the
+    "rows" group), so every rank applies the same update.
+  * tp: the ranks of a tp group take the same rows and run a copy of the
+    UNet split over the group (`parallel.tp`: this rank's heads of every
+    attention block whose heads divide over tp, its features of every
+    feed-forward), on this rank's slices of base and teacher (`tp_plan`),
+    with the Megatron pair of reductions under autograd (`to_tp` on the
+    split blocks' inputs, `from_tp` after their output projections). The
+    adapters and both optimizer states stay whole on every rank, as JAX
+    keeps them (its `init_train_state` is not sharded); a split layer's
+    adapter enters the split module as this rank's slice of it. A split
+    layer's adapter gradients are summed over the tp group (each rank holds
+    its slice's part), but for `up` of a layer split on its in-features on
+    the lazy path, which follows the low-rank partial's sum over tp and so
+    is whole on each rank already; every other adapter's gradient is whole
+    on each rank already (`to_tp`'s backward sums the split blocks' input
+    gradients), so it takes no tp reduction. Then everything is averaged
+    over the rows group, and the clip's global norm is read after both. An
+    attention block whose heads do not divide over tp stays whole, as in
+    serving, and its adapters take no tp reduction.
+  * fsdp > 1: each rank holds only its 1/fsdp of the base and teacher
+    tensors that `parallel.param_sharding` splits over fsdp, laid end to
+    end unit by unit, between uses (`parallel.ShardedWeights`; a tensor tp
+    splits keeps its tp slice whole, as `param_sharding` gives tp
+    precedence). Every UNet call gathers one
+    unit at a time (`models.lora.call_by_units`: each down, mid and up
+    block, and each top-level layer) just before the unit runs, merges the
+    adapters into it there (merged path), and drops it after; autograd
+    keeps a reference in place of each gathered or merged weight, and the
+    backward pass gathers (and merges) the unit again, one unit at a time.
+    So no more than one unit's weights are whole at once, as JAX's GSPMD
+    gathers each weight where it is used; the cost is a gather of every
+    unit per UNet call and per backward pass.
+
+sp training is refused: no JAX entry point trains over sp
+(`latent_sharding` is used by inference only). JAX's `split=True` (two
+compiled programs) has no counterpart: an eager step has no program to
+split.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
+import itertools
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -49,8 +83,10 @@ from torch.utils.checkpoint import checkpoint
 from ..diffusion.schedule import NoiseSchedule
 from ..diffusion.solver import TrainSolver
 from ..models.lora import (
-    call_with_lora, call_with_state, compute_dtypes, init_lora, lora_modules, merged_state_dict)
-from ..parallel import Mesh, ShardedWeights, all_reduce_mean
+    UnitCache, call_by_units, call_with_lora, call_with_state, compute_dtypes, init_lora,
+    lora_hooks, lora_modules, merged_state_dict, module_units)
+from ..parallel import Mesh, ShardedWeights, all_reduce_mean, all_reduce_sum
+from ..parallel.tp import tensor_parallel, tp_plan, tp_slice, tp_slice_lora
 from . import losses as L
 
 Lora = Dict[str, Dict[str, torch.Tensor]]
@@ -264,20 +300,28 @@ def make_train_step(
     counters).
 
     With `mesh`, `batch` holds this rank's rows (B = the global batch /
-    `mesh.rows`), while `generator` and `draws` are at the global batch, the
-    same on every rank; the metrics are the global batch's. Under
+    `mesh.rows`; the ranks of a tp group hold the same rows), while
+    `generator` and `draws` are at the global batch, the same on every
+    rank; the metrics are the global batch's, and every rank returns the
+    same state. `unet`, `base` and `teacher` are whole on every rank: under
+    `mesh.tp > 1` the step runs a split copy of `unet` (its structure only,
+    on the meta device) on its own slices of `base` and `teacher`. Under
     `mesh.fsdp > 1` the step keeps only shards of `base` and `teacher`
     (`step_fn.weights`, a `parallel.ShardedWeights` splitting tensors of at
-    least `FSDP_MIN_SIZE` elements; `step_fn.gather()` gives both whole),
-    and the caller may free its own copies. `step_fn.resident_bytes()` is
-    what the step holds of them between steps; during a step a rank holds
-    them whole besides its shards. A mesh with sp or tp > 1 is refused (the
-    step over tp waits for ROADMAP item 17d).
+    least `FSDP_MIN_SIZE` elements; `step_fn.gather()` gives both whole
+    over fsdp, at this rank's tp slices), and the caller may free its own
+    copies; `step_fn.units` maps each gathering unit's prefix to its keys.
+    `step_fn.resident_bytes()` is what the step holds of them between
+    steps; during a step a rank holds besides them at most one unit's
+    gathered (and merged) weights at a time. A mesh with sp > 1 is refused.
     """
-    if mesh is not None and (mesh.sp > 1 or mesh.tp > 1):
-        raise NotImplementedError("the train step runs over dp and fsdp; sp and tp training "
-                                  "wait for ROADMAP item 17d")
+    if mesh is not None and mesh.sp > 1:
+        raise NotImplementedError(
+            "the train step does not run over sp: no JAX entry point trains over sp "
+            "(its latent_sharding is used by inference only); use dp, fsdp and tp")
     dtypes = compute_dtypes(unet)
+    plan = tp_plan(unet, mesh) if mesh is not None else {}
+    model = unet if not plan else tensor_parallel(_structure(unet), mesh)
     casts: Dict[tuple, torch.Tensor] = {}
 
     def compute_copy(key: str, t: torch.Tensor) -> torch.Tensor:
@@ -291,30 +335,31 @@ def make_train_step(
         base = {key: compute_copy(key, t) for key, t in base.items()}
     else:
         base = {key: t.detach() for key, t in base.items()}
-    store = None
+    if plan:  # this rank's tp slices; a tensor both hold is sliced once
+        sliced: Dict[tuple, torch.Tensor] = {}
+
+        def tp_copy(key: str, t: torch.Tensor) -> torch.Tensor:
+            ident = (t.data_ptr(), t.dtype, key)
+            if ident not in sliced:
+                sliced[ident] = tp_slice({key: t}, plan)[key]
+            return sliced[ident]
+        base = {key: tp_copy(key, t) for key, t in base.items()}
+        teacher = {key: tp_copy(key, t) for key, t in teacher.items()}
+        del sliced
+    store, units = None, None
     if mesh is not None and mesh.fsdp > 1:
-        store = ShardedWeights([base, teacher], mesh, FSDP_MIN_SIZE)
+        units = {prefix: [k for k in dtypes if k.startswith(prefix + ".")]
+                 for prefix in module_units(model)}
+        if sum(map(len, units.values())) != len(dtypes):
+            raise ValueError("the UNet has parameters outside its gathering units")
+        store = ShardedWeights([base, teacher], mesh, FSDP_MIN_SIZE, units.values())
         base = teacher = None
-        casts.clear()
+    casts.clear()
     scale = cfg.lora_alpha / cfg.lora_rank
 
     def gather():
-        """(base, teacher), whole."""
+        """(base, teacher), whole over fsdp (this rank's tp slices)."""
         return tuple(store.gather()) if store is not None else (base, teacher)
-
-    def apply_of(weights: Dict[str, torch.Tensor], context: torch.Tensor, added: Optional[Dict],
-                 lora: Optional[Lora] = None, targets=None, remat: bool = False):
-        """The denoiser on `weights` (+ `lora`'s low-rank paths, lazily)."""
-        def apply(x, t, w_emb):
-            if lora is None:
-                return call_with_state(unet, weights, x, t, context, w_cond=w_emb,
-                                       added_cond=added)
-            return call_with_lora(unet, weights, lora, scale, x, t, context, w_cond=w_emb,
-                                  added_cond=added, targets=targets)
-        if not remat:
-            return apply
-        return lambda x, t, w_emb: checkpoint(
-            apply, x, t, w_emb, use_reentrant=False, preserve_rng_state=False)
 
     def merged(base: Dict[str, torch.Tensor], lora: Lora) -> Dict[str, torch.Tensor]:
         return merged_state_dict(
@@ -325,6 +370,30 @@ def make_train_step(
 
     def detached(lora: Lora) -> Lora:
         return {key: {n: t.detach() for n, t in ab.items()} for key, ab in lora.items()}
+
+    def fetcher(which: int, lora: Optional[Lora] = None):
+        """Under fsdp, a unit's tensors of base (0) or teacher (1),
+        gathered, with `lora` merged in when given."""
+        def fetch(prefix: str) -> Dict[str, torch.Tensor]:
+            keys = units[prefix]
+            weights = store.gather(keys, dicts=(which,))[0]
+            if lora is None:
+                return weights
+            return merged(weights, {k: lora[k] for k in keys if k in lora})
+        return fetch
+
+    def reduce_grads(grads: List[torch.Tensor], lora: Lora) -> List[torch.Tensor]:
+        """A split layer's adapter gradients summed over tp, then every
+        gradient averaged over the rows (in that order on every rank). The
+        lazy path sums a row-split layer's low-rank partial (x @ down^T)
+        over tp before `up`, so `up`'s gradient there is whole already."""
+        grads = list(grads)
+        if plan:
+            split = [i for i, (key, name) in enumerate((k, n) for k in lora for n in ("down", "up"))
+                     if key in plan and not (cfg.lazy_lora and name == "up" and plan[key][0] == 1)]
+            for i, g in zip(split, all_reduce_sum([grads[i] for i in split], mesh, "tp")):
+                grads[i] = g
+        return all_reduce_mean(grads, mesh)
 
     rows, row = (mesh.rows, mesh.row) if mesh is not None else (1, 0)
 
@@ -357,7 +426,6 @@ def make_train_step(
         draws = global_draws(draws or {}, batch, generator)
         latents = batch["latents"].permute(0, 3, 1, 2)  # the UNet runs NCHW
         device = latents.device
-        base, teacher = gather()
         context = batch["context"]
         uncond_context = batch.get("uncond_context", context)
         added = batch.get("added_cond")
@@ -367,33 +435,68 @@ def make_train_step(
             added, text_embeds=torch.zeros_like(added["text_embeds"]))
         noise = draws.get("noise", batch.get("noise")).permute(0, 3, 1, 2)
         w = draws["w"]
+        cache = UnitCache()  # under fsdp: the unit a backward pass gathered last
 
-        # leaves of this step's two graphs; the state's own tensors stay plain
+        def apply_of(weights, context: torch.Tensor, added: Optional[Dict],
+                     lora: Optional[Lora] = None, remat: bool = False):
+            """The denoiser on `weights` (a dict, or under fsdp a unit
+            fetcher) + `lora`'s low-rank paths, lazily."""
+            def apply(x, t, w_emb):
+                kwargs = dict(w_cond=w_emb, added_cond=added)
+                if store is not None:
+                    hooks = contextlib.nullcontext() if lora is None else lora_hooks(
+                        model, lora, scale, targets)
+                    with hooks:
+                        return call_by_units(model, weights, cache, x, t, context, **kwargs)
+                if lora is None:
+                    return call_with_state(model, weights, x, t, context, **kwargs)
+                return call_with_lora(model, weights, lora, scale, x, t, context, targets=targets,
+                                      **kwargs)
+            if not remat:
+                return apply
+            return lambda x, t, w_emb: checkpoint(
+                apply, x, t, w_emb, use_reentrant=False, preserve_rng_state=False)
+
+        # leaves of this step's two graphs (whole adapters); the state's own
+        # tensors stay plain
         lora_r = _like(state.lora_reverse,
                        [t.detach().requires_grad_(True) for t in _flat(state.lora_reverse)])
         lora_f = _like(state.lora_forward,
                        [t.detach().requires_grad_(True) for t in _flat(state.lora_forward)])
+        targets = None
         if cfg.lazy_lora:
             # the adapters ride the base weights' calls, cast to their
             # layers' compute dtype once a step (JAX casts them in every
-            # call); the frozen counterpart the other objective sees is the
-            # same pre-step adapters, detached
-            targets = lora_modules(unet, lora_r)
-            lora_rc, lora_fc = in_compute_dtype(lora_r), in_compute_dtype(lora_f)
-            student_r = apply_of(base, context, added, lora_rc, targets, cfg.remat)
-            student_f = apply_of(base, context, added, lora_fc, targets, cfg.remat)
-            frozen_r = apply_of(base, context, added, detached(lora_rc), targets)
-            frozen_f = apply_of(base, context, added, detached(lora_fc), targets)
+            # call), as this rank's tp slices; the frozen counterpart the
+            # other objective sees is the same pre-step adapters, detached
+            targets = lora_modules(model, lora_r)
+            lora_rc = tp_slice_lora(in_compute_dtype(lora_r), plan)
+            lora_fc = tp_slice_lora(in_compute_dtype(lora_f), plan)
+            weights = fetcher(0) if store is not None else base
+            student_r = apply_of(weights, context, added, lora_rc, cfg.remat)
+            student_f = apply_of(weights, context, added, lora_fc, cfg.remat)
+            frozen_r = apply_of(weights, context, added, detached(lora_rc))
+            frozen_f = apply_of(weights, context, added, detached(lora_fc))
+        elif store is not None:
+            # each unit merged where it is gathered, in the forward and the
+            # backward pass
+            lora_rs, lora_fs = tp_slice_lora(lora_r, plan), tp_slice_lora(lora_f, plan)
+            student_r = apply_of(fetcher(0, lora_rs), context, added, remat=cfg.remat)
+            student_f = apply_of(fetcher(0, lora_fs), context, added, remat=cfg.remat)
+            frozen_r = apply_of(fetcher(0, detached(lora_rs)), context, added)
+            frozen_f = apply_of(fetcher(0, detached(lora_fs)), context, added)
         else:
             # Each student is merged once; the frozen counterpart the other
             # objective sees is the same pre-step tensors, detached.
-            merged_r, merged_f = merged(base, lora_r), merged(base, lora_f)
+            merged_r = merged(base, tp_slice_lora(lora_r, plan))
+            merged_f = merged(base, tp_slice_lora(lora_f, plan))
             student_r = apply_of(merged_r, context, added, remat=cfg.remat)
             student_f = apply_of(merged_f, context, added, remat=cfg.remat)
             frozen_r = apply_of({k: t.detach() for k, t in merged_r.items()}, context, added)
             frozen_f = apply_of({k: t.detach() for k, t in merged_f.items()}, context, added)
-        teacher_apply = apply_of(teacher, context, added)
-        uncond_apply = apply_of(teacher, uncond_context, added_u)
+        teacher_w = fetcher(1) if store is not None else teacher
+        teacher_apply = apply_of(teacher_w, context, added)
+        uncond_apply = apply_of(teacher_w, uncond_context, added_u)
 
         def as_loss_apply(apply):
             return lambda params, x, t, w_emb: apply(x, t, w_emb)
@@ -402,7 +505,9 @@ def make_train_step(
         metrics: Dict = {}
 
         def update(name, total, logs, lora, lora_state, opt_state):
-            grads = _like(lora, all_reduce_mean(torch.autograd.grad(total, _flat(lora)), mesh))
+            grads = torch.autograd.grad(total, _flat(lora))
+            cache.clear()
+            grads = _like(lora, reduce_grads(grads, lora))
             new_lora, new_opt, norm = optimizer_update(grads, opt_state, lora_state, cfg)
             metrics.update(logs)
             metrics[f"{name}_total_loss"] = total.detach()
@@ -481,6 +586,23 @@ def make_train_step(
         return sum(held.values())
 
     step_fn.weights = store
+    step_fn.units = units
     step_fn.gather = gather
     step_fn.resident_bytes = resident_bytes
     return step_fn
+
+
+def _structure(module: torch.nn.Module) -> torch.nn.Module:
+    """A copy of `module` with every parameter and buffer on the meta
+    device: its structure and dtypes, without weights (nor cached int8
+    weight codes)."""
+    memo = {}
+    for t in itertools.chain(module.parameters(), module.buffers()):
+        meta = torch.empty_like(t, device="meta")
+        memo[id(t)] = torch.nn.Parameter(meta, t.requires_grad) if isinstance(
+            t, torch.nn.Parameter) else meta
+    for m in module.modules():
+        codes = m.__dict__.get("_int8_weight_codes")
+        if codes is not None:
+            memo[id(codes)] = None
+    return copy.deepcopy(module, memo)

@@ -8,6 +8,7 @@ once; its `results()` waits for them and gives each rank's result of
 first test, so they run while the test process computes its references.
 The workers use one intra-op thread each, and do not import TensorBoard.
 """
+import dataclasses
 import os
 import socket
 import subprocess
@@ -66,12 +67,15 @@ class Ranks:
 # ---------------------------------------------------------------------------
 # jobs (run in the workers)
 # ---------------------------------------------------------------------------
-def _tiny_world(base):
+def _tiny_world(base, num_heads=None):
     from invertible_cd_tpu_torch.diffusion.schedule import make_schedule
     from invertible_cd_tpu_torch.diffusion.solver import make_train_solver
     from invertible_cd_tpu_torch.models.unet2d import UNet2DCondition, UNetConfig
 
-    unet = UNet2DCondition(UNetConfig.tiny()).eval().requires_grad_(False)
+    cfg = UNetConfig.tiny()
+    if num_heads is not None:
+        cfg = dataclasses.replace(cfg, num_heads=num_heads)
+    unet = UNet2DCondition(cfg).eval().requires_grad_(False)
     unet.load_state_dict(base)
     schedule = make_schedule()
     solver = make_train_solver(
@@ -81,46 +85,41 @@ def _tiny_world(base):
 
 
 def _steps(payload, mesh_of) -> dict:
-    """Each of payload["steps"] ({name: dict(fsdp=, min_size=, tcfg=,
-    draws=, seed=)}) on the rank's rows of payload["batch"], with the
-    trainer's FSDP_MIN_SIZE set to min_size (default 2**16) for it. Under
-    fsdp > 1 the step's gather is watched: `gathered` is the bytes of the
-    tensors it made whole (held during the step beside the shards), `freed`
-    whether every one of them was gone when the step returned."""
-    import weakref
-
+    """Each of payload["steps"] ({name: dict(fsdp=, tp=, min_size=, tcfg=,
+    draws=, seed=, num_heads=)}) on the rank's rows of payload["batch"],
+    with the trainer's FSDP_MIN_SIZE set to min_size (default 2**16) for
+    it. Under fsdp > 1 the store's gathers are read: `peak` the most
+    gathered bytes alive at once during the step, `live` those still alive
+    when it returned, `units` the most units with gathered bytes alive at
+    once, `unit_max` the most one unit of one dict (base or teacher)
+    gathers, `whole` what a gather of everything makes."""
     from invertible_cd_tpu_torch.parallel import shard_batch
     from invertible_cd_tpu_torch.training import make_train_step, trainer
 
-    unet, schedule, solver = _tiny_world(payload["base"])
     out = {}
     default_min_size = trainer.FSDP_MIN_SIZE
     for name, run in payload["steps"].items():
-        mesh = mesh_of(run["fsdp"])
+        unet, schedule, solver = _tiny_world(payload["base"], run.get("num_heads"))
+        mesh = mesh_of(run["fsdp"], run.get("tp", 1))
         trainer.FSDP_MIN_SIZE = run.get("min_size", default_min_size)
         try:
             step_fn = make_train_step(unet, payload["base"], payload["base"], solver, schedule,
                                       run["tcfg"], mesh)
         finally:
             trainer.FSDP_MIN_SIZE = default_min_size
-        made = []  # weak references to the gathers' fresh tensors, and their bytes
-        if step_fn.weights is not None:
-            store, gather = step_fn.weights, step_fn.weights.gather
-
-            def watched_gather(store=store, gather=gather):
-                dicts = gather()
-                pieces = {id(t) for t in store.pieces.values()}
-                fresh = {id(t): t for d in dicts for t in d.values() if id(t) not in pieces}
-                made.extend((weakref.ref(t), t.numel() * t.element_size()) for t in fresh.values())
-                return dicts
-            store.gather = watched_gather
+        store = step_fn.weights
+        if store is not None:
+            store.reset_peak()
         gen = None if run.get("seed") is None else torch.Generator().manual_seed(run["seed"])
         batch = {k: v for k, v in payload["batch"].items() if k in run.get("keys", payload["batch"])}
         new, metrics = step_fn(payload["state"], shard_batch(batch, mesh), gen, run.get("draws"))
         out[name] = dict(state=new, metrics={k: float(v) for k, v in metrics.items()},
-                         resident=step_fn.resident_bytes(), rows=mesh.rows, row=mesh.row,
-                         gathered=sum(n for _, n in made),
-                         freed=all(ref() is None for ref, _ in made))
+                         resident=step_fn.resident_bytes(), rows=mesh.rows, row=mesh.row)
+        if store is not None:
+            out[name].update(peak=store.peak_bytes, live=store.live_bytes, units=store.peak_units,
+                             unit_max=max(store.gathered_bytes(k, dicts=(i,))
+                                          for k in step_fn.units.values() for i in (0, 1)),
+                             whole=store.gathered_bytes())
     return out
 
 
@@ -128,7 +127,8 @@ def job_train(payload) -> dict:
     from invertible_cd_tpu_torch.parallel import make_mesh
 
     meshes = {}
-    return _steps(payload, lambda fsdp: meshes.setdefault(fsdp, make_mesh(fsdp=fsdp, device="cpu")))
+    return _steps(payload, lambda fsdp, tp: meshes.setdefault(
+        (fsdp, tp), make_mesh(fsdp=fsdp, tp=tp, device="cpu")))
 
 
 def job_parallel(payload) -> dict:
@@ -144,10 +144,10 @@ def job_parallel(payload) -> dict:
 
     meshes = {}
 
-    def mesh_of(fsdp):
-        return meshes.setdefault(fsdp, make_mesh(fsdp=fsdp, device="cpu"))
+    def mesh_of(fsdp, tp=1):
+        return meshes.setdefault((fsdp, tp), make_mesh(fsdp=fsdp, tp=tp, device="cpu"))
 
-    out = {"steps": _steps(payload, mesh_of)}
+    out = {"steps": _steps(payload, mesh_of), "tp_pair": _tp_pair(payload["tp_pair"])}
     mesh = mesh_of(1)
     pipe = tiny_bundle(None)
     ev = payload["eval"]
@@ -214,21 +214,92 @@ def _sp_tp(p) -> dict:
     return out
 
 
+def _tp_pair(p) -> dict:
+    """tp's reductions at tp = 2 (each rank half of a feed-forward): the
+    rows mean (`all_reduce_mean`) of a tensor both ranks hold, beside the
+    sum over every rank over the rows that it was before; then a
+    column-split layer (its input through `to_tp`) followed by a row-split
+    one (`RowSplitLinear`, `from_tp`), forward and gradients, through the
+    device path of the collectives and through the host path (the one gloo
+    takes for CUDA tensors), and, for comparison, the same layers with the
+    sum written in place and no `to_tp` (the reductions as they were)."""
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    from invertible_cd_tpu_torch.parallel import all_reduce_mean, make_mesh, mesh as mesh_module, to_tp
+    from invertible_cd_tpu_torch.parallel.tp import RowSplitLinear, _rows
+
+    tp = make_mesh(tp=2, device="cpu")
+    i = tp.coordinate("tp")
+    t = p["mean_input"]
+    old = t.clone()
+    dist.all_reduce(old)  # over every rank, divided by the rows
+    out = {"rows_mean": all_reduce_mean([t], tp)[0], "old_mean": old / tp.rows}
+    d, f = p["w1"].shape[1], p["w1"].shape[0]
+    col, row = nn.Linear(d, f), nn.Linear(f, d)
+    with torch.no_grad():
+        for layer, w, b in ((col, p["w1"], p["b1"]), (row, p["w2"], p["b2"])):
+            layer.weight.copy_(w)
+            layer.bias.copy_(b)
+    cols = torch.arange(i * f // 2, (i + 1) * f // 2)
+    col_s, row_s = _rows(col, cols), RowSplitLinear(row, tp, cols)
+    params = [col_s.weight, col_s.bias, row_s.weight, row_s.bias]
+    for p_ in params:
+        p_.requires_grad_(True)
+    real = mesh_module._through_host
+    for path in ("device", "host", "in_place"):
+        x = p["x"].clone().requires_grad_(True)
+        if path == "in_place":
+            h = F.gelu(col_s(x))
+            y = F.linear(h, row_s.weight).float()
+            dist.all_reduce(y)  # written into the tracked tensor: autograd does not see it
+            y = y + row_s.bias
+        else:
+            mesh_module._through_host = (lambda t, group: True) if path == "host" else real
+            try:
+                h = to_tp(x, tp)
+                version = h._version
+                y = row_s(F.gelu(col_s(h)))
+            finally:
+                mesh_module._through_host = real
+        grads = torch.autograd.grad((y * p["g"]).sum(), [x] + params)
+        out[path] = dict(y=y.detach(), dx=grads[0], dw1=grads[1], db1=grads[2], dw2=grads[3],
+                         db2=grads[4], cols=cols)
+        if path != "in_place":
+            fns, todo = set(), [y.grad_fn]
+            while todo:  # the output's graph back to the input
+                fn = todo.pop()
+                if fn is not None and type(fn).__name__ not in fns:
+                    fns.add(type(fn).__name__)
+                    todo.extend(f for f, _ in fn.next_functions)
+            out[path].update(input_version_kept=h._version == version, grad_fns=fns)
+    return out
+
+
 def mesh_record(mesh) -> dict:
     """What a rank sees of a mesh: its shape, its coordinates, its rows and
     the global ranks of its sp and tp groups."""
     return {"shape": mesh.shape, "coords": {a: mesh.coordinate(a) for a in mesh.shape},
             "rows": (mesh.rows, mesh.row),
-            "groups": {a: dist.get_process_group_ranks(mesh.group(a)) for a in ("dp", "sp", "tp")}}
+            "groups": {a: dist.get_process_group_ranks(mesh.group(a))
+                       for a in ("dp", "fsdp", "sp", "tp", "rows")}}
 
 
 def job_dp_sp(payload) -> dict:
     """dp = 2 x sp = 2 over four ranks, on the bundle of payload["weights"]:
     each dp group generates its row of payload["prompts"] from its row of
     payload["latent"], the height split over its sp pair; every rank
-    gathers the images over dp, and records the mesh."""
-    from invertible_cd_tpu_torch.parallel import all_gather_objects, make_mesh, process_local_batch_slice
+    gathers the images over dp, and records the mesh. Then fsdp = 2 x tp =
+    2: the train steps of payload["train"], the mesh, and the rows mean of
+    payload["mean_input"] (a tensor that depends on the rank)."""
+    from invertible_cd_tpu_torch.parallel import (
+        all_gather_objects, all_reduce_mean, make_mesh, process_local_batch_slice)
     from invertible_cd_tpu_torch.testing import tiny_bundle
+
+    fsdp_tp = make_mesh(dp=1, fsdp=2, tp=2, device="cpu")
+    train = {"steps": _steps(payload["train"], lambda fsdp, tp: fsdp_tp),
+             "mesh": mesh_record(fsdp_tp),
+             "rows_mean": all_reduce_mean([payload["mean_input"] * (1 + fsdp_tp.rank)], fsdp_tp)[0]}
 
     mesh = make_mesh(dp=2, sp=2, device="cpu")
     pipe = tiny_bundle(payload["weights"])
@@ -237,7 +308,7 @@ def job_dp_sp(payload) -> dict:
                               mesh=mesh)
     rows = all_gather_objects((mesh.coordinate("sp"), images), mesh)
     return {"mesh": mesh_record(mesh), "rows": (lo, n),
-            "images": torch.cat([im for i, im in rows if i == 0])}
+            "images": torch.cat([im for i, im in rows if i == 0]), "train": train}
 
 
 def ev_fns():

@@ -1097,3 +1097,56 @@ def test_world_one_nccl_step_equals_the_plain_step(cuda):
         return [t for tree in trees for ab in tree.values() for t in ab.values()]
     a, c = tensors(plain), tensors(meshed)
     assert len(a) == len(c) > 0 and all(torch.equal(x, y) for x, y in zip(a, c))
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_tp_reductions_keep_the_gradient_on_the_card(cuda, backend):
+    """tp's Megatron pair on CUDA tensors over a world-size-1 group of each
+    backend: gloo moves a CUDA tensor's all_reduce through the host (the
+    path two ranks sharing one card take), NCCL on the device. A
+    column-split layer (its input through `to_tp`) into a `RowSplitLinear`
+    holding every in-feature gives the unsplit pair's output and gradients
+    (input and all four parameters, bf16 products: 2e-2 of each one's
+    largest entry), leaves the input unwritten, and no gradient is cut (an
+    in-place copy from the host would zero the layer's input gradient)."""
+    import socket
+
+    import torch.distributed as dist
+    import torch.nn as nn
+    import torch.nn.functional as F
+
+    from invertible_cd_tpu_torch.parallel import make_mesh, to_tp
+    from invertible_cd_tpu_torch.parallel.tp import RowSplitLinear
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    with torch.device(cuda):
+        col, row = nn.Linear(320, 1280).bfloat16(), nn.Linear(1280, 320).bfloat16()
+    x = torch.randn((2, 4096, 320), generator=gen, device=cuda).bfloat16()
+    g = torch.randn((2, 4096, 320), generator=gen, device=cuda).bfloat16()
+
+    def grads(first, second, tp_input):
+        xi = x.clone().requires_grad_(True)
+        params = [first.weight, first.bias, second.weight, second.bias]
+        for p in params:
+            p.requires_grad_(True)
+        h = tp_input(xi)
+        version = h._version
+        y = second(F.gelu(first(h)))
+        out = torch.autograd.grad((y.float() * g.float()).sum(), [xi] + params)
+        return y.detach(), out, h._version == version
+
+    want_y, want, _ = grads(col, row, lambda t: t)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device="cuda")
+        split = RowSplitLinear(row, mesh, torch.arange(1280))
+        got_y, got, kept = grads(col, split, lambda t: to_tp(t, mesh))
+    finally:
+        dist.destroy_process_group()
+    assert kept
+    assert (got_y.float() - want_y.float()).abs().max() <= 2e-2 * want_y.float().abs().max()
+    for a, b in zip(got, want):
+        assert b.abs().max() > 0 and (a.float() - b.float()).abs().max() <= 2e-2 * b.float().abs().max()

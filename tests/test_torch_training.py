@@ -1,7 +1,8 @@
 """The trainer of the PyTorch port against the JAX package, fp32 on the CPU,
 at the tiny UNet: adapter init and the adapter bridge, the written-out
 optimizer against optax, one full four-loss step against the JAX package's
-compiled step, remat, checkpoints and the CLI.
+compiled step (in one process, and over two gloo ranks at dp = 2 and at
+tp = 2), remat, checkpoints and the CLI.
 
 The full step gives both packages the same bridged weights and non-zero
 adapters, the same numpy batch and noise, and the guidance scales and
@@ -288,13 +289,15 @@ def step_inputs(jax_world):
 
 @pytest.fixture(scope="module", autouse=True)
 def two_rank_run(step_inputs, port_world, jax_world, tmp_path_factory):
-    """The step of `both_steps` over two gloo ranks, one row each
-    (`_torch_dist.Ranks`: two processes, no JAX there), from the same state
-    and the same global batch and draws; started before this file's first
-    test, so the processes run while JAX compiles its step."""
+    """The step of `both_steps` over two gloo ranks (`_torch_dist.Ranks`:
+    two processes, no JAX there), from the same state and the same global
+    batch and draws: at dp = 2, one row each, and at tp = 2, both rows on
+    each rank and half of every split block; started before this file's
+    first test, so the processes run while JAX compiles its step."""
     payload = dict(base=port_world["base"], state=_port_state(jax_world, port_world["tcfg"]),
                    batch=_torch_batch(step_inputs["batch"]),
-                   steps={"dp": dict(fsdp=1, tcfg=port_world["tcfg"], draws=step_inputs["draws"])})
+                   steps={"dp": dict(fsdp=1, tcfg=port_world["tcfg"], draws=step_inputs["draws"]),
+                          "tp": dict(fsdp=1, tp=2, tcfg=port_world["tcfg"], draws=step_inputs["draws"])})
     ranks = Ranks("train", payload, tmp_path_factory.mktemp("two_rank_step"))
     yield ranks
     ranks.stop()
@@ -398,6 +401,30 @@ def test_two_rank_step_matches_jax(two_rank_step, both_steps):
         _updates_match_jax(both_steps["state"], rank["state"], both_steps["want"])
     a, b = (_flat(r["state"].lora_reverse) for r in two_rank_step)
     assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_two_rank_tp_step_matches_jax(two_rank_run, both_steps):
+    """Each rank's tp = 2 step (the whole batch on both, each half of every
+    attention block's heads and feed-forward's features, the reductions
+    under autograd, the split layers' adapter gradients summed over the
+    pair) against JAX's step on the whole batch (GSPMD's tp partition does
+    not change JAX's function), at this file's tolerances; both ranks hold
+    the same adapters and optimizer states, bit for bit, and the same
+    metrics."""
+    ranks = [r["tp"] for r in two_rank_run.results()]
+    for rank in ranks:
+        assert rank["rows"] == 1
+        _metrics_match_jax(rank["metrics"], both_steps["want"]["metrics"])
+        _updates_match_jax(both_steps["state"], rank["state"], both_steps["want"])
+    a, b = (r["state"] for r in ranks)
+    for part in ("lora_reverse", "lora_forward"):
+        x, y = _flat(getattr(a, part)), _flat(getattr(b, part))
+        assert all(torch.equal(x[k], y[k]) for k in x), part
+    for opt in ("opt_reverse", "opt_forward"):
+        for name in ("mu", "nu"):
+            x, y = _flat(getattr(a, opt)[name]), _flat(getattr(b, opt)[name])
+            assert all(torch.equal(x[k], y[k]) for k in x), (opt, name)
+    assert ranks[0]["metrics"] == ranks[1]["metrics"]
 
 
 def test_full_step_changes_only_the_adapters(both_steps, port_world, jax_world):
