@@ -111,8 +111,10 @@ nothing of JAX. Phases, each of which must pass:
              one teacher call at batch 2 and one NTI inner iteration, and
              traces one `ddim_generate`;
   4f. int8 (after 4d, on the same bundle): int8 W8A8 inference through
-             kernels Q2 (`ops/csrc/int8_quantize.cu`, the quantising pass)
-             and Q1 (`ops/csrc/int8_gemm.cu`): `generate` at batch 4 then
+             kernels Q2 (`ops/csrc/int8_quantize.cu`, the quantising pass:
+             a convolution's dynamic amax and codes in one cooperative
+             launch, its tiles kept in shared memory across a grid barrier;
+             it replaces no TPU kernel) and Q1 (`ops/csrc/int8_gemm.cu`): `generate` at batch 4 then
              1 under every `quantize` mode (off, int8, int8_vae, int8_static
              before calibration), `collect_quant_stats()`, int8_static again,
              `invert` and the controlled `edit` under int8. Checks exact
@@ -128,7 +130,9 @@ nothing of JAX. Phases, each of which must pass:
              codes: int32 accumulators equal, outputs bit for bit, with
              and without the fused bias; Q2 against its plain version at
              every launch shape of those runs (NCHW and channels-last input
-             for a convolution), codes and scales bit for bit; a UNet call
+             for a convolution), codes and scales bit for bit, and at each
+             convolution shape its amax pass alone (`quant.tensor_amax`, the
+             amax sp reduces over ranks) against `tensor_amax_plain`; a UNet call
              whose weight codes were dropped quantises each weight once and
              the next call none (`quant.weight_quantizations`); the generate
              CLI with `--quantize int8_static` (calibrating once), the edit
@@ -143,10 +147,14 @@ nothing of JAX. Phases, each of which must pass:
              one (bound: 2 M N K / 1979e12 and bytes / 3.35e12; yardsticks
              the port never calls: `torch._int_mm` plus its dequantising
              pass for a dense shape, cuDNN's bf16 convolution for a conv
-             shape), and Q2's rows at its three costliest shapes and its
-             costliest dense one (bound: bytes of one read of x and one
-             write of codes and scales; plain: the eager quantiser; no
-             library call), all on one JSON line with the card. At the end
+             shape), and Q2's rows at its three costliest shapes, its
+             costliest dense one and the four tensor shapes it launches
+             most (the UNet's; bound: bytes of one read of x and one write
+             of codes and scales, which a tensor beyond the chip's ~26 MB
+             of kept tiles cannot reach: its dynamic amax needs x read
+             before the first code, so most of it is read twice; plain: the
+             eager quantiser; no library call), all on one JSON line with
+             the card. At the end
              of 4c, the SDXL bundle's int8 generate at 1024^2, batch 1
              (`phase_int8_sdxl`): exact launches (795 Q1 and Q2 a UNet
              call; the fp32 VAE's 40 writing fp32), finite, Q1 and Q2
@@ -339,7 +347,9 @@ nothing of JAX. Phases, each of which must pass:
 
 `--kernels-only` runs phases 1-3 and the harness (6), times Q1 at the int8
 paths' costliest shapes (`Q1_COMPARE`), and prints the kernel rows;
-`--q1-compare` times Q1 alone there, `--b2f32-compare` B2's fp32 build
+`--q1-compare` times Q1 alone there, `--q2-compare` Q2 alone at
+`Q2_COMPARE` (its costliest and most-launched shapes, each tensor shape
+from NCHW and from channels-last memory), `--b2f32-compare` B2's fp32 build
 alone at SDXL's VAE shapes (`B2F32_COMPARE`) and `--bwd160-compare` B3 and
 B4 at `BACKWARD_SHAPES` (the d = 160 rows against the plain backward and
 beside SDPA's backward), each printing one JSON line of rows;
@@ -2138,6 +2148,21 @@ Q2_SOURCE = "invertible_cd_tpu_torch/ops/csrc/int8_quantize.cu"
 # Q2 replaces no TPU kernel: the JAX package's quantiser is XLA's (`quantize_int8`)
 Q2_REPLACES = "invertible_cd_tpu/ops/quant.py:176"
 Q2_TOP = 3  # rows for Q2's costliest shapes of the batch-4 int8 generate
+Q2_UNET = 4  # rows for its most-launched tensor shapes there (the UNet's)
+# Q2's launch keys timed by --q2-compare, for a comparison of two checkouts in
+# one call: its three costliest tensor shapes (the SD1.5 VAE decode's at batch
+# 4, SDXL's fp32 VAE decode at batch 1), its costliest dense shape, and the
+# four tensor shapes the batch-4 int8 generate launches most (the UNet's:
+# 19, 18, 17 and 13 a UNet call), the tensor shapes from NCHW memory and
+# again from channels-last
+Q2_COMPARE = [("int8_quantize", "tensor", 4, 256, 512, 512, "bfloat16"),
+              ("int8_quantize", "tensor", 4, 128, 512, 512, "bfloat16"),
+              ("int8_quantize", "tensor", 1, 256, 1024, 1024, "float32"),
+              ("int8_quantize", "rows", 16384, 320, "bfloat16"),
+              ("int8_quantize", "tensor", 4, 320, 64, 64, "bfloat16"),
+              ("int8_quantize", "tensor", 4, 1280, 16, 16, "bfloat16"),
+              ("int8_quantize", "tensor", 4, 640, 32, 32, "bfloat16"),
+              ("int8_quantize", "tensor", 4, 1280, 8, 8, "bfloat16")]
 # Q1's launch keys timed by --kernels-only, for a comparison of two checkouts
 # in one call: the int8 paths' costliest shapes (the SD1.5 VAE decode and
 # dense layer at batch 4, the SDXL fp32 VAE decode at batch 1) and the
@@ -2273,7 +2298,8 @@ def q2_inputs(key, gen):
 def q2_check_shapes(keys, label: str, device="cuda") -> dict:
     """Q2 against its plain version at every launch key in `keys` on seeded
     activations (a convolution's NCHW and channels-last): codes and scales
-    bit for bit."""
+    bit for bit; at a convolution's keys also its amax pass alone
+    (`quant.tensor_amax`, sp's) against `tensor_amax_plain`."""
     import torch
 
     from invertible_cd_tpu_torch.ops import quant
@@ -2290,23 +2316,28 @@ def q2_check_shapes(keys, label: str, device="cuda") -> dict:
             if not (torch.equal(q, qp) and torch.equal(s, sp)):
                 failures.append(f"{key}: codes differ at {(q != qp).sum().item()}, scales at "
                                 f"{(s != sp).sum().item()}")
+            if not per_row and not torch.equal(quant.tensor_amax(xx), quant.tensor_amax_plain(xx)):
+                failures.append(f"{key}: the amax pass alone differs")
         del x
     check(not failures, f"Q2 vs plain ({label}): " + "; ".join(failures))
     print(f"  Q2 vs plain at {len(keys)} launch shapes of {label} ({checked} layouts): codes and "
-          f"scales bit for bit")
+          f"scales bit for bit, and the amax pass alone at the tensor shapes")
     return {"shapes": len(keys), "layouts": checked, "bit_for_bit": True}
 
 
-def q2_row(key, launches: int, device="cuda") -> dict:
+def q2_row(key, launches: int, device="cuda", channels_last: bool = False) -> dict:
     """A kernels-line row for Q2 at launch key `key`: the kernel against its
-    plain version (the eager quantiser) on seeded activations, per-launch
-    times, the byte bound; no single PyTorch call computes the pass."""
+    plain version (the eager quantiser) on seeded activations (a tensor key's
+    from NCHW memory, or channels-last), per-launch times, the byte bound; no
+    single PyTorch call computes the pass."""
     import torch
 
     from invertible_cd_tpu_torch.ops import quant
 
     gen = torch.Generator(device=device).manual_seed(98)
     x, per_row, amax = q2_inputs(key, gen)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
     q, s = quant.quantize_activation(x, per_row, amax)
     qp, sp = quant.quantize_activation_plain(x, per_row, amax)
     err = max((q.int() - qp.int()).abs().max().item(), (s - sp).abs().max().item())
@@ -2315,7 +2346,8 @@ def q2_row(key, launches: int, device="cuda") -> dict:
                        warmup=1)
     nbytes = x.numel() * x.element_size() + q.numel() + 4.0 * s.numel()
     bound = nbytes / PEAK_BYTES * 1e3
-    name = f"int8_quantize[{key[1]},{'x'.join(map(str, key[2:-1]))},{key[-1]}]"
+    name = (f"int8_quantize[{key[1]},{'x'.join(map(str, key[2:-1]))},{key[-1]}"
+            f"{',channels_last' if channels_last else ''}]")
     row = {
         "name": name, "kernel": "int8_quantize", "batch": key[2], "shape": list(key[1:]), "route": "cuda",
         "source": Q2_SOURCE, "replaces": Q2_REPLACES, "launches": launches, "max_abs_err": err,
@@ -2338,6 +2370,12 @@ def q2_costliest(counter, top: int):
     if rows and not any(k in chosen for k in rows):
         chosen.append(rows[0])
     return chosen
+
+
+def q2_most_launched(counter, top: int, skip=()):
+    """The `top` tensor-form Q2 launch keys of `counter` launched most, not in `skip`."""
+    keys = [k for k in counter if k[1] == "tensor" and k not in skip]
+    return sorted(keys, key=lambda k: (-counter[k], k))[:top]
 
 
 def q1_row(key, launches: int, device="cuda") -> dict:
@@ -2434,6 +2472,19 @@ def codes_gib(*modules) -> float:
             if cached is not None:
                 total += sum(t.numel() * t.element_size() for t in cached[2])
     return total / 2**30
+
+
+def phase_q2_compare():
+    """Q2 at `Q2_COMPARE`, timed by the package imported (this checkout, or
+    another one under --package-root), each tensor key from NCHW and from
+    channels-last memory: one JSON line of the rows (launches: not counted)."""
+    print("Q2 at the int8 paths' costliest and most-launched shapes (launches: not counted):")
+    rows = []
+    for key in Q2_COMPARE:
+        for channels_last in ((False,) if key[1] == "rows" else (False, True)):
+            rows.append(q2_row(key, 0, channels_last=channels_last))
+    print(json.dumps({"q2_compare": [{k: r[k] for k in ("name", "ms", "bound_ms", "plain_ms", "max_abs_err")}
+                                     for r in rows]}))
 
 
 def phase_q1_compare():
@@ -2826,7 +2877,10 @@ def phase_int8(card: str, pipe):
     rows = [q1_row(key, launches_all[key], dev) for key in q1_costliest(int8_gen[BATCH], Q1_TOP)]
     launches_q2 = (int8_gen_q2[4] + int8_gen_q2[1] + q2_counts(inv_launches)
                    + q2_counts(edit_launches))
-    rows += [q2_row(key, launches_q2[key], dev) for key in q2_costliest(int8_gen_q2[BATCH], Q2_TOP)]
+    costliest = q2_costliest(int8_gen_q2[BATCH], Q2_TOP)
+    rows += [q2_row(key, launches_q2[key], dev) for key in costliest]
+    rows += [q2_row(key, launches_q2[key], dev)
+             for key in q2_most_launched(int8_gen_q2[BATCH], Q2_UNET, costliest)]
     report["q1_rows"] = [{k: r[k] for k in ("name", "ms", "bound_ms", "bound_by", "plain_ms",
                                               "library_ms", "library", "launches")} for r in rows]
     pipe.quant_stats.clear()
@@ -4961,6 +5015,8 @@ def parse_args(argv=None):
                    help="run phases 1-3 and 6 only and print the kernel rows (not the device line)")
     p.add_argument("--q1-compare", action="store_true",
                    help="build and time Q1 at the int8 paths' costliest shapes (Q1_COMPARE) only")
+    p.add_argument("--q2-compare", action="store_true",
+                   help="build and time Q2 at its costliest and most-launched shapes (Q2_COMPARE) only")
     p.add_argument("--b2f32-compare", action="store_true",
                    help="build and time B2's fp32 build at SDXL's VAE shapes (B2F32_COMPARE) only")
     p.add_argument("--bwd160-compare", action="store_true",
@@ -5021,7 +5077,11 @@ def main(argv=None) -> int:
         card = phase_card()
         phase_build(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv") if args.bwd160_compare
                     else ("flash_fwd", "flash_fwd_streamed", "flash_bwd_dq", "flash_bwd_dkdv")
-                    if args.dist_fault or args.sp_fault else None)
+                    if args.dist_fault or args.sp_fault else ("int8_quantize",) if args.q2_compare
+                    else None)
+        if args.q2_compare:
+            phase_q2_compare()
+            return 0
         if args.q1_compare:
             phase_q1_compare()
             return 0

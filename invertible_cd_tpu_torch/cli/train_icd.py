@@ -41,10 +41,11 @@ its per-step seed and keeps the rank's rows; the image stream reads the
 rank's stride of the data), and the adapter gradients are averaged. With
 `--fsdp F` each rank also keeps only its shard of the frozen base and
 teacher weights, gathering one UNet block at a time where it runs (in the
-forward and again in the backward pass), and its rows still count: the
-batch must divide over all N ranks (JAX asks only that it divide over dp =
-N / F). JAX's train CLI has no `--tp`, and neither has this one
-(`make_train_step` takes a tp mesh).
+forward and again in the backward pass), and its rows still count: a
+batch that divides over all N ranks splits over them, and one that divides
+only over dp = N / F splits over dp as JAX's does (the F ranks of a dp
+group then take the same rows); dp must divide it. JAX's train CLI has no
+`--tp`, and neither has this one (`make_train_step` takes a tp mesh).
 Rank 0 prints, logs and writes the checkpoints and exports; the eval runs
 on every rank and gathers.
 """
@@ -65,7 +66,7 @@ from ..models.clip import CLIPTextConfig, CLIPTextModel
 from ..models.layers import cast_compute_weights, fan_in_init_
 from ..models.unet2d import UNet2DCondition, UNetConfig
 from ..models.vae import AutoencoderKL, VAEConfig
-from ..parallel import initialize_distributed, is_main, local_device, make_mesh, shard_batch
+from ..parallel import check_batch, initialize_distributed, is_main, local_device, make_mesh, shard_batch
 from ..pipelines.loading import load_bundle_params
 from ..pipelines.pipeline import InvertibleCD, resolve_device
 from ..pipelines.sdxl import InvertibleCDXL
@@ -155,7 +156,8 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--fsdp", type=int, default=1,
                    help="shard the frozen base/teacher weights over this many of the ranks "
-                        "(torchrun); the rows split over every rank")
+                        "(torchrun); the rows split over every rank where they divide, "
+                        "else over dp = ranks / fsdp")
     p.add_argument("--remat", action="store_true",
                    help="gradient checkpointing on the student UNets")
     p.add_argument("--bf16_params", action="store_true",
@@ -288,7 +290,7 @@ def batch_iterator(args, cfg, latent_size, device, start: int = 0, pipe=None, me
     from ..data.dataset import ImageCaptionDataset, make_train_iterator
 
     ds = ImageCaptionDataset(args.data_root, args.data_subset, args.resolution)
-    rows, row = (1, 0) if mesh is None else (mesh.rows, mesh.row)
+    rows, row = (1, 0) if mesh is None else mesh.batch_rows(args.batch_size)
     raw = make_train_iterator(ds, args.batch_size // rows, rank=row, num_replicas=rows,
                               seed=args.seed, start=start)
     xl = args.model == "sdxl"
@@ -556,11 +558,10 @@ def main(argv=None):
                          "--synthetic_data (seeded random latents and contexts)")
     initialize_distributed(device=args.device)
     mesh = make_mesh(fsdp=args.fsdp, device=torch.device(args.device).type)
-    if args.batch_size % mesh.rows:
-        raise SystemExit(
-            f"--batch_size {args.batch_size} is not divisible by the {mesh.rows} ranks its rows "
-            f"split over (dp={mesh.dp} x fsdp={mesh.fsdp}: under --fsdp the ranks that share "
-            f"the weights take rows too). Pick a batch size that is a multiple of {mesh.rows}.")
+    try:
+        check_batch(args.batch_size, mesh)
+    except ValueError as e:
+        raise SystemExit(f"--batch_size: {e}")
     main_rank = is_main(mesh)
     say = print if main_rank else (lambda *a, **k: None)
     device = resolve_device(local_device(args.device))
@@ -631,7 +632,7 @@ def main(argv=None):
     last = None
     for i in range(start, args.max_steps):
         gen.manual_seed(args.seed * 7 + i)
-        state, metrics = step_fn(state, next(data), gen)
+        state, metrics = step_fn(state, next(data), gen, global_batch=args.batch_size)
         final = i + 1 == args.max_steps
         if (i + 1) % args.log_every == 0 or i == start or final:
             last = {k: float(v) for k, v in metrics.items()}  # waits for the device

@@ -27,8 +27,9 @@ on every call; outside an int8 scope they are exactly their base class.
     JAX), the cast to the layer's dtype, and the bias added in that dtype,
     as flax's Dense and Conv add it.
 
-On the card a Q-layer call is Q2 (one launch; two for a convolution's
-dynamic amax), the output's allocation and Q1. Neither kernel replaces a TPU
+On the card a Q-layer call is Q2 (one launch; a convolution's dynamic amax
+and its codes in one cooperative launch with a grid barrier), the output's
+allocation and Q1. Neither kernel replaces a TPU
 kernel: JAX leaves the quantisers and the int8 products to XLA
 (`lax.dot_general` / `lax.conv_general_dilated` at int32), and PyTorch has
 no int8 convolution on CUDA. Given CUDA tensors, `int8_gemm` and
@@ -38,7 +39,8 @@ in float64, exact for |acc| < 2^53, rounded back to int32, then the same
 epilogue) and `quantize_activation_plain`. Launches count in
 `flash_attention.LAUNCH_SHAPES` under ("int8_gemm", batch, H, W, C, N, kh,
 kw, stride, padding, output dtype) and ("int8_quantize", form, shape...,
-input dtype); weight quantisations in `WEIGHT_QUANTIZATIONS`.
+input dtype) (form "rows", "rows_amax", "tensor", "static", or "amax" for
+`tensor_amax`); weight quantisations in `WEIGHT_QUANTIZATIONS`.
 
 The quantisers (amax, multiply by the precomputed reciprocal, round half to
 even, clip, int8) take JAX's IEEE steps: on fp32 input their codes and
@@ -158,11 +160,9 @@ def _amax(x: torch.Tensor, axes: Optional[Sequence[int]] = None) -> torch.Tensor
     return torch.where(a > 0, a, torch.ones_like(a))
 
 
-def tensor_amax(x: torch.Tensor) -> torch.Tensor:
-    """A convolution's dynamic activation amax (one fp32 value, 1.0 for an
-    all-zero tensor), for a caller that reduces it over ranks and passes it
-    on as the `amax` of `int8_conv2d`, which then quantises with it as the
-    dynamic path would."""
+def tensor_amax_plain(x: torch.Tensor) -> torch.Tensor:
+    """`tensor_amax`'s plain version: max |x| in fp32, 1.0 for an all-zero
+    tensor, shape (1,)."""
     return _amax(x).reshape(1)
 
 
@@ -271,10 +271,47 @@ def _launch(device: torch.device, fn, *args) -> None:
 
 # (x, x_kind, q, scale, rows, k, kp, stream); the same with the rows' amax
 # after scale; (x, x_kind, channels_last, q, scale, amax, workspace, batch,
-# c, h, w, cp, stream)
+# c, h, w, cp, stream); (x, x_kind, out, workspace, n, stream)
 _ROWS_ARGS = [_P, _I, _P, _P, ctypes.c_longlong, _I, _I, _P]
 _ROWS_AMAX_ARGS = [_P, _I, _P, _P, _P, ctypes.c_longlong, _I, _I, _P]
 _TENSOR_ARGS = [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_AMAX_ARGS = [_P, _I, _P, _P, ctypes.c_longlong, _P]
+
+
+def _workspace(device: torch.device) -> torch.Tensor:
+    """Q2's workspace: the blocks' partial amaxes, read after its grid
+    barrier."""
+    return torch.empty(_entry("int8_quantize", "icd_quantize_workspace_floats", [])(), dtype=torch.float32,
+                       device=device)
+
+
+def _dense(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """x as it lies in memory for Q2's tensor form: (x, 0) when contiguous,
+    (x, 1) when channels-last, else (a contiguous copy, 0)."""
+    if x.is_contiguous():
+        return x, 0
+    if x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last):
+        return x, 1
+    return x.contiguous(), 0
+
+
+def tensor_amax(x: torch.Tensor) -> torch.Tensor:
+    """A convolution's dynamic activation amax (one fp32 value, 1.0 for an
+    all-zero tensor), for a caller that reduces it over ranks and passes it
+    on as the `amax` of `int8_conv2d`, which then quantises with it as the
+    dynamic path would. On CUDA Q2's amax pass alone (one launch, counted
+    under ("int8_quantize", "amax", shape..., dtype)); CPU tensors take
+    `tensor_amax_plain`."""
+    if x.device.type == "cpu":
+        return tensor_amax_plain(x)
+    if x.dtype not in _IN_KIND:
+        raise TypeError(f"Q2 reads bf16 or fp32, not {x.dtype}")
+    x, _ = _dense(x)
+    out = torch.empty(1, dtype=torch.float32, device=x.device)
+    _launch(x.device, _entry("int8_quantize", "icd_quantize_tensor_amax", _AMAX_ARGS), x.data_ptr(),
+            _IN_KIND[x.dtype], out.data_ptr(), _workspace(x.device).data_ptr(), x.numel())
+    fa.LAUNCH_SHAPES[("int8_quantize", "amax", *x.shape, _DTYPE_NAME[x.dtype])] += 1
+    return out
 
 
 def quantize_key(x: torch.Tensor, per_row: bool, static: bool = False) -> tuple:
@@ -288,10 +325,10 @@ def quantize_key(x: torch.Tensor, per_row: bool, static: bool = False) -> tuple:
 def quantize_activation(x: torch.Tensor, per_row: bool,
                         amax: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel Q2 (`csrc/int8_quantize.cu`): `quantize_activation_plain`'s
-    codes and scales, bit for bit, in one launch (dense, with each row's
-    amax or with the rows' `amax` read on the device; a convolution with a
-    calibrated `amax`) or two (a convolution's dynamic amax, then the codes,
-    counted as one launch). CPU tensors take the plain version."""
+    codes and scales, bit for bit, in one kernel launch (dense, with each
+    row's amax or with the rows' `amax` read on the device; a convolution
+    with its dynamic amax, or with a calibrated `amax`). CPU tensors take
+    the plain version."""
     if x.device.type == "cpu":
         return quantize_activation_plain(x, per_row, amax)
     if x.dtype not in _IN_KIND:
@@ -319,19 +356,12 @@ def quantize_activation(x: torch.Tensor, per_row: bool,
         return q, s
     if x.dim() != 4:
         raise ValueError(f"Q2 takes a (B, C, H, W) activation, not {tuple(x.shape)}")
-    channels_last = 0
-    if not x.is_contiguous():
-        if x.is_contiguous(memory_format=torch.channels_last):
-            channels_last = 1
-        else:
-            x = x.contiguous()
+    x, channels_last = _dense(x)
     b, c, h, w = x.shape
     q = torch.empty((b, h, w, padded(c)), dtype=torch.int8, device=dev)
     s = torch.empty(1, dtype=torch.float32, device=dev)
     if amax is None:
-        ws = torch.empty(_entry("int8_quantize", "icd_quantize_workspace_floats", [])(), dtype=torch.float32,
-                         device=dev)  # pass 1's partial amaxes
-        amax_ptr, ws_ptr = None, ws.data_ptr()
+        amax_ptr, ws_ptr = None, _workspace(dev).data_ptr()
     else:
         amax = amax.to(device=dev, dtype=torch.float32).reshape(1)
         amax_ptr, ws_ptr = amax.data_ptr(), None

@@ -23,7 +23,9 @@ one process per card (launched by `torchrun` /
     tensors that this rule splits (laid end to end, unit by unit) and
     gathers them again.
   * `shard_batch` / `process_local_batch_slice`: this rank's rows of a
-    global batch, contiguous per rank; `latent_rows` / `gather_rows`: this
+    global batch, contiguous per rank, over dp x fsdp where they divide it
+    and over dp alone otherwise (JAX's `shard_batch` asks only that dp
+    divide it; `check_batch` raises its error); `latent_rows` / `gather_rows`: this
     rank's rows of a latent's height over sp (JAX's `latent_sharding`) and
     the gather of them back in rank order.
   * `all_reduce_mean`, `all_gather_objects`, `broadcast_object`, `barrier`
@@ -138,13 +140,25 @@ class Mesh:
 
     @property
     def rows(self) -> int:
-        """How many ranks a batch's rows split over: dp x fsdp."""
+        """How many ranks a batch's rows split over where they divide it:
+        dp x fsdp (the "rows" group)."""
         return self.dp * self.fsdp
 
     @property
     def row(self) -> int:
         """This rank's place among them (its block of rows)."""
         return self.coordinate("dp") * self.fsdp + self.coordinate("fsdp")
+
+    def batch_rows(self, batch: int) -> Tuple[int, int]:
+        """(ranks, index): how many ranks a global batch of `batch` rows
+        splits over, and this rank's place among them. dp x fsdp (`rows`,
+        `row`) where it divides the batch; else dp alone, as JAX's
+        `shard_batch` splits it, the fsdp ranks of a dp group then taking
+        the same rows (their gradients are equal, so the mean over the rows
+        group is the mean over dp)."""
+        if batch % self.rows == 0:
+            return self.rows, self.row
+        return self.dp, self.coordinate("dp")
 
     def group(self, axis: Optional[str] = None):
         """This rank's process group of `axis` ("dp", "fsdp", "sp" or "tp"),
@@ -195,27 +209,27 @@ def make_mesh(dp: Optional[int] = None, fsdp: int = 1, sp: int = 1, tp: int = 1,
 # ---------------------------------------------------------------------------
 # batches
 # ---------------------------------------------------------------------------
-def _check_batch(b: int, mesh: Mesh) -> None:
+def check_batch(b: int, mesh: Mesh) -> None:
     """JAX's `shard_batch` ValueError unless `b` rows split over the mesh's
-    rows (dp x fsdp here; JAX's dp)."""
-    rows = mesh.rows
-    if rows > 1 and b % rows != 0:
-        axis = f"dp={rows} axis" if mesh.fsdp == 1 else f"dp x fsdp={rows} axes"
+    dp axis (word for word)."""
+    dp = mesh.dp
+    if dp > 1 and b % dp != 0:
         raise ValueError(
-            f"batch size {b} is not divisible by the mesh's {axis} "
-            f"({mesh.size} devices as "
+            f"batch size {b} is not divisible by the mesh's dp={dp} "
+            f"axis ({mesh.size} devices as "
             f"dp{mesh.dp}xfsdp{mesh.fsdp}"
             f"xtp{mesh.tp}). Use a batch size that is "
-            f"a multiple of {rows}, or shrink dp via --fsdp/--tp (e.g. "
-            f"make_mesh(dp={max(d for d in range(1, rows + 1) if b % d == 0)}, ...))."
+            f"a multiple of {dp}, or shrink dp via --fsdp/--tp (e.g. "
+            f"make_mesh(dp={max(d for d in range(1, dp + 1) if b % d == 0)}, ...))."
         )
 
 
 def process_local_batch_slice(global_batch: int, mesh: Mesh) -> Tuple[int, int]:
     """(start, size) of this rank's contiguous rows of a global batch (JAX
-    :182, per host there)."""
-    per = global_batch // mesh.rows
-    return mesh.row * per, per
+    :182, per host there), split as `Mesh.batch_rows` says."""
+    ranks, index = mesh.batch_rows(global_batch)
+    per = global_batch // ranks
+    return index * per, per
 
 
 def shard_batch(batch, mesh: Mesh):
@@ -224,7 +238,7 @@ def shard_batch(batch, mesh: Mesh):
     split over the rows."""
     leaves = _leaves(batch)
     if leaves:
-        _check_batch(leaves[0].shape[0], mesh)
+        check_batch(leaves[0].shape[0], mesh)
         start, size = process_local_batch_slice(leaves[0].shape[0], mesh)
     return _map(batch, lambda x: x[start:start + size])
 

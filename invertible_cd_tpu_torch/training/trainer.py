@@ -28,10 +28,12 @@ rows of them. With a mesh (`parallel.make_mesh`) the step is the
 one-process step on the concatenated batch, as JAX's is under GSPMD:
 
   * dp and fsdp: each rank of dp x fsdp is given its own rows of the batch
-    and a generator seeded alike on every rank (or the draws at the global
-    batch); the adapter gradients (before the clip and the non-finite
-    guard) and the logged losses are averaged over those ranks (the
-    "rows" group), so every rank applies the same update.
+    (where dp x fsdp does not divide the batch, as JAX splits it: over dp,
+    the fsdp ranks of a dp group taking the same rows) and a generator
+    seeded alike on every rank (or the draws at the global batch); the
+    adapter gradients (before the clip and the non-finite guard) and the
+    logged losses are averaged over the dp x fsdp ranks (the "rows"
+    group), so every rank applies the same update.
   * tp: the ranks of a tp group take the same rows and run a copy of the
     UNet split over the group (`parallel.tp`: this rank's heads of every
     attention block whose heads divide over tp, its features of every
@@ -283,7 +285,8 @@ def make_train_step(
     holds no copy.
 
     Returned signature:
-      step_fn(state, batch, generator=None, draws=None) -> (new_state, metrics)
+      step_fn(state, batch, generator=None, draws=None, global_batch=None)
+        -> (new_state, metrics)
     batch: dict with
       latents: (B, h, w, 4) clean VAE latents (already scaled),
       context: (B, 77, D) prompt embeddings,
@@ -299,10 +302,12 @@ def make_train_step(
     modified; metrics are 0-dim tensors on the device (ints for the skip
     counters).
 
-    With `mesh`, `batch` holds this rank's rows (B = the global batch /
-    `mesh.rows`; the ranks of a tp group hold the same rows), while
-    `generator` and `draws` are at the global batch, the same on every
-    rank; the metrics are the global batch's, and every rank returns the
+    With `mesh`, `batch` holds this rank's rows (`parallel.shard_batch`:
+    B = the global batch / dp x fsdp where that divides it, else / dp; the
+    ranks of a tp group hold the same rows), while `generator` and `draws`
+    are at the global batch, the same on every rank; `global_batch` is its
+    size (by default a given draw's, else B x dp x fsdp), which says how
+    the rows split; the metrics are the global batch's, and every rank returns the
     same state. `unet`, `base` and `teacher` are whole on every rank: under
     `mesh.tp > 1` the step runs a split copy of `unet` (its structure only,
     on the meta device) on its own slices of `base` and `teacher`. Under
@@ -395,15 +400,28 @@ def make_train_step(
                 grads[i] = g
         return all_reduce_mean(grads, mesh)
 
-    rows, row = (mesh.rows, mesh.row) if mesh is not None else (1, 0)
+    def batch_split(b: int, draws: Dict, global_batch: Optional[int]) -> Tuple[int, int]:
+        """(ranks, index) of this rank's `b` rows in the global batch: its
+        size `global_batch`, or the leading size of a given draw, or else
+        b x dp x fsdp; split as `Mesh.batch_rows` says."""
+        if mesh is None:
+            return 1, 0
+        if global_batch is None:
+            global_batch = next(iter(draws.values())).shape[0] if draws else b * mesh.rows
+        rows, row = mesh.batch_rows(global_batch)
+        if b * rows != global_batch:
+            raise ValueError(f"{b} rows on this rank are not its share of a global batch of "
+                             f"{global_batch} over {rows} ranks (dp={mesh.dp}, fsdp={mesh.fsdp})")
+        return rows, row
 
-    def global_draws(draws: Dict, batch: Dict, generator) -> Dict:
-        """This rank's rows of the draws at the global batch (`rows` times
-        the rank's): those not given are drawn in the order the step uses
-        them (noise unless the batch has it, w, then the losses' indices in
-        the order the losses run)."""
+    def global_draws(draws: Dict, batch: Dict, generator, global_batch: Optional[int]) -> Dict:
+        """This rank's rows of the draws at the global batch: those not
+        given are drawn in the order the step uses them (noise unless the
+        batch has it, w, then the losses' indices in the order the losses
+        run)."""
         x = batch["latents"]
         b, device = x.shape[0], x.device
+        rows, row = batch_split(b, draws, global_batch)
         gb = b * rows
         out = dict(draws)
         gdev = generator.device if generator is not None else device
@@ -422,8 +440,9 @@ def make_train_step(
                 out[name] = L.draw_index(generator, high, gb, device)
         return {k: v[row * b:(row + 1) * b] for k, v in out.items()}
 
-    def step_fn(state: ICDTrainState, batch: Dict, generator=None, draws: Optional[Dict] = None):
-        draws = global_draws(draws or {}, batch, generator)
+    def step_fn(state: ICDTrainState, batch: Dict, generator=None, draws: Optional[Dict] = None,
+                global_batch: Optional[int] = None):
+        draws = global_draws(draws or {}, batch, generator, global_batch)
         latents = batch["latents"].permute(0, 3, 1, 2)  # the UNet runs NCHW
         device = latents.device
         context = batch["context"]

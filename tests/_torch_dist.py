@@ -84,9 +84,20 @@ def _tiny_world(base, num_heads=None):
     return unet, schedule, solver
 
 
+def _first_rows(batch, run):
+    """The batch and the run's draws cut to the run's first `batch_rows`
+    rows (all of them by default)."""
+    n, draws = run.get("batch_rows"), run.get("draws")
+    if n is None:
+        return batch, draws
+    return ({k: v[:n] for k, v in batch.items()},
+            None if draws is None else {k: v[:n] for k, v in draws.items()})
+
+
 def _steps(payload, mesh_of) -> dict:
     """Each of payload["steps"] ({name: dict(fsdp=, tp=, min_size=, tcfg=,
-    draws=, seed=, num_heads=)}) on the rank's rows of payload["batch"],
+    draws=, seed=, num_heads=, batch_rows=)}) on the rank's rows of
+    payload["batch"] (its first batch_rows rows, the global batch),
     with the trainer's FSDP_MIN_SIZE set to min_size (default 2**16) for
     it. Under fsdp > 1 the store's gathers are read: `peak` the most
     gathered bytes alive at once during the step, `live` those still alive
@@ -112,9 +123,12 @@ def _steps(payload, mesh_of) -> dict:
             store.reset_peak()
         gen = None if run.get("seed") is None else torch.Generator().manual_seed(run["seed"])
         batch = {k: v for k, v in payload["batch"].items() if k in run.get("keys", payload["batch"])}
-        new, metrics = step_fn(payload["state"], shard_batch(batch, mesh), gen, run.get("draws"))
+        batch, draws = _first_rows(batch, run)
+        gb = batch["latents"].shape[0]
+        new, metrics = step_fn(payload["state"], shard_batch(batch, mesh), gen, draws, global_batch=gb)
+        rows, row = mesh.batch_rows(gb)
         out[name] = dict(state=new, metrics={k: float(v) for k, v in metrics.items()},
-                         resident=step_fn.resident_bytes(), rows=mesh.rows, row=mesh.row)
+                         resident=step_fn.resident_bytes(), rows=rows, row=row)
         if store is not None:
             out[name].update(peak=store.peak_bytes, live=store.live_bytes, units=store.peak_units,
                              unit_max=max(store.gathered_bytes(k, dicts=(i,))

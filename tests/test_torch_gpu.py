@@ -945,6 +945,127 @@ def test_int8_linear_split_on_one_rank_is_the_int8_layer(cuda, rows, k, n):
         assert torch.equal(got, want)
 
 
+def _q2_input(cuda, shape, dtype, seed=31, channels_last=False):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device=cuda)
+    x.view(-1)[::997] *= 11.0
+    x = x.to(dtype)
+    return x.contiguous(memory_format=torch.channels_last) if channels_last else x
+
+
+def _q2_tensor_check(x, amax=None):
+    """One counted launch of Q2's tensor form on x, bit for bit its plain
+    version's codes and scale."""
+    from invertible_cd_tpu_torch.ops import quant
+
+    before = fa.launches("int8_quantize")
+    q, s = quant.quantize_activation(x, False, amax)
+    qp, sp = quant.quantize_activation_plain(x, False, amax)
+    torch.cuda.synchronize()
+    assert fa.launches("int8_quantize") == before + 1
+    assert q.shape == qp.shape and torch.equal(q, qp), f"codes differ at {(q != qp).sum().item()} places"
+    assert torch.equal(s, sp)
+
+
+# Q2's tensor form at the edges of its design: one persistent launch that keeps
+# each block's tiles in shared memory across a grid barrier (27 slots of 8 KB
+# a block, ~29 MB on an H100), streams the rest through a ring and reads it
+# again newest first; NCHW rows by TMA where H W x the element size is a
+# multiple of 16 bytes, copied by the threads otherwise
+Q2_TENSOR_CASES = [
+    ("beyond_chip", (4, 256, 256, 256)),  # 134 MB in bf16: most tiles read twice
+    ("beyond_chip_fp32", (1, 256, 320, 320)),  # 105 MB in fp32
+    ("fits", (2, 640, 32, 32)),           # wholly on chip
+    ("concat_960", (4, 960, 64, 64)),     # just over: a few tiles through the ring
+    ("c3", (2, 3, 64, 64)),
+    ("c4", (2, 4, 64, 64)),
+    ("c8", (2, 8, 64, 64)),
+    ("c80", (2, 80, 16, 16)),             # a second channel tile of 16
+    ("hw_ragged_tma", (2, 320, 12, 12)),  # H W = 144: a part tile, still TMA
+    ("hw_odd_copied", (2, 64, 9, 7)),     # H W = 63: rows TMA cannot take
+    ("hw_ragged_many", (3, 40, 33, 17)),
+]
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case,shape", Q2_TENSOR_CASES, ids=[c for c, _ in Q2_TENSOR_CASES])
+def test_q2_tensor_form_edges(cuda, case, shape, dtype, layout):
+    """Q2's tensor form (dynamic amax, and static with a clipping amax) on
+    inputs larger than the chip holds, wholly held, just over, with C = 3, 4,
+    8 and a ragged channel tile, H W off the tile, from NCHW and channels-
+    last memory, bf16 and fp32: codes and scales bit for bit its plain
+    version's, one launch each."""
+    x = _q2_input(cuda, shape, dtype, channels_last=layout == "channels_last")
+    _q2_tensor_check(x)
+    _q2_tensor_check(x, (0.75 * x.float().abs().amax()).reshape(1))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+def test_q2_amax_in_the_last_tile_of_the_last_block(cuda, dtype):
+    """The tensor's amax planted in the tile the last block reads last (each
+    block reads a contiguous run of tiles, ordered by position tile, then
+    channel tile, then image, the kept ones first, then those through its
+    ring; 64 channels x 128 bytes of positions a tile): every block must
+    wait for it at the barrier, or its codes are made with a smaller amax
+    and differ."""
+    shape = (4, 256, 128, 128)
+    x = 0.5 * torch.rand(shape, generator=torch.Generator(device=cuda).manual_seed(5), device=cuda)
+    pb = 128 // torch.tensor([], dtype=dtype).element_size()
+    x.view(shape[0], shape[1], -1)[-1, 192 + 5, (shape[2] * shape[3] - pb) + 3] = -40.0
+    x = x.to(dtype)
+    assert x.float().abs().amax().item() == 40.0
+    _q2_tensor_check(x)
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_q2_all_zero_tensor(cuda, layout):
+    """An all-zero convolution input: codes 0 and the scale of amax 1.0, as
+    the plain version gives, on and off the chip's capacity."""
+    for shape in ((4, 320, 64, 64), (4, 256, 256, 256)):
+        x = torch.zeros(shape, device=cuda, dtype=torch.bfloat16)
+        if layout == "channels_last":
+            x = x.contiguous(memory_format=torch.channels_last)
+        _q2_tensor_check(x)
+
+
+@pytest.mark.parametrize("layout", ["nchw", "channels_last"])
+def test_q2_back_to_back_calls_on_one_stream(cuda, layout):
+    """Two dynamic calls queued without a synchronisation between them (the
+    second input ten times the first): the grid barrier's counter is reset
+    for each, so the second waits for its own blocks and both equal the
+    plain version."""
+    from invertible_cd_tpu_torch.ops import quant
+
+    x1 = _q2_input(cuda, (4, 320, 64, 64), torch.bfloat16, seed=1, channels_last=layout == "channels_last")
+    x2 = (10.0 * x1.float()).to(torch.bfloat16)
+    x2[-1, -1, -1, -1] = 900.0
+    out = [quant.quantize_activation(x, False) for x in (x1, x2, x1)]
+    torch.cuda.synchronize()
+    for x, (q, s) in zip((x1, x2, x1), out):
+        qp, sp = quant.quantize_activation_plain(x, False)
+        assert torch.equal(q, qp) and torch.equal(s, sp)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape,channels_last", [
+    ((4, 320, 64, 64), False), ((4, 320, 64, 64), True), ((1, 3, 65, 33), False), ((2, 4, 17, 5), True),
+    ((1, 512, 258, 256), False), ((4, 1280, 8, 8), True)])
+def test_q2_tensor_amax_matches_plain(cuda, shape, channels_last, dtype):
+    """Q2's amax pass alone (`quant.tensor_amax`, the dynamic amax sp
+    reduces over its ranks) equals `tensor_amax_plain` bit for bit (and 1.0
+    for an all-zero tensor), one counted launch each."""
+    from invertible_cd_tpu_torch.ops import quant
+
+    x = _q2_input(cuda, shape, dtype, seed=9, channels_last=channels_last)
+    for xx in (x, torch.zeros_like(x)):
+        before = fa.launches("int8_quantize")
+        got = quant.tensor_amax(xx)
+        torch.cuda.synchronize()
+        assert fa.launches("int8_quantize") == before + 1
+        assert torch.equal(got, quant.tensor_amax_plain(xx))
+
+
 def test_q2_all_zero_input(cuda):
     from invertible_cd_tpu_torch.ops import quant
 

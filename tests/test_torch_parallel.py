@@ -67,7 +67,7 @@ from invertible_cd_tpu_torch.training import LossConfig, TrainConfig, init_train
 from invertible_cd_tpu_torch.training.eval import eval_inversion, sample_for_fid
 from invertible_cd_tpu_torch.training.trainer import init_optimizer
 
-from _torch_dist import OrderScorer, Ranks, _tiny_world, ev_decode, ev_fns
+from _torch_dist import OrderScorer, Ranks, _first_rows, _tiny_world, ev_decode, ev_fns
 from _torch_jax_params import seeded_tiny_bundle, traced_init
 from invertible_cd_tpu.models.lora import find_lora_targets as jfind_lora_targets
 from invertible_cd_tpu_torch.parallel.tp import tp_plan, tp_slice_lora
@@ -147,6 +147,46 @@ def test_shard_batch_and_local_slice():
         assert torch.equal(got["a"], torch.arange(start, start + size))
         assert torch.equal(got["b"]["c"], batch["b"]["c"][start:start + size])
     assert process_local_batch_slice(8, Mesh()) == (0, 8)
+    # a batch dp divides and dp x fsdp does not: split over dp, the fsdp ranks
+    # of a dp group taking the same rows (JAX's shard_batch)
+    for rank, (dp, fsdp), b in [(0, (1, 2), 1), (1, (1, 2), 1), (5, (2, 4), 6), (2, (2, 4), 6),
+                                (7, (1, 8), 4)]:
+        mesh = Mesh(dp=dp, fsdp=fsdp, rank=rank)
+        start, size = process_local_batch_slice(b, mesh)
+        assert (start, size) == (rank // fsdp * (b // dp), b // dp)
+        assert mesh.batch_rows(b) == (dp, rank // fsdp)
+        got = shard_batch({"a": torch.arange(b)}, mesh)
+        assert torch.equal(got["a"], torch.arange(start, start + size))
+
+
+@pytest.mark.parametrize("dp,fsdp,b", [(1, 2, 1), (2, 4, 6), (1, 8, 4), (2, 2, 4), (2, 2, 2), (4, 2, 8)])
+def test_shard_batch_rows_match_jax(dp, fsdp, b):
+    """Each rank of a dp x fsdp mesh keeps the rows JAX's `shard_batch`
+    places on the device at its place in the mesh: the same split where dp
+    x fsdp divides the batch (each rank its own rows), and where only dp
+    does, JAX's (the fsdp ranks of a dp group the same rows)."""
+    x = np.arange(b, dtype=np.float32)
+    jmesh = jmake_mesh(dp=dp, fsdp=fsdp, devices=jax.devices()[:dp * fsdp])
+    placed = jshard_batch({"x": x}, jmesh)["x"]
+    rows_of = {shard.device: np.asarray(shard.data).tolist() for shard in placed.addressable_shards}
+    for rank, device in enumerate(np.asarray(jmesh.devices).reshape(-1)):
+        start, size = process_local_batch_slice(b, Mesh(dp=dp, fsdp=fsdp, rank=rank))
+        if b % (dp * fsdp) == 0:
+            assert size == b // (dp * fsdp)
+        else:  # JAX's split over dp
+            assert rows_of[device] == list(range(start, start + size))
+
+
+@pytest.mark.parametrize("dp,fsdp,b", [(2, 2, 3), (4, 2, 6), (2, 4, 5)])
+def test_shard_batch_error_on_fsdp_mesh_matches_jax(dp, fsdp, b):
+    """Only a batch that dp does not divide is refused, with JAX's
+    ValueError word for word on a dp x fsdp mesh of as many devices."""
+    x = np.zeros((b, 2), np.float32)
+    with pytest.raises(ValueError) as want:
+        jshard_batch({"x": x}, jmake_mesh(dp=dp, fsdp=fsdp, devices=jax.devices()[:dp * fsdp]))
+    with pytest.raises(ValueError) as got:
+        shard_batch({"x": torch.from_numpy(x)}, Mesh(dp=dp, fsdp=fsdp))
+    assert str(got.value) == str(want.value)
 
 
 def test_executor_batch_sizes_must_divide_dp():
@@ -251,6 +291,11 @@ def _train_inputs():
         "tp_lazy_remat": dict(fsdp=1, tp=2, tcfg=lazy_remat, draws=draws),
         # the mid-block's attention has one head: it stays whole, its FF splits
         "tp_whole_mid_attention": dict(fsdp=1, tp=2, tcfg=tcfg, draws=draws, num_heads=(2, 1)),
+        # a batch of 1 on fsdp = 2: dp = 1 divides it, dp x fsdp does not, so
+        # both ranks take the row (JAX's split), with the draws or a generator
+        "fsdp_batch1": dict(fsdp=2, tcfg=tcfg, draws=draws, min_size=256, batch_rows=1),
+        "fsdp_batch1_generator": dict(fsdp=2, tcfg=tcfg, seed=4, keys=("latents", "context"),
+                                      min_size=256, batch_rows=1),
     }
     return dict(base=base, state=state, batch=batch, steps=steps)
 
@@ -425,7 +470,8 @@ def _one_process_steps(p):
         step_fn = make_train_step(unet, p["base"], p["base"], solver, schedule, run["tcfg"])
         gen = None if run.get("seed") is None else torch.Generator().manual_seed(run["seed"])
         batch = {k: v for k, v in p["batch"].items() if k in run.get("keys", p["batch"])}
-        out[name] = step_fn(p["state"], batch, gen, run.get("draws"))
+        batch, draws = _first_rows(batch, run)
+        out[name] = step_fn(p["state"], batch, gen, draws)
     return out
 
 
@@ -445,12 +491,14 @@ def _rank_steps(name, two_ranks, four_ranks, sp_tp_inputs):
     if name == "fsdp_tp":
         return [r["train"]["steps"][name] for r in four_ranks], sp_tp_inputs["fsdp_tp"]["state"], 2, 2
     run = two_ranks["inputs"]["steps"][name]
-    tp = run.get("tp", 1)
-    return ([r["steps"][name] for r in two_ranks["ranks"]], two_ranks["inputs"]["state"], tp, 2 // tp)
+    rows = 2 // run.get("tp", 1)  # the ranks that take rows (dp x fsdp) ...
+    if run.get("batch_rows", B) % rows:
+        rows = 1  # ... or dp alone, where they do not divide the batch
+    return ([r["steps"][name] for r in two_ranks["ranks"]], two_ranks["inputs"]["state"], 2 // rows, rows)
 
 
 STEP_CASES = ["dp", "fsdp", "dp_generator", "fsdp_lazy", "fsdp_lazy_remat", "tp", "tp_lazy",
-              "tp_lazy_remat", "tp_whole_mid_attention"]
+              "tp_lazy_remat", "tp_whole_mid_attention", "fsdp_batch1", "fsdp_batch1_generator"]
 
 
 @pytest.mark.parametrize("name", STEP_CASES)
